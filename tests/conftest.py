@@ -38,6 +38,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test, skipped unless --runslow")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 # The slow tier is declared AT DEFINITION SITE with @pytest.mark.slow

@@ -1,0 +1,75 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device. The file imports
+only the port (no JAX), so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerance: every output bit-equal (kernel and plain version share CUDA's
+``logf`` and ``log1pf`` and round every float step alike).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from flipcomplexityempirical_tpu_torch import graphs, init_board, Spec
+from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+from flipcomplexityempirical_tpu_torch.sampling import run_board_cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return "cuda"
+
+
+def _chunk_inputs(h, w, chains, tol, dev):
+    g = graphs.square_grid(h, w)
+    spec = Spec(contiguity="patch")
+    bg, st, params = init_board(g, graphs.stripes_plan(g, 2), n_chains=chains,
+                                seed=0, spec=spec, base=1.4, pop_tol=tol,
+                                device=dev)
+    pop, deg = cb.make_static_inputs(bg)
+    return spec, bg, st, (pop, deg, *cb.pack_state(st, params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,chains,tol", [(8, 16, 16, 0.3),
+                                            (8, 16, 8, 0.0),
+                                            (13, 7, 5, 0.05),
+                                            (64, 64, 32, 0.1)])
+def test_kernel_matches_plain_version(card, h, w, chains, tol):
+    spec, bg, st, (pop, deg, dp, scal, ints) = _chunk_inputs(
+        h, w, chains, tol, card)
+    t_len = 40
+    rng = np.random.default_rng(h * w + chains)
+    bits = (cb.bits_tensor(rng.integers(0, 2 ** 32, (t_len, chains, h * w),
+                                        dtype=np.uint32), card),
+            cb.bits_tensor(rng.integers(0, 2 ** 32, (t_len, 2, chains),
+                                        dtype=np.uint32), card))
+    for mode in (bits, (None, None)):
+        args = (spec, h, w, t_len, 7, 3, st.board, pop, deg, dp, scal, ints,
+                *mode)
+        launches = cb.run_board_chunk_cuda.launches
+        got = cb.run_board_chunk_cuda(*args)
+        assert cb.run_board_chunk_cuda.launches == launches + 1
+        want = cb.board_chunk_reference(*args)
+        torch.cuda.synchronize()
+        for k, (g_arr, w_arr) in enumerate(zip(got, want)):
+            assert torch.equal(g_arr, w_arr.to(g_arr.dtype)), k
+
+
+@pytest.mark.cuda
+def test_runner_goes_through_the_kernel(card):
+    spec, bg, st, _ = _chunk_inputs(8, 16, 8, 0.2, card)
+    g = graphs.square_grid(8, 16)
+    _, _, params = init_board(g, graphs.stripes_plan(g, 2), n_chains=8,
+                              seed=0, spec=spec, base=1.4, pop_tol=0.2,
+                              device=card)
+    launches = cb.run_board_chunk_cuda.launches
+    res = run_board_cuda(bg, spec, params, st, n_steps=121, chunk=40,
+                         device=card)
+    assert cb.run_board_chunk_cuda.launches == launches + 3
+    assert (res.state.t_yield == 121).all()
