@@ -47,10 +47,9 @@ ACCEPT_BAND = (0.40, 0.55)      # accepted share of transitions
 ACCEPT_AGREE = 0.02             # |kernel - plain| accept rate, 501 steps
 CUT_AGREE = 0.05                # relative |kernel - plain| mean cut count
 
-# H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip-measurement
-# guide): HBM3 bandwidth, and the non-tensor FP32 rate, the table's only
-# row for CUDA-core arithmetic (the int32 pipe is narrower, so the bound
-# below is a floor).
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the non-tensor
+# FP32 rate, the sheet's only row for CUDA-core arithmetic (the int32 pipe
+# is narrower, so the bound below is a floor).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # Operations per cell and step of the board-chunk function: 8 neighbour
