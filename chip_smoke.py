@@ -7,18 +7,26 @@ arguments; needs one CUDA card). It builds every kernel of the port from
 PyTorch version on the card, drives the port's main path through the
 entry points a user calls, checks what comes out, and prints:
 
-  1. the card's name and power limit (``nvidia-smi``) and the build time;
-  2. host-bits exactness of the board-chunk kernel against its plain
-     version at 64x64, C=256, T=64 (integers bit-equal, differing waits 0);
-  3. device-RNG exactness at the same shape (the plain version draws
-     through ``rng.py``'s Philox twin): bit-equal;
+  1. the card's name and power limit (``nvidia-smi``), the build time of
+     all kernel sources (one nvcc each, started together) and each
+     kernel's registers and spills;
+  2. the probe path: ``python -m flipcomplexityempirical_tpu_torch.kernel.
+     probes``'s ``run`` with the launch counts zeroed before and read
+     after (one launch of each probe), then each probe kernel against its
+     plain version with host bits and with Philox, bit-equal;
+  3. the board-chunk kernel against its plain version, every output
+     bit-equal, in both RNG modes: 64x64 at C=256, T=64; a non-uniform
+     population plane; a width that straddles words (40x65); an empty
+     valid set (pop_tol 0 on the balanced start);
   4. the main path at ``bench.py --pallas``'s configuration (64x64 rook
      grid, stripes plan, patch contiguity, base 2.63815853, pop_tol 0.1,
      C=4096, chunk 500, a 501-step warmup, 3001 timed steps) through
-     ``run_board_cuda``: flips/s, the kernel's ms per chunk, the wall ms
-     of ``apply_flip_log`` and ``record_final``, peak memory, the kernel's
-     launches (which must equal the chunks run), result checks, and the
-     accept rate and mean cut count beside a 501-step plain-version run;
+     ``run_board_cuda``: flips/s, peak memory, the kernel's launches
+     (which must equal the chunks run), result checks, and the accept
+     rate and mean cut count beside a 501-step plain-version run; then at
+     that shape the kernel against its plain version in both RNG modes,
+     bit-equal, the kernel's ms per chunk and the wall ms of
+     ``apply_flip_log`` and ``record_final``;
   5. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -41,24 +49,46 @@ CHUNK = 500
 WARMUP = 501
 STEPS = 3001
 EXACT_CHAINS, EXACT_T = 256, 64
+# (label, h, w, chains, pop_tol, random population plane): the extra
+# board-chunk cases of phase 3
+EXTRA_CASES = (("non-uniform pop", 48, 48, 128, 0.05, True),
+               ("word-straddling width", 40, 65, 128, 0.1, False),
+               ("empty valid set", 64, 64, 64, 0.0, False))
 PLAIN_CHAINS = 256
 DEVICE = "cuda"
 ACCEPT_BAND = (0.40, 0.55)      # accepted share of transitions
 ACCEPT_AGREE = 0.02             # |kernel - plain| accept rate, 501 steps
 CUT_AGREE = 0.05                # relative |kernel - plain| mean cut count
+PROBE_REPS = 100                # launches per probe timing
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the non-tensor
 # FP32 rate, the sheet's only row for CUDA-core arithmetic (the int32 pipe
-# is narrower, so the bound below is a floor).
+# is narrower, so the bounds below are floors).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# Operations per cell and step of the board-chunk function: 8 neighbour
-# compares and 8 existence masks, 3 adds for same_deg, diff_deg and the
-# boundary test (2), cut_e/cut_s (4), the ring criterion (15), contiguity
-# (3), the population gate (7), validity (2), the counts (3), the score
-# (2), the argmax (2) and the cut_times adds (2): 61; plus the Philox
-# draw, 10 rounds of ~10 operations per 4 cells: 25.
-OPS_PER_CELL_STEP = 61 + 25
+# Operations of the board-chunk function in its packed form, per chain and
+# step: ops = C * T * (K_WORD * ceil(N / 32) + K_TAIL) + K_CELL * sum(h_b).
+# K_WORD, per word of 32 cells: 8 neighbour funnel shifts, 4 "differ"
+# planes (xor, and: 8), the boundary (3 or), 3 popcounts and 3 adds, the
+# same-district planes for the ring criterion (4 rook and-not, 4 diagonal
+# xor and 8 mask ands: 16), 4 run planes (and, and-not: 8), two
+# at-most-one tests (7 each: 14), contiguity and candidates (2), the
+# group mask and its popcount (8): 73.
+# K_TAIL, per chain-step: three warp reductions (the counts, the key's
+# max and first index: 3 x 31), the compaction's ballots and counts (~24),
+# the scalar draw (one Philox block, 100, and two logs, ~40), the wait
+# (~25), the population gate of a uniform plane (8), the accept test and
+# the commit with its cut_times events (~60): 350.
+# K_CELL, per boundary cell (h_b bounds the valid cells from above): a
+# quarter of a Philox block (25) and the key (3): 28; K_GATE more (the
+# per-cell population gate) where the plane is not uniform.
+K_WORD, K_TAIL, K_CELL, K_GATE = 73, 350, 28, 8
+# The per-cell design's figure, kept for comparison: 61 operations a
+# cell-step plus 25 for a Philox draw per cell.
+PER_CELL_OPS = 61 + 25
+# Probes, per element and step: a quarter of a Philox block (25), the sign
+# flip and the max (2); probe B adds the mask test, select and or (3).
+K_PROBE = {"a": 27, "b": 30}
 
 
 def fail(msg: str) -> None:
@@ -81,6 +111,18 @@ def max_abs_diff(got, want) -> float:
                else 0.0 for g, w in zip(got, want))
 
 
+def event_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls (CUDA events)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
 def compare_chunk(cb, args, label: str) -> float:
     """Kernel vs plain version on the same inputs; returns max |diff|."""
     import torch
@@ -93,11 +135,58 @@ def compare_chunk(cb, args, label: str) -> float:
              "cut_s")
     wait_diff = int((got[8] != want[8]).sum()) + int(
         (got[2] != want[2]).sum())
-    print(f"{label}: differing waits {wait_diff}")
+    print(f"{label}: differing waits {wait_diff}, accepts "
+          f"{int((got[3][5] - args[11][5]).sum())}")
     for name, g, w in zip(names, got, want):
         if not torch.equal(g, w.to(g.dtype)):
             fail(f"{label}: {name} differs from the plain version")
     return max_abs_diff(got, want)
+
+
+def host_bits(cb, t_len: int, chains: int, n: int, seed: int):
+    """(T, C, N) and (T, 2, C) int32 bit patterns of uniform uint32 draws,
+    made on the card one step at a time."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    plane = torch.empty((t_len, chains, n), dtype=torch.int32,
+                        device=DEVICE)
+    for t in range(t_len):
+        plane[t] = cb.bits_tensor(torch.randint(
+            0, 2 ** 32, (chains, n), device=DEVICE, generator=gen), DEVICE)
+    scal = cb.bits_tensor(torch.randint(0, 2 ** 32, (t_len, 2, chains),
+                                        device=DEVICE, generator=gen),
+                          DEVICE)
+    return plane, scal
+
+
+def chunk_cases(cb, port, t_len: int, chains: int, h: int, w: int,
+                tol: float, random_pop: bool, label: str) -> float:
+    """The board-chunk kernel against its plain version in both RNG modes
+    from the stripes start of an h x w grid; returns max |diff|."""
+    import numpy as np
+    import torch
+    g = port.graphs.square_grid(h, w)
+    spec = port.Spec(contiguity="patch")
+    bg, st, params = port.init_board(g, port.graphs.stripes_plan(g, 2),
+                                     n_chains=chains, seed=1, spec=spec,
+                                     base=BASE, pop_tol=tol, device=DEVICE)
+    pop, deg = cb.make_static_inputs(bg)
+    dp, scal, ints = cb.pack_state(st, params)
+    if random_pop:
+        rs = np.random.default_rng(h * w)
+        pop = torch.as_tensor(rs.integers(1, 20, h * w), dtype=torch.int32,
+                              device=DEVICE)
+        p1 = (st.board.long() * pop).sum(dim=1)
+        dp = torch.stack([pop.sum() - p1, p1]).to(torch.int32)
+        ideal = float(pop.sum()) / 2
+        scal = scal.clone()
+        scal[2], scal[3] = ideal * (1 - tol), ideal * (1 + tol)
+    common = (spec, h, w, t_len, 99, 3, st.board, pop, deg, dp, scal, ints)
+    bits = host_bits(cb, t_len, chains, h * w, 1234)
+    err = compare_chunk(cb, (*common, *bits), f"{label} host bits")
+    del bits
+    return max(err, compare_chunk(cb, (*common, None, None),
+                                  f"{label} device rng"))
 
 
 def districts_connected(board_row, h: int, w: int) -> bool:
@@ -143,6 +232,61 @@ def plain_run(cb, bg, spec, params, state, n_steps: int, seed: int):
     return rate, sum(cuts) / len(cuts)
 
 
+def probe_phase(probes) -> list:
+    """Drive the probe entry point with the counts zeroed, then hold each
+    probe kernel against its plain version; returns the kernel rows."""
+    import numpy as np
+    import torch
+    probes.probe_a.launches = probes.probe_b.launches = 0
+    probes.run(DEVICE)
+    launches = {"a": probes.probe_a.launches, "b": probes.probe_b.launches}
+    print(f"probe path: probe_a launches {launches['a']}, probe_b launches "
+          f"{launches['b']}")
+    if launches != {"a": 1, "b": 1}:
+        fail(f"the probe path launched {launches}, expected one each")
+    rs = np.random.default_rng(7)
+    rows, cols, steps = probes.ROWS, probes.COLS, probes.STEPS
+    x_np = rs.integers(-3, 4, (rows, cols)).astype(np.int32)
+    x_np[::5] = 0                       # some rows have no valid entry
+    x = torch.as_tensor(x_np, device=DEVICE)
+    bits = torch.as_tensor(rs.integers(0, 2 ** 32, (steps, rows, cols),
+                                       dtype=np.uint32).view(np.int32),
+                           device=DEVICE)
+    rows_out = []
+    for which, fn, line in (("a", probes.probe_a, 27),
+                            ("b", probes.probe_b, 40)):
+        err = 0.0
+        for mode in (bits, None):
+            got = fn(x, steps, probes.SEED, mode)
+            want = probes.probe_reference(which, x, steps, probes.SEED,
+                                          mode)
+            torch.cuda.synchronize()
+            label = "host bits" if mode is not None else "philox"
+            err = max(err, float((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"probe {which} ({label}) differs from its plain "
+                     "version")
+            print(f"probe {which} {label}: bit-equal to the plain version")
+        ms = event_ms(lambda: fn(x, steps, probes.SEED), PROBE_REPS)
+        plain_ms = event_ms(lambda: probes.probe_reference(
+            which, x, steps, probes.SEED), 3)
+        ops = K_PROBE[which] * rows * cols * steps
+        nbytes = 4 * rows * cols * (which == "b") + 4 * rows
+        t_ops = 1e3 * ops / PEAK_OPS_PER_S
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+        print(f"probe {which}: {ms:.4f} ms per launch (CUDA events, mean "
+              f"of {PROBE_REPS}); plain version {plain_ms:.3f} ms")
+        rows_out.append({
+            "name": f"probe_{which}", "route": "cuda",
+            "source": "flipcomplexityempirical_tpu_torch/csrc/probes.cu",
+            "replaces": f"tools/mosaic_probes.py:{line}",
+            "launches": launches[which], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None})
+    return rows_out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -152,6 +296,7 @@ def main() -> None:
         from flipcomplexityempirical_tpu_torch.kernel import _build
         from flipcomplexityempirical_tpu_torch.kernel import board as tb
         from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+        from flipcomplexityempirical_tpu_torch.kernel import probes
     except ImportError as exc:
         fail(f"the port's package is not importable here: {exc}")
 
@@ -163,36 +308,26 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print(f"  {name}: {line.split()[-3]}")
+            elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    # ---- 2: the probe path ---------------------------------------------
+    kernels = probe_phase(probes)
+
+    # ---- 3: board-chunk exactness against the plain version -----------
+    err = chunk_cases(cb, port, EXACT_T, EXACT_CHAINS, GRID, GRID, POP_TOL,
+                      False, f"{GRID}x{GRID} C={EXACT_CHAINS} T={EXACT_T}")
+    for label, h, w, chains, tol, random_pop in EXTRA_CASES:
+        err = max(err, chunk_cases(cb, port, EXACT_T, chains, h, w, tol,
+                                   random_pop, f"{label} {h}x{w}"))
+
+    # ---- 4: the main path ---------------------------------------------
     dev = DEVICE
     g = port.graphs.square_grid(GRID)
     plan = port.graphs.stripes_plan(g, 2)
     spec = port.Spec(contiguity="patch")
-
-    # ---- 2/3: exactness against the plain version --------------------
-    bg, st, params = port.init_board(g, plan, n_chains=EXACT_CHAINS, seed=1,
-                                     spec=spec, base=BASE, pop_tol=POP_TOL,
-                                     device=dev)
-    pop, deg = cb.make_static_inputs(bg)
-    dp, scal, ints = cb.pack_state(st, params)
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    n = bg.n
-    bits = (cb.bits_tensor(torch.randint(0, 2 ** 32, (EXACT_T, EXACT_CHAINS,
-                                                      n), device=dev,
-                                         generator=gen), dev),
-            cb.bits_tensor(torch.randint(0, 2 ** 32, (EXACT_T, 2,
-                                                      EXACT_CHAINS),
-                                         device=dev, generator=gen), dev))
-    common = (spec, bg.h, bg.w, EXACT_T, 99, 3, st.board, pop, deg, dp, scal,
-              ints)
-    err = compare_chunk(cb, (*common, *bits), "host-bits exactness")
-    err = max(err, compare_chunk(cb, (*common, None, None),
-                                 "device-rng exactness"))
-    del bits
-
-    # ---- 4: the main path ---------------------------------------------
     bg, st, params = port.init_board(g, plan, n_chains=CHAINS, seed=0,
                                      spec=spec, base=BASE, pop_tol=POP_TOL,
                                      device=dev)
@@ -257,28 +392,20 @@ def main() -> None:
             or abs(k_cut - p_cut) > CUT_AGREE * p_cut):
         fail("kernel and plain version disagree in distribution")
 
-    # ---- timings at the main path's shape ------------------------------
+    # ---- exactness and timings at the main path's shape ----------------
     dp, scal, ints = cb.pack_state(fs, params)
     pop, deg = cb.make_static_inputs(bg)
     args = (spec, bg.h, bg.w, CHUNK, 7, 0, fs.board, pop, deg, dp, scal, ints)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    bits = host_bits(cb, CHUNK, CHAINS, bg.n, 4321)
+    err = max(err, compare_chunk(cb, (*args, *bits),
+                                 "main-path shape host bits"))
+    del bits
+    err = max(err, compare_chunk(cb, (*args, None, None),
+                                 "main-path shape device rng"))
     reps = 3
-    ev[0].record()
-    for _ in range(reps):
-        outs = cb.run_board_chunk_cuda(*args)
-    ev[1].record()
-    torch.cuda.synchronize()
-    ms = ev[0].elapsed_time(ev[1]) / reps
-    ev[0].record()
-    plain = cb.board_chunk_reference(*args)
-    ev[1].record()
-    torch.cuda.synchronize()
-    plain_ms = ev[0].elapsed_time(ev[1])
-    for name, a, b in zip(range(12), outs, plain):
-        if not torch.equal(a, b.to(a.dtype)):
-            fail(f"main-path shape: output {name} differs from the plain "
-                 "version")
-    err = max(err, max_abs_diff(outs, plain))
+    outs = cb.run_board_chunk_cuda(*args)      # warm
+    ms = event_ms(lambda: cb.run_board_chunk_cuda(*args), reps)
+    plain_ms = event_ms(lambda: cb.board_chunk_reference(*args), 1)
     t_a = time.perf_counter()
     tb.apply_flip_log(fs.part_sum, fs.last_flipped, fs.num_flips, outs[4],
                       outs[5], fs.t_yield)
@@ -294,7 +421,10 @@ def main() -> None:
           f"{final_ms:.3f} ms wall")
 
     n_cells = bg.n
-    ops = OPS_PER_CELL_STEP * n_cells * CHAINS * CHUNK
+    sum_hb = int(outs[7].long().sum())
+    k_cell = K_CELL + (0 if bool((pop == pop[0]).all()) else K_GATE)
+    ops = (CHAINS * CHUNK * (K_WORD * -(-n_cells // 32) + K_TAIL)
+           + k_cell * sum_hb)
     nbytes = (2 * CHAINS * n_cells            # board in, out (int8)
               + 8 * n_cells                   # pop, deg
               + 4 * CHAINS * (2 + 5 + 7 + 2 + 2 + 7)  # per-chain in, out
@@ -302,7 +432,12 @@ def main() -> None:
               + 8 * CHAINS * n_cells)         # cut_e, cut_s out
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     t_ops = 1e3 * ops / PEAK_OPS_PER_S
-    kernels = [{
+    per_cell_ms = 1e3 * (PER_CELL_OPS * n_cells
+                         * CHAINS * CHUNK) / PEAK_OPS_PER_S
+    print(f"board_chunk bound: {ops:.4e} operations (sum h_b {sum_hb}) "
+          f"-> {t_ops:.4f} ms, {nbytes:.4e} bytes -> {t_bytes:.4f} ms; "
+          f"the per-cell design's figure {per_cell_ms:.3f} ms")
+    kernels.insert(0, {
         "name": "board_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/board_chunk.cu",
         "replaces": "flipcomplexityempirical_tpu/kernel/pallas_board.py:105",
@@ -310,7 +445,7 @@ def main() -> None:
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }]
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

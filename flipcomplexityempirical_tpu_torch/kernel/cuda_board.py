@@ -3,17 +3,19 @@
 ``run_board_chunk_cuda`` runs ``t_inner`` steps of the 2-district flip
 chain for every chain of a rook-grid batch. On a CUDA tensor it launches
 the hand-written kernel of ``csrc/board_chunk.cu`` (built on first use by
-``_build``); on a CPU tensor it runs ``board_chunk_reference``, a
-transparent per-step PyTorch replay of the same semantics. Both take and
-return the (k, C) / (T, C) layout of the JAX package's
-``pallas_board.run_pallas_chunk``, whose TPU kernel this one replaces:
+``_build``; one warp per chain, the board bit-packed); on a CPU tensor it
+runs ``board_chunk_reference``, a transparent per-step PyTorch replay of
+the same semantics. Both take and return the (k, C) / (T, C) layout of
+the JAX package's ``pallas_board.run_pallas_chunk``, whose TPU kernel
+this one replaces:
 
     inputs:  board (C, N) int8, pop and deg (N,) int32, dist_pop (2, C)
              int32, scalars (5, C) f32 [log_base, beta, pop_lo, pop_hi,
              cur_wait], counters (7, C) int32 [pending, cur_flip,
              cur_sign, t_yield, move_clock, accepts, exhausted], and in
              host-bits mode bits (T, C, N) and (T, 2, C) int32 bit
-             patterns of uint32 draws;
+             patterns of uint32 draws; the board holds 0 / 1 and deg is
+             the grid's rook degree (checked);
     outputs: board (C, N) int8, dist_pop (2, C), scalars (2, C) f32
              [cur_wait, waits_sum], counters (7, C), six (T, C) rows
              [log_f, log_s, cut, b, wait (f32), accepts], and the chunk's
@@ -38,10 +40,7 @@ from .board import (BoardGraph, BoardState, board_shape, recount_cuts,
 from .board import supports as _board_supports
 from .step import Spec, StepParams, geom_wait
 
-# t_inner bound: the kernel keeps each cell's chunk-local cut_e / cut_s
-# counts as two 16-bit halves of one register
-MAX_T_INNER = 65535
-# board bound: at most 512 threads a block, 8 groups of 4 cells a thread
+# board bound: 512 words of 32 cells, 16 words a lane
 MAX_CELLS = 16384
 
 _U01_SCALE = 1.0 / 16777218.0
@@ -270,6 +269,13 @@ def board_chunk_reference(spec: Spec, h: int, w: int, t_inner: int,
             rows["acc"], cut_e_acc, cut_s_acc)
 
 
+def rook_degree(h: int, w: int, device) -> torch.Tensor:
+    """(N,) int32 rook degree of the h x w grid."""
+    m = _neighbour_masks(h, w, device)
+    return (m["e"].int() + m["w"].int() + m["s"].int()
+            + m["n"].int()).to(torch.int32)
+
+
 def _check_inputs(h, w, t_inner, board, pop_plane, deg_plane, dist_pop,
                   scal, ints, bits_plane, bits_scal) -> None:
     c, n = board.shape
@@ -278,8 +284,8 @@ def _check_inputs(h, w, t_inner, board, pop_plane, deg_plane, dist_pop,
     if n > MAX_CELLS:
         raise ValueError(f"board of {n} cells exceeds the kernel's "
                          f"{MAX_CELLS}")
-    if not 1 <= t_inner <= MAX_T_INNER:
-        raise ValueError(f"t_inner {t_inner} outside [1, {MAX_T_INNER}]")
+    if t_inner < 1:
+        raise ValueError(f"t_inner {t_inner} < 1")
     want = [(board, (c, n), torch.int8), (pop_plane, (n,), torch.int32),
             (deg_plane, (n,), torch.int32), (dist_pop, (2, c), torch.int32),
             (scal, (5, c), torch.float32), (ints, (7, c), torch.int32)]
@@ -296,9 +302,13 @@ def _check_inputs(h, w, t_inner, board, pop_plane, deg_plane, dist_pop,
             raise ValueError(f"tensor on {x.device}, board on {board.device}")
         if not x.is_contiguous():
             raise ValueError("chunk inputs must be contiguous")
+    # the kernel's boundary test is the OR of the rook "differ" planes,
+    # which is deg - same_deg > 0 for this deg only
+    if not torch.equal(deg_plane, rook_degree(h, w, deg_plane.device)):
+        raise ValueError("deg must be the grid's rook degree")
 
 
-_SIGNATURE = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
+_SIGNATURE = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 6
               + [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
 
 
@@ -329,13 +339,16 @@ def _launch(spec, h, w, t_inner, seed, chunk_idx, board, pop_plane,
             torch.empty((c, n), dtype=i32, device=dev))
     (board_o, dp_o, scal_o, ints_o, log_f, log_s, h_cut, h_b, h_wait,
      h_acc, cut_e, cut_s) = outs
+    # last flip step of each cell, read by the kernel only where it wrote
+    # it in this launch
+    last_flip = torch.empty((c, n), dtype=i32, device=dev)
     ptr = [x.data_ptr() for x in (board, pop_plane, deg_plane, dist_pop,
                                   scal, ints)]
     ptr += [bits_plane.data_ptr() if bits_plane is not None else None,
             bits_scal.data_ptr() if bits_scal is not None else None]
     ptr += [x.data_ptr() for x in (board_o, dp_o, scal_o, ints_o, log_f,
                                    log_s, h_cut, h_b, h_wait, h_acc, cut_e,
-                                   cut_s)]
+                                   cut_s, last_flip)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fce_board_chunk(

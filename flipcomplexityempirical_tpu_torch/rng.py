@@ -8,9 +8,10 @@ Two generators live here:
   ``split`` and the scalar f32 ``uniform``. The board path draws the
   final record's geometric wait through them (``board.record_final``),
   and ``init_board_state`` seeds the per-chain keys with them.
-- **Philox4x32-10**, the generator written into the board-chunk kernel
-  (``csrc/board_chunk.cu``). ``philox4x32`` is its torch twin, so the
-  kernel's plain version reproduces the device-RNG mode bit for bit.
+- **Philox4x32-10**, the generator written into the CUDA kernels
+  (``csrc/board_chunk.cu``, ``csrc/probes.cu``). ``philox4x32`` is its
+  torch twin, so the kernels' plain versions reproduce the device-RNG
+  mode bit for bit.
 
 torch's ``uint32`` support is thin, so every word is held in an int64
 tensor with values in [0, 2**32) and every operation masks back to 32
@@ -32,10 +33,12 @@ PHILOX_M1 = 0xCD9E8D57
 PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 
-# the kernel's stream words (the fourth counter word): one stream for the
-# proposal bit plane, one for the two per-step scalars (wait, accept)
+# the kernels' stream words (the fourth counter word): one stream for the
+# board kernel's proposal bit plane, one for its two per-step scalars
+# (wait, accept), one for the probe kernels' bit planes
 STREAM_PLANE = 0
 STREAM_SCALARS = 1
+STREAM_PROBE = 2
 
 
 def _u32(x, like: torch.Tensor | None = None) -> torch.Tensor:
@@ -131,14 +134,16 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
 
 
 def philox_plane(seed: int, chunk_idx: int, t: int, n_chains: int,
-                 n: int, device) -> torch.Tensor:
-    """The kernel's proposal bits at step ``t`` of chunk ``chunk_idx``:
-    (C, N) int64 uint32 values. Chain c's key is (seed low word, c); cell
-    i takes word i % 4 of the block at counter (i // 4, t, chunk, 0)."""
+                 n: int, device, stream: int = STREAM_PLANE) -> torch.Tensor:
+    """The board kernel's proposal bits at step ``t`` of chunk
+    ``chunk_idx``: (C, N) int64 uint32 values. Chain c's key is (seed low
+    word, c); cell i takes word i % 4 of the block at counter (i // 4, t,
+    chunk, stream). The probe kernels draw rows the same way from
+    ``STREAM_PROBE`` with chunk 0."""
     n_words = (n + 3) // 4
     q = torch.arange(n_words, dtype=torch.int64, device=device)[None, :]
     chain = torch.arange(n_chains, dtype=torch.int64, device=device)[:, None]
-    words = philox4x32(q, t, chunk_idx, STREAM_PLANE, seed & MASK32, chain)
+    words = philox4x32(q, t, chunk_idx, stream, seed & MASK32, chain)
     return torch.stack(words, dim=-1).reshape(n_chains, 4 * n_words)[:, :n]
 
 

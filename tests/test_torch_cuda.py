@@ -15,6 +15,7 @@ import torch
 
 from flipcomplexityempirical_tpu_torch import graphs, init_board, Spec
 from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+from flipcomplexityempirical_tpu_torch.kernel import probes
 from flipcomplexityempirical_tpu_torch.sampling import run_board_cuda
 
 
@@ -25,25 +26,45 @@ def card():
     return "cuda"
 
 
-def _chunk_inputs(h, w, chains, tol, dev):
+def _chunk_inputs(h, w, chains, tol, dev, pop_seed=None):
     g = graphs.square_grid(h, w)
     spec = Spec(contiguity="patch")
     bg, st, params = init_board(g, graphs.stripes_plan(g, 2), n_chains=chains,
                                 seed=0, spec=spec, base=1.4, pop_tol=tol,
                                 device=dev)
     pop, deg = cb.make_static_inputs(bg)
-    return spec, bg, st, (pop, deg, *cb.pack_state(st, params))
+    dp, scal, ints = cb.pack_state(st, params)
+    if pop_seed is not None:
+        # a random population plane, with the state and bounds to match
+        r = np.random.default_rng(pop_seed)
+        pop = torch.as_tensor(r.integers(1, 20, h * w), dtype=torch.int32,
+                              device=dev)
+        p1 = (st.board.long() * pop).sum(dim=1)
+        dp = torch.stack([pop.sum() - p1, p1]).to(torch.int32)
+        ideal = float(pop.sum()) / 2
+        scal = scal.clone()
+        scal[2], scal[3] = ideal * (1 - tol), ideal * (1 + tol)
+    return spec, bg, st, (pop, deg, dp, scal, ints)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,chains,tol", [(8, 16, 16, 0.3),
-                                            (8, 16, 8, 0.0),
-                                            (13, 7, 5, 0.05),
-                                            (64, 64, 32, 0.1)])
-def test_kernel_matches_plain_version(card, h, w, chains, tol):
+@pytest.mark.parametrize("h,w,chains,tol,t_len,pop_seed", [
+    (8, 16, 16, 0.3, 40, None),
+    (8, 16, 8, 0.0, 40, None),       # empty valid set: every chain stays
+    (13, 7, 5, 0.05, 40, None),
+    (64, 64, 32, 0.1, 40, None),
+    (64, 64, 16, 0.1, 500, None),    # the main path's chunk length
+    (24, 24, 12, 0.05, 120, 3),      # a non-uniform population plane
+    (10, 31, 6, 0.2, 60, None),      # widths whose neighbour rows
+    (9, 33, 6, 0.2, 60, None),       # straddle 32-cell words
+    (6, 65, 4, 0.2, 60, None),
+    (80, 96, 4, 0.1, 20, None),      # larger boards: 8 and 16 words a
+    (100, 150, 3, 0.1, 20, None),    # lane, near the 16384-cell bound
+])
+def test_kernel_matches_plain_version(card, h, w, chains, tol, t_len,
+                                      pop_seed):
     spec, bg, st, (pop, deg, dp, scal, ints) = _chunk_inputs(
-        h, w, chains, tol, card)
-    t_len = 40
+        h, w, chains, tol, card, pop_seed)
     rng = np.random.default_rng(h * w + chains)
     bits = (cb.bits_tensor(rng.integers(0, 2 ** 32, (t_len, chains, h * w),
                                         dtype=np.uint32), card),
@@ -73,3 +94,24 @@ def test_runner_goes_through_the_kernel(card):
                          device=card)
     assert cb.run_board_chunk_cuda.launches == launches + 3
     assert (res.state.t_yield == 121).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_probe_kernels_match_plain_version(card, which):
+    r = np.random.default_rng(5)
+    x = r.integers(-2, 3, (probes.ROWS, probes.COLS)).astype(np.int32)
+    x[::4] = 0
+    x = torch.as_tensor(x, device=card)
+    bits = torch.as_tensor(r.integers(0, 2 ** 32, (probes.STEPS, *x.shape),
+                                      dtype=np.uint32).view(np.int32),
+                           device=card)
+    fn = probes.probe_a if which == "a" else probes.probe_b
+    for mode in (bits, None):
+        launches = fn.launches
+        got = fn(x, probes.STEPS, probes.SEED, mode)
+        assert fn.launches == launches + 1
+        want = probes.probe_reference(which, x, probes.STEPS, probes.SEED,
+                                      mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
