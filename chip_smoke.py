@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the repository root with ``python3 chip_smoke.py`` (no
-arguments; needs one CUDA card). It builds every kernel of the port from
+Run from the repository root with ``python3 chip_smoke.py`` (needs one
+CUDA card). It builds every kernel of the port from
 ``flipcomplexityempirical_tpu_torch/csrc``, holds each against its plain
 PyTorch version on the card, drives the port's main path through the
 entry points a user calls, checks what comes out, and prints:
@@ -26,9 +26,17 @@ entry points a user calls, checks what comes out, and prints:
      rate and mean cut count beside a 501-step plain-version run; then at
      that shape the kernel against its plain version in both RNG modes,
      bit-equal, the kernel's ms per chunk and the wall ms of
-     ``apply_flip_log`` and ``record_final``;
+     ``apply_flip_log`` and ``record_final``; the kernel's bound, its
+     valid cells counted by replaying the chunk's flip log; the device's
+     idle share over 1001 main-path steps (``torch.profiler``); the SM
+     clock and power draw under the kernel's load (``nvidia-smi``);
   5. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
+
+``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
+version's C interface), checks that its outputs equal the current
+kernel's at the main path's shape and times the two in turn (baseline,
+current, current, baseline; three rounds) in the same call.
 
 Any failed phase exits nonzero before the last line. Without a CUDA card,
 or without the port's package beside it, the script exits nonzero and
@@ -66,23 +74,27 @@ PROBE_REPS = 100                # launches per probe timing
 # is narrower, so the bounds below are floors).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# Operations of the board-chunk function in its packed form, per chain and
-# step: ops = C * T * (K_WORD * ceil(N / 32) + K_TAIL) + K_CELL * sum(h_b).
-# K_WORD, per word of 32 cells: 8 neighbour funnel shifts, 4 "differ"
-# planes (xor, and: 8), the boundary (3 or), 3 popcounts and 3 adds, the
-# same-district planes for the ring criterion (4 rook and-not, 4 diagonal
-# xor and 8 mask ands: 16), 4 run planes (and, and-not: 8), two
-# at-most-one tests (7 each: 14), contiguity and candidates (2), the
-# group mask and its popcount (8): 73.
-# K_TAIL, per chain-step: three warp reductions (the counts, the key's
-# max and first index: 3 x 31), the compaction's ballots and counts (~24),
-# the scalar draw (one Philox block, 100, and two logs, ~40), the wait
-# (~25), the population gate of a uniform plane (8), the accept test and
-# the commit with its cut_times events (~60): 350.
-# K_CELL, per boundary cell (h_b bounds the valid cells from above): a
-# quarter of a Philox block (25) and the key (3): 28; K_GATE more (the
-# per-cell population gate) where the plane is not uniform.
-K_WORD, K_TAIL, K_CELL, K_GATE = 73, 350, 28, 8
+# Operations the board-chunk function needs in its packed form, counted on
+# this run's data (a floor, so every count is a lower bound):
+#   ops = C * T * (K_WORD * ceil(N / 32) + K_TAIL)
+#         + K_BWORD * sum(ceil(h_b / 32)) + K_CELL * sum(valid)
+# K_WORD, every word of 32 cells and step: 4 rook funnel shifts, the 4
+# "differ" planes (xor, and: 8), the boundary (3 or), 3 popcounts and 3
+# adds: 21.
+# K_BWORD, each word that holds a boundary cell (at least ceil(h_b / 32)
+# of them a chain-step, h_b the step's boundary count): 4 diagonal funnel
+# shifts, the same-district planes (4 rook and-not, 4 diagonal xor and 8
+# mask ands: 16), 4 run planes (and, and-not: 8), two at-most-one tests
+# (7 each: 14), contiguity and candidates (2), the group mask and its
+# popcount (8): 52. Other words need no ring criterion.
+# K_TAIL, per chain-step: the scalar draw (one Philox block, 100, and two
+# logs, ~40), the wait (~25), the population gate of a uniform plane (8),
+# the accept test (~15) and the commit with its cut_times events (~60):
+# 250.
+# K_CELL, per valid cell (replayed from the chunk's flip log): a quarter
+# of a Philox block (25) and the key and its compare (3): 28; K_GATE more
+# (the per-cell population gate) where the plane is not uniform.
+K_WORD, K_BWORD, K_TAIL, K_CELL, K_GATE = 21, 52, 250, 28, 8
 # The per-cell design's figure, kept for comparison: 61 operations a
 # cell-step plus 25 for a Philox draw per cell.
 PER_CELL_OPS = 61 + 25
@@ -189,6 +201,126 @@ def chunk_cases(cb, port, t_len: int, chains: int, h: int, w: int,
                                   f"{label} device rng"))
 
 
+def valid_cells(tb, bg, spec, board, pop, dist_pop, scal, outs):
+    """Sum over the chunk's steps and chains of the valid cells (boundary,
+    contiguity, population gate) before each step, replayed on the card
+    from the chunk's flip log (``outs`` of a chunk from ``board``); the
+    replay must give the kernel's boundary counts and final board."""
+    import torch
+    t_len, c = outs[7].shape
+    b = board.clone()
+    dp = dist_pop.to(torch.int64).clone()
+    popn, pop64 = pop.to(torch.float32), pop.to(torch.int64)
+    pop_lo, pop_hi = scal[2][:, None], scal[3][:, None]
+    ar = torch.arange(c, device=b.device)
+    # accept count and last flipped cell after each step
+    acc = torch.cat([outs[9][1:], outs[3][5][None]])
+    flip = torch.cat([outs[4][1:], outs[3][1][None]]).long()
+    before = outs[9][0]
+    total = torch.zeros((), dtype=torch.int64, device=b.device)
+    for t in range(t_len):
+        same = tb.same_planes(bg, b)
+        same_deg = sum(same[i].to(torch.int32) for i in (0, 2, 4, 6))
+        ok = bg.deg[None] - same_deg > 0
+        if not torch.equal(ok.sum(dim=1).to(torch.int32), outs[7][t]):
+            fail(f"valid-cell replay: boundary counts differ at step {t}")
+        if spec.contiguity == "patch":
+            ok &= tb.ring_contig_ok(same)
+        is1 = b == 1
+        pop_of = torch.where(is1, dp[1][:, None], dp[0][:, None])
+        pop_to = torch.where(is1, dp[0][:, None], dp[1][:, None])
+        ok &= ((pop_of.to(torch.float32) - popn >= pop_lo)
+               & (pop_to.to(torch.float32) + popn <= pop_hi))
+        total += ok.sum()
+        moved = acc[t] != before
+        before = acc[t]
+        d_from = b[ar, flip[t]]
+        b[ar, flip[t]] = torch.where(moved, 1 - d_from, d_from)
+        pv = torch.where(moved, pop64[flip[t]], 0)
+        sign = torch.where(d_from == 0, 1, -1)
+        dp[0] -= sign * pv
+        dp[1] += sign * pv
+    if not torch.equal(b, outs[0]):
+        fail("valid-cell replay: final board differs from the kernel's")
+    return int(total)
+
+
+def idle_share(port, bg, spec, params, state, n_steps: int) -> str:
+    """``n_steps`` steps of the main path under ``torch.profiler``: the
+    device's busy ms by kernel against the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        port.run_board_cuda(bg, spec, params, state, n_steps=n_steps,
+                            record_history=False, chunk=CHUNK, seed=5,
+                            device=DEVICE)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy[ev.key[:60]] = dt / 1e3
+    if not busy:
+        return f"wall {wall:.3f} ms; device time not measured (no trace)"
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:3]
+    return (f"wall {wall:.3f} ms, device busy {sum(busy.values()):.3f} ms, "
+            f"idle share {1 - sum(busy.values()) / wall:.4f}; top: "
+            + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+
+
+def clocks_under_load(fn, launches: int) -> str:
+    """``nvidia-smi``'s SM clock and power draw, read while ``launches``
+    calls of ``fn`` run on the card."""
+    import torch
+    torch.cuda.synchronize()
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    torch.cuda.synchronize()
+    return out.stdout.strip() or "not measured"
+
+
+def baseline_rounds(cb, args, path: str) -> None:
+    """Build an earlier board_chunk.cu (the first version's interface, no
+    last-flip scratch) with the package's flags, check that its outputs
+    equal the current kernel's, and time baseline, current, current,
+    baseline, three rounds, in this call."""
+    import ctypes
+    import torch
+    from flipcomplexityempirical_tpu_torch.kernel import _build
+    lib_path = _build.build_dir() / "baseline_board_chunk.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                          str(lib_path), path], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"baseline build failed:\n{out.stdout}{out.stderr}")
+    for line in (out.stdout + out.stderr).splitlines():
+        if "registers" in line:
+            print(f"  baseline: {line.strip()}")
+    lib = ctypes.CDLL(str(lib_path))
+    base = lambda: cb._launch(lib, (*args, None, None),  # noqa: E731
+                              scratch=False)
+    cur = lambda: cb.run_board_chunk_cuda(*args)  # noqa: E731
+    if not all(torch.equal(g, w) for g, w in zip(base(), cur())):
+        fail("the baseline kernel's outputs differ from the current one's")
+    print("baseline outputs equal the current kernel's")
+    for r in range(3):
+        for which, fn in (("baseline", base), ("current", cur),
+                          ("current", cur), ("baseline", base)):
+            fn()
+            print(f"round {r} {which}: {event_ms(fn, 3):.3f} ms per "
+                  f"{CHUNK}-step chunk (CUDA events, mean of 3)")
+
+
 def districts_connected(board_row, h: int, w: int) -> bool:
     """Host BFS: each of the two districts is one rook-connected set."""
     for d in (0, 1):
@@ -288,6 +420,12 @@ def probe_phase(probes) -> list:
 
 
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", metavar="BOARD_CHUNK_CU",
+                    help="an earlier csrc/board_chunk.cu (the first "
+                    "version's interface) to time beside the current one")
+    opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -422,11 +560,13 @@ def main() -> None:
 
     n_cells = bg.n
     sum_hb = int(outs[7].long().sum())
+    b_words = int(((outs[7].long() + 31) // 32).sum())
+    n_valid = valid_cells(tb, bg, spec, fs.board, pop, dp, scal, outs)
     k_cell = K_CELL + (0 if bool((pop == pop[0]).all()) else K_GATE)
     ops = (CHAINS * CHUNK * (K_WORD * -(-n_cells // 32) + K_TAIL)
-           + k_cell * sum_hb)
+           + K_BWORD * b_words + k_cell * n_valid)
     nbytes = (2 * CHAINS * n_cells            # board in, out (int8)
-              + 8 * n_cells                   # pop, deg
+              + 4 * n_cells                   # pop (deg is derived)
               + 4 * CHAINS * (2 + 5 + 7 + 2 + 2 + 7)  # per-chain in, out
               + 4 * 6 * CHUNK * CHAINS        # six (T, C) rows
               + 8 * CHAINS * n_cells)         # cut_e, cut_s out
@@ -434,9 +574,16 @@ def main() -> None:
     t_ops = 1e3 * ops / PEAK_OPS_PER_S
     per_cell_ms = 1e3 * (PER_CELL_OPS * n_cells
                          * CHAINS * CHUNK) / PEAK_OPS_PER_S
-    print(f"board_chunk bound: {ops:.4e} operations (sum h_b {sum_hb}) "
+    print(f"board_chunk bound: {ops:.4e} operations (sum h_b {sum_hb}, "
+          f"boundary words >= {b_words}, valid cells {n_valid}) "
           f"-> {t_ops:.4f} ms, {nbytes:.4e} bytes -> {t_bytes:.4f} ms; "
           f"the per-cell design's figure {per_cell_ms:.3f} ms")
+    print(f"profile of {2 * CHUNK + 1} main-path steps: "
+          + idle_share(port, bg, spec, params, fs, 2 * CHUNK + 1))
+    print("SM clock, power draw under the kernel's load: "
+          + clocks_under_load(lambda: cb.run_board_chunk_cuda(*args), 200))
+    if opts.baseline:
+        baseline_rounds(cb, args, opts.baseline)
     kernels.insert(0, {
         "name": "board_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/board_chunk.cu",

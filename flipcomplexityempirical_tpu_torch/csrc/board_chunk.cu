@@ -56,9 +56,12 @@
 // carries the board in and out, the cut_e / cut_s planes out and the
 // (T, C) rows, ~0.07 ms at 3.35 TB/s against a few ms of issue. The kernel
 // keeps at most 64 registers a thread at up to 4096 cells, so that 32
-// chains share an SM and C = 4096 chains run in one wave on 132 SMs; the
-// packed-form operation count over the 67 TFLOP/s non-tensor peak is the
-// floor chip_smoke.py reports (~0.5 ms a 500-step chunk at C = 4096).
+// chains share an SM and C = 4096 chains run in one wave on 132 SMs. The
+// floor chip_smoke.py reports is the packed-form operation count of what
+// the run's data needs (every word's rook planes, the ring criterion on
+// words holding a boundary cell, a Philox word per valid cell) over the
+// 67 TFLOP/s non-tensor peak: ~0.25 ms a 500-step chunk at C = 4096 and
+// 64 x 64, where the kernel takes ~3.7 ms.
 
 // Random bits: either read from (T, C, N) and (T, 2, C) uint32 planes
 // (host-bits mode: only the valid cells' words are read) or drawn here by
@@ -66,8 +69,9 @@
 // stream) -- rng.py holds its torch twin.
 //
 // Contract beyond the plain version's: the board holds 0 / 1, and deg is
-// the grid's rook degree (the wrapper checks it), so that the boundary
-// test deg - same_deg > 0 is the OR of the four rook "differ" planes.
+// the grid's rook degree (make_static_inputs checks it once a run), so that
+// the boundary test deg - same_deg > 0 is the OR of the four rook "differ"
+// planes and the accept's degree is the count of a cell's rook neighbours.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 //        -shared -Xcompiler -fPIC (kernel/_build.py). No fast math: the
@@ -76,42 +80,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-constexpr uint32_t kStreamPlane = 0u;
-constexpr uint32_t kStreamScalars = 1u;
+using fce::kStreamPlane;
+using fce::kStreamScalars;
+using fce::Philox4;
+using fce::philox4x32_10;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kChainsPerBlock = 8;
 constexpr int kThreads = 32 * kChainsPerBlock;
-
-struct Philox4 {
-  uint32_t v[4];
-};
-
-// Philox4x32-10 with the first key word's round keys k0 + r * W0 given
-// (kernel parameters, read from the constant bank); the second key word,
-// the chain, is added up round by round.
-__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 const uint32_t* k0s,
-                                                 uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) k1 += kPhiloxW1;
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c0), lo0 = kPhiloxM0 * c0;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c2), lo1 = kPhiloxM1 * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0s[r], n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return Philox4{{c0, c1, c2, c3}};
-}
 
 // uint32 -> f32 uniform in (0, 1): the top 24 bits, (x + 1) / 16777218
 __device__ __forceinline__ float u01(uint32_t bits) {
@@ -137,7 +116,6 @@ __device__ __forceinline__ uint32_t bit_at(const uint32_t* words, int i) {
 struct Args {
   const int8_t* board_in;      // (C, N)
   const int32_t* pop;          // (N,)
-  const int32_t* deg;          // (N,) rook degree
   const int32_t* dist_pop_in;  // (2, C)
   const float* scal_in;        // (5, C): log_base, beta, pop_lo, pop_hi, cur_wait
   const int32_t* ints_in;      // (7, C): pending, flip, sign, t_yield,
@@ -159,7 +137,7 @@ struct Args {
   int32_t* last_flip;          // (C, N) scratch, read only where flipped
   int n_chains, h, w, t_inner, patch, geom_waits;
   uint32_t chunk_idx;
-  uint32_t key0[10];           // seed + r * W0, the first key word's rounds
+  fce::PhiloxKey0 key0;        // seed + r * W0, the first key word's rounds
 };
 
 // Shared memory layout, in 32-bit words unless stated, with strides fixed
@@ -283,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, WPL <= 4 ? 4 : WPL == 8 ? 2 : 1)
           abits = a.bits_scal[((size_t)ts * 2 + 1) * C + c];
         } else {
           const Philox4 r = philox4x32_10(0u, ts, a.chunk_idx,
-                                          kStreamScalars, a.key0, c);
+                                          kStreamScalars, a.key0.r, c);
           wbits = r.v[0];
           abits = r.v[1];
         }
@@ -421,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, WPL <= 4 ? 4 : WPL == 8 ? 2 : 1)
           words[i] = ((valid >> i) & 1u) ? row[i] : 0u;
       } else {
         const Philox4 r =
-            philox4x32_10(q, t, a.chunk_idx, kStreamPlane, a.key0, c);
+            philox4x32_10(q, t, a.chunk_idx, kStreamPlane, a.key0.r, c);
 #pragma unroll
         for (int i = 0; i < 4; ++i) words[i] = r.v[i];
       }
@@ -471,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, WPL <= 4 ? 4 : WPL == 8 ? 2 : 1)
 #pragma unroll
     for (int d = 0; d < 4; ++d)
       same_rook += has[d] && bit_at(B, nbr[d]) == d_from;
-    const int deg_at = __ldg(a.deg + idx);
+    const int deg_at = has[0] + has[1] + has[2] + has[3];  // rook degree
     const int dcut = deg_at - 2 * (deg_at - same_rook);
     const float log_bound = -beta * static_cast<float>(dcut) * log_base;
     const bool accept = any_valid && (la < log_bound);
@@ -586,8 +564,10 @@ extern "C" {
 
 // The first version's interface plus last_flip, a (C, N) int32 scratch
 // plane that the kernel reads only where it wrote it in the same launch.
+// deg must be the grid's rook degree (cuda_board.make_static_inputs
+// checks it); the kernel derives it from (h, w) and does not read it.
 int fce_board_chunk(const int8_t* board_in, const int32_t* pop,
-                    const int32_t* deg, const int32_t* dist_pop_in,
+                    const int32_t* /*deg*/, const int32_t* dist_pop_in,
                     const float* scal_in, const int32_t* ints_in,
                     const uint32_t* bits_plane, const uint32_t* bits_scal,
                     int8_t* board_out, int32_t* dist_pop_out, float* scal_out,
@@ -597,12 +577,13 @@ int fce_board_chunk(const int8_t* board_in, const int32_t* pop,
                     int32_t* last_flip, int n_chains, int h, int w,
                     int t_inner, int patch, int geom_waits,
                     unsigned int seed, unsigned int chunk_idx, void* stream) {
-  Args a{board_in,  pop,       deg,       dist_pop_in, scal_in,  ints_in,
-         bits_plane, bits_scal, board_out, dist_pop_out, scal_out, ints_out,
-         log_f,     log_s,     h_cut,     h_b,         h_wait,   h_acc,
-         cut_e,     cut_s,     last_flip, n_chains,    h,        w,
-         t_inner,   patch,     geom_waits, chunk_idx,  {}};
-  for (int r = 0; r < 10; ++r) a.key0[r] = seed + uint32_t(r) * kPhiloxW0;
+  const Args a{board_in,   pop,       dist_pop_in, scal_in,
+               ints_in,    bits_plane, bits_scal,  board_out,
+               dist_pop_out, scal_out, ints_out,   log_f,
+               log_s,      h_cut,     h_b,         h_wait,
+               h_acc,      cut_e,     cut_s,       last_flip,
+               n_chains,   h,         w,           t_inner,
+               patch,      geom_waits, chunk_idx,  fce::philox_key0(seed)};
   const int nw = (h * w + 31) >> 5;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chains < 1 || h < 1 || w < 1 || t_inner < 1 || nw > 512)

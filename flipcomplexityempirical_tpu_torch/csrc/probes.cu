@@ -25,39 +25,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-constexpr uint32_t kStreamProbe = 2u;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRowsPerBlock = 4;
-
-struct Philox4 {
-  uint32_t v[4];
-};
-
-__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c0), lo0 = kPhiloxM0 * c0;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c2), lo1 = kPhiloxM1 * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return Philox4{{c0, c1, c2, c3}};
-}
 
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
     probe_kernel(const int32_t* __restrict__ x,
@@ -67,6 +40,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (r >= rows) return;  // the whole warp leaves together
   const int n_groups = (n + 3) / 4;
+  const fce::PhiloxKey0 key0 = fce::philox_key0(seed);
   uint32_t acc = 0u;  // wrapping int32 sum, held unsigned
   for (int t = 0; t < t_steps; ++t) {
     int best = INT_MIN;
@@ -77,7 +51,8 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
 #pragma unroll
         for (int i = 0; i < 4; ++i) w[i] = 4 * q + i < n ? row[4 * q + i] : 0u;
       } else {
-        const Philox4 p = philox4x32_10(q, t, 0u, kStreamProbe, seed, r);
+        const fce::Philox4 p =
+            fce::philox4x32_10(q, t, 0u, fce::kStreamProbe, key0.r, r);
 #pragma unroll
         for (int i = 0; i < 4; ++i) w[i] = p.v[i];
       }

@@ -40,8 +40,8 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str, src: Path | None = None) -> Path:
-    src = CSRC / f"{name}.cu" if src is None else Path(src)
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
@@ -49,18 +49,16 @@ def library_path(name: str, src: Path | None = None) -> Path:
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, src: Path | None = None):
-    """Start nvcc for ``name`` (``csrc/<name>.cu`` unless ``src`` is
-    given) unless its library exists; returns (process or None,
-    temporary output, final output, log path)."""
-    src = CSRC / f"{name}.cu" if src is None else Path(src)
-    out = library_path(name, src)
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (process or None, temporary output, final output, log path)."""
+    out = library_path(name)
     log = out.with_suffix(".log")
     if out.exists():
         return None, None, out, log
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, log
@@ -99,15 +97,3 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
-
-
-def load_file(src: Path) -> tuple:
-    """Build and load a source outside ``csrc/`` (an earlier version of
-    a kernel, to time beside the current one); returns (library, compiler
-    log)."""
-    src = Path(src)
-    name = f"file-{src.stem}"
-    proc, tmp, out, log = _start(name, src)
-    if proc is not None:
-        _finish(name, proc, tmp, out, log)
-    return ctypes.CDLL(str(out)), log.read_text() if log.exists() else ""

@@ -15,7 +15,7 @@ this one replaces:
              cur_sign, t_yield, move_clock, accepts, exhausted], and in
              host-bits mode bits (T, C, N) and (T, 2, C) int32 bit
              patterns of uint32 draws; the board holds 0 / 1 and deg is
-             the grid's rook degree (checked);
+             the grid's rook degree (``make_static_inputs`` checks it);
     outputs: board (C, N) int8, dist_pop (2, C), scalars (2, C) f32
              [cur_wait, waits_sum], counters (7, C), six (T, C) rows
              [log_f, log_s, cut, b, wait (f32), accepts], and the chunk's
@@ -78,8 +78,12 @@ def check(spec: Spec, params: StepParams) -> None:
 
 
 def make_static_inputs(bg: BoardGraph):
-    """(pop, deg) (N,) int32 planes; the kernel derives the neighbour
-    masks from (h, w) itself."""
+    """(pop, deg) (N,) int32 planes, made once a run. The kernel derives
+    the neighbour masks and the degree from (h, w) itself: its boundary
+    test is the OR of the rook "differ" planes, which is deg - same_deg > 0
+    for the grid's rook degree only, so any other deg plane is refused."""
+    if not torch.equal(bg.deg, rook_degree(bg.h, bg.w, bg.deg.device)):
+        raise ValueError("deg must be the grid's rook degree")
     return bg.pop.contiguous(), bg.deg.contiguous()
 
 
@@ -302,28 +306,28 @@ def _check_inputs(h, w, t_inner, board, pop_plane, deg_plane, dist_pop,
             raise ValueError(f"tensor on {x.device}, board on {board.device}")
         if not x.is_contiguous():
             raise ValueError("chunk inputs must be contiguous")
-    # the kernel's boundary test is the OR of the rook "differ" planes,
-    # which is deg - same_deg > 0 for this deg only
-    if not torch.equal(deg_plane, rook_degree(h, w, deg_plane.device)):
-        raise ValueError("deg must be the grid's rook degree")
 
 
-_SIGNATURE = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 6
-              + [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+def _entry(lib, scratch: bool):
+    """``lib``'s ``fce_board_chunk`` with its C signature declared: 20
+    tensor pointers, the last-flip scratch pointer if ``scratch``, six
+    ints, seed, chunk index and the stream."""
+    fn = lib.fce_board_chunk
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * (20 + scratch)
+                       + [ctypes.c_int] * 6
+                       + [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
 
 
-def _library():
-    from . import _build
-    lib = _build.load("board_chunk")
-    if lib.fce_board_chunk.argtypes is None:
-        lib.fce_board_chunk.argtypes = _SIGNATURE
-        lib.fce_board_chunk.restype = ctypes.c_int
-    return lib
-
-
-def _launch(spec, h, w, t_inner, seed, chunk_idx, board, pop_plane,
-            deg_plane, dist_pop, scal, ints, bits_plane, bits_scal):
-    lib = _library()
+def _launch(lib, args, scratch: bool = True):
+    """Launch ``lib``'s ``fce_board_chunk`` on the wrapper's ``args`` and
+    return the outputs. ``scratch`` passes the last-flip plane, which the
+    first version of the kernel's interface lacks (``chip_smoke.py
+    --baseline`` times that version beside this one)."""
+    (spec, h, w, t_inner, seed, chunk_idx, board, pop_plane, deg_plane,
+     dist_pop, scal, ints, bits_plane, bits_scal) = args
     c, n = board.shape
     dev = board.device
     i32, f32 = torch.int32, torch.float32
@@ -339,25 +343,21 @@ def _launch(spec, h, w, t_inner, seed, chunk_idx, board, pop_plane,
             torch.empty((c, n), dtype=i32, device=dev))
     (board_o, dp_o, scal_o, ints_o, log_f, log_s, h_cut, h_b, h_wait,
      h_acc, cut_e, cut_s) = outs
-    # last flip step of each cell, read by the kernel only where it wrote
-    # it in this launch
-    last_flip = torch.empty((c, n), dtype=i32, device=dev)
-    ptr = [x.data_ptr() for x in (board, pop_plane, deg_plane, dist_pop,
-                                  scal, ints)]
-    ptr += [bits_plane.data_ptr() if bits_plane is not None else None,
-            bits_scal.data_ptr() if bits_scal is not None else None]
-    ptr += [x.data_ptr() for x in (board_o, dp_o, scal_o, ints_o, log_f,
-                                   log_s, h_cut, h_b, h_wait, h_acc, cut_e,
-                                   cut_s, last_flip)]
+    ins = [board, pop_plane, deg_plane, dist_pop, scal, ints, bits_plane,
+           bits_scal, board_o, dp_o, scal_o, ints_o, log_f, log_s, h_cut, h_b,
+           h_wait, h_acc, cut_e, cut_s]
+    if scratch:
+        # last flip step of each cell, read by the kernel only where it
+        # wrote it in this launch
+        ins.append(torch.empty((c, n), dtype=i32, device=dev))
+    ptr = [None if x is None else x.data_ptr() for x in ins]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fce_board_chunk(
+        err = _entry(lib, scratch)(
             *ptr, c, h, w, t_inner, int(spec.contiguity == "patch"),
             int(spec.geom_waits), seed & rng.MASK32,
-            chunk_idx & rng.MASK32, stream)
+            chunk_idx & rng.MASK32, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"board_chunk launch failed: CUDA error {err}")
-    run_board_chunk_cuda.launches += 1
     return outs
 
 
@@ -373,7 +373,10 @@ def run_board_chunk_cuda(spec: Spec, h: int, w: int, t_inner: int,
     args = (spec, h, w, t_inner, seed, chunk_idx, board, pop_plane,
             deg_plane, dist_pop, scal, ints, bits_plane, bits_scal)
     if board.device.type == "cuda":
-        return _launch(*args)
+        from . import _build
+        outs = _launch(_build.load("board_chunk"), args)
+        run_board_chunk_cuda.launches += 1
+        return outs
     if board.device.type == "cpu":
         return board_chunk_reference(*args)
     raise ValueError(f"no board-chunk path for device {board.device}")

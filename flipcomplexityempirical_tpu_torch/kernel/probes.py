@@ -110,6 +110,7 @@ def _run(which: str, x, t_steps: int, seed: int, bits):
                             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe {which} launch failed: CUDA error {err}")
+    _WRAPPER[which].launches += 1
     return out
 
 
@@ -117,24 +118,19 @@ def probe_a(x: torch.Tensor, t_steps: int = STEPS, seed: int = SEED,
             bits=None) -> torch.Tensor:
     """Probe A (``kA``): per row, the wrapping sum over steps of the row
     max of the sign-flipped bits. ``probe_a.launches`` counts launches."""
-    out = _run("a", x, t_steps, seed, bits)
-    if x.device.type == "cuda":
-        probe_a.launches += 1
-    return out
+    return _run("a", x, t_steps, seed, bits)
 
 
 def probe_b(x: torch.Tensor, t_steps: int = STEPS, seed: int = SEED,
             bits=None) -> torch.Tensor:
     """Probe B (``kB``): per row, the number of steps whose masked score
     has a valid entry. ``probe_b.launches`` counts launches."""
-    out = _run("b", x, t_steps, seed, bits)
-    if x.device.type == "cuda":
-        probe_b.launches += 1
-    return out
+    return _run("b", x, t_steps, seed, bits)
 
 
 probe_a.launches = 0
 probe_b.launches = 0
+_WRAPPER = {"a": probe_a, "b": probe_b}
 
 
 def run(device="cuda") -> dict:

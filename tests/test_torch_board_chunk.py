@@ -12,6 +12,8 @@ of entries and each off by exactly 1.0.
 on the card.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -102,16 +104,14 @@ def test_chunk_matches_pallas_kernel(case):
 
 def test_chunk_requires_the_rook_degree():
     """The kernel's boundary test is the OR of the rook "differ" planes,
-    which equals deg - same_deg > 0 only for the grid's rook degree: the
-    wrapper refuses any other deg plane, on either device."""
+    which equals deg - same_deg > 0 only for the grid's rook degree:
+    ``make_static_inputs``, which makes the kernel's planes once a run,
+    refuses a board graph with any other deg plane."""
     spec, bg, st, params = _jax_setup(1.4, 0.3, 0)
     tbg = convert.board_graph(jax_host(bg), device="cpu")
-    tst = convert.board_state(jax_host(st), device="cpu")
-    tpar = convert.step_params(jax_host(params), device="cpu")
     tpop, tdeg = cb.make_static_inputs(tbg)
     assert torch.equal(tdeg, cb.rook_degree(H, W, "cpu"))
     bad = tdeg.clone()
     bad[5] += 1
     with pytest.raises(ValueError, match="rook degree"):
-        cb.run_board_chunk_cuda(spec_port(spec), H, W, 4, 0, 0, tst.board,
-                                tpop, bad, *cb.pack_state(tst, tpar))
+        cb.make_static_inputs(dataclasses.replace(tbg, deg=bad))
