@@ -30,7 +30,23 @@ entry points a user calls, checks what comes out, and prints:
      valid cells counted by replaying the chunk's flip log; the device's
      idle share over 1001 main-path steps (``torch.profiler``); the SM
      clock and power draw under the kernel's load (``nvidia-smi``);
-  5. one JSON line per kernel table (``{"kernels": [...]}``), then as the
+  5. the lowered-chunk kernel (the paper's experiment chains) against its
+     plain version, every output bit-equal except counted log ties in the
+     waits: sec11 and the Frankengraph at C=64, T=64, an empty valid set
+     (pop_tol 0) and contiguity 'none'; then against the JAX package's own
+     50-step sec11 chunk kept in ``tests/fixtures/torch/lowered_sec11.npz``;
+  6. the lowered main path for sec11 (config 0B263P10) and the
+     Frankengraph (0B30P10), each through ``run_board`` at C=4096, chunk
+     500, a 501-step warmup and 3001 timed steps: flips/s, peak memory,
+     the kernel's launches (equal to the chunks run), result checks
+     (cut_count and dist_pop against recounts, both districts connected,
+     accept rate and mean cut beside a 501-step plain run at C=256 whose
+     chains must match the kernel's first 256 exactly), then at that
+     shape the kernel against its plain version, the kernel's ms per
+     chunk and the plain version's, the wall ms of ``apply_flip_log``, the
+     bound (candidate cells replayed from the flip log), the idle share
+     of 1001 steps and the SM clock under load;
+  7. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
@@ -101,6 +117,35 @@ PER_CELL_OPS = 61 + 25
 # Probes, per element and step: a quarter of a Philox block (25), the sign
 # flip and the max (2); probe B adds the mask test, select and or (3).
 K_PROBE = {"a": 27, "b": 30}
+
+
+# The lowered path: (name, builder, plan, base) of the paper's two
+# experiment graphs at alignment 0 and pop_tol POP_TOL, configs 0B263P10
+# and 0B30P10 (experiments/config.py), with the families' spec
+# (experiments/driver.py::spec_for: record_interface on).
+LOWERED = (("sec11", "grid_sec11", "sec11_plan", 2.63815853),
+           ("frankengraph", "frankengraph", "frank_plan", 0.3))
+LOWERED_EXACT_C, LOWERED_EXACT_T = 64, 64
+LOWERED_FIXTURE = "tests/fixtures/torch/lowered_sec11.npz"
+FIXTURE_SEED, FIXTURE_C, FIXTURE_T = 11, 4, 50
+FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
+# Operations the lowered-chunk function needs in its packed form, counted
+# on this run's data (a floor):
+#   ops = C * T * (K_LWORD * ceil(N / 32) + K_LTAIL + 6 * K_BLOCK)
+#         + (K_BLOCK + K_WAIT) * accepted moves + K_CAND * candidates
+# K_LWORD, every word of 32 cells and step: 8 direction funnel shifts,
+# xor, and, or (32), 4 wall-plane ands, the population gate (3), a
+# popcount and an add: 41.
+# K_BLOCK, one threefry2x32 block: 20 rounds of add, rotate, xor and 5 key
+# injections of 3: 77. Six a chain-step: the four-way split, the proposal
+# and the accept uniforms; a seventh (the wait's) and the wait itself
+# (K_WAIT ~30, logs included) after each accepted move.
+# K_LTAIL, per chain-step: the selection scan, the accept test with its
+# log, the commit and the record: ~100.
+# K_CAND, per candidate cell (boundary & population gate, replayed from
+# the flip log): the 5 x 5 window as five 5-bit fields (25) and the member
+# and seed masks (5): 30. The worklist, data-dependent, is left out.
+K_LWORD, K_BLOCK, K_LTAIL, K_WAIT, K_CAND = 41, 77, 100, 30, 30
 
 
 def fail(msg: str) -> None:
@@ -245,8 +290,8 @@ def valid_cells(tb, bg, spec, board, pop, dist_pop, scal, outs):
     return int(total)
 
 
-def idle_share(port, bg, spec, params, state, n_steps: int) -> str:
-    """``n_steps`` steps of the main path under ``torch.profiler``: the
+def idle_share(run) -> str:
+    """``run()`` (some steps of a main path) under ``torch.profiler``: the
     device's busy ms by kernel against the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -254,9 +299,7 @@ def idle_share(port, bg, spec, params, state, n_steps: int) -> str:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        port.run_board_cuda(bg, spec, params, state, n_steps=n_steps,
-                            record_history=False, chunk=CHUNK, seed=5,
-                            device=DEVICE)
+        run()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     busy = {}
@@ -419,6 +462,365 @@ def probe_phase(probes) -> list:
     return rows_out
 
 
+# ---------------------------------------------------------------------------
+# The lowered path: sec11 and the Frankengraph through lowered_chunk
+# ---------------------------------------------------------------------------
+
+def lowered_workload(port, which: str, n_chains: int, seed: int,
+                     pop_tol: float = POP_TOL, **spec_kw):
+    """(graph, bg, state, params, spec) of one of ``LOWERED``'s graphs."""
+    _, builder, plan_fn, base = next(x for x in LOWERED if x[0] == which)
+    g = getattr(port.graphs, builder)()
+    plan = getattr(port.graphs, plan_fn)(g, 0)
+    kw = dict(contiguity="patch", accept="cut", record_interface=True)
+    kw.update(spec_kw)
+    spec = port.Spec(**kw)
+    bg, st, params = port.init_board(g, plan, n_chains=n_chains, seed=seed,
+                                     spec=spec, base=base, pop_tol=pop_tol,
+                                     device=DEVICE)
+    return g, bg, st, params, spec
+
+
+def compare_lowered(cl, got, want, label: str) -> float:
+    """The lowered kernel's outputs against its plain version's: integers
+    and interface metrics bit-equal (NaN where NaN), waits equal except
+    log ties (torch's ``log`` and the kernel's ``logf`` rounding one input
+    apart moves a wait by exactly 1.0), which are counted; returns the
+    largest |difference| of any other output."""
+    import torch
+    names = list(cl.OUT_NAMES)
+    g, w = got[names.index("hist_wait")], want[names.index("hist_wait")]
+    off = (g - w)[g != w].abs()
+    if not bool((off == 1.0).all()):
+        fail(f"{label}: a wait differs by other than a log tie")
+    ties = int(off.numel())
+    err = 0.0
+    for name, g, w in zip(names, got, want):
+        w = w.to(g.dtype)
+        if g.dtype.is_floating_point:
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        else:
+            same = g == w
+        if name == "hist_wait":
+            continue
+        if name == "scal":      # cur_wait (a tie moves it by 1), waits_sum
+            if not bool((same[0] | ((g[0] - w[0]).abs() == 1.0)).all()):
+                fail(f"{label}: cur_wait differs by other than a log tie")
+            if bool((~same[1]).any()) and ties == 0:
+                fail(f"{label}: waits_sum differs without a log tie")
+            continue
+        if not bool(same.all()):
+            fail(f"{label}: {name} differs from the plain version")
+        if g.numel():
+            d = (g.double() - w.double())[~torch.isnan(g.double())]
+            err = max(err, float(d.abs().max()) if d.numel() else 0.0)
+    print(f"{label}: bit-equal to the plain version; wait rows off by a "
+          f"log tie {ties}")
+    return err
+
+
+def lowered_exactness(port, cl) -> float:
+    """The lowered kernel against its plain version at C=64, T=64."""
+    import torch
+    err = 0.0
+    for label, which, tol, kw in (
+            ("sec11", "sec11", POP_TOL, {}),
+            ("frankengraph", "frankengraph", POP_TOL, {}),
+            ("sec11 empty valid set", "sec11", 0.0, {}),
+            ("sec11 contiguity none", "sec11", POP_TOL,
+             {"contiguity": "none"})):
+        _, bg, st, params, spec = lowered_workload(
+            port, which, LOWERED_EXACT_C, 1, pop_tol=tol, **kw)
+        static = cl.make_static_inputs(bg, spec, params)
+        args = (bg, static, spec, LOWERED_EXACT_T, st.board,
+                *cl.pack_state(st, params))
+        got = cl.run_lowered_chunk_cuda(*args)
+        torch.cuda.synchronize()
+        want = cl.lowered_chunk_reference(*args)
+        torch.cuda.synchronize()
+        err = max(err, compare_lowered(
+            cl, got, want, f"lowered {label} C={LOWERED_EXACT_C} "
+            f"T={LOWERED_EXACT_T}"))
+        moved = int((got[4][5] - st.accept_count).sum())
+        if tol == 0.0 and moved:
+            fail("the empty valid set moved a chain")
+        if tol > 0.0 and not moved:
+            fail(f"lowered {label}: no chain moved")
+    return err
+
+
+def lowered_fixture(port, cl, tb) -> None:
+    """The kernel against the JAX package's 50-step sec11 chunk (made on
+    the CPU, kept in the repository): integers bit-equal, slope and angle
+    within 4 ulp, waits equal except counted log ties."""
+    import pathlib
+
+    import numpy as np
+    path = pathlib.Path(__file__).resolve().parent / LOWERED_FIXTURE
+    want = dict(np.load(path))
+    g, bg, st, params, spec = lowered_workload(port, "sec11", FIXTURE_C,
+                                               FIXTURE_SEED)
+    launches = cl.run_lowered_chunk_cuda.launches
+    st, rows = cl.run_chunk(bg, spec, params, st, FIXTURE_T)
+    if cl.run_lowered_chunk_cuda.launches != launches + 1:
+        fail("the fixture chunk did not launch the kernel")
+    got = {f"row_{k}": rows[k].cpu().numpy()
+           for k in ("cut_count", "b_count", "accepts", "wait", "slope",
+                     "angle")}
+    for k in ("key", "dist_pop", "cut_count", "cur_wait", "wait_pending",
+              "cur_flip", "cur_sign", "t_yield", "move_clock",
+              "accept_count", "exhausted_count", "waits_sum"):
+        got[f"state_{k}"] = getattr(st, k).cpu().numpy()
+    got["board_nodes"] = tb.node_view(bg, st.board)
+    got["edge_cut_times"] = tb.edge_cut_times(g, st).astype(np.int16)
+    if sorted(got) != sorted(want):
+        fail("the fixture's keys are not the ones compared")
+    bad = got["row_wait"] != want["row_wait"]
+    ties = int(bad.sum())
+    if (ties > FIXTURE_WAIT_SHARE * bad.size or not
+            (np.abs(got["row_wait"][bad] - want["row_wait"][bad])
+             == 1.0).all()):
+        fail(f"fixture: waits differ beyond log ties ({ties})")
+    for k in ("slope", "angle"):
+        gv, wv = got[f"row_{k}"], want[f"row_{k}"]
+        nan = np.isnan(wv)
+        ulps = np.abs(gv[~nan].view(np.int32).astype(np.int64)
+                      - wv[~nan].view(np.int32).astype(np.int64))
+        if (not np.array_equal(np.isnan(gv), nan)
+                or not ((gv[~nan] == wv[~nan]) | (ulps <= 4)).all()):
+            fail(f"fixture: {k} differs by more than 4 ulp")
+    chain_tied = bad.any(axis=0)
+    for k, wv in want.items():
+        if k in ("row_wait", "row_slope", "row_angle"):
+            continue
+        gv = np.asarray(got[k]).astype(wv.dtype)
+        if k in ("state_cur_wait", "state_waits_sum"):
+            gv, wv = gv[~chain_tied], wv[~chain_tied]
+        if not np.array_equal(gv, wv):
+            fail(f"fixture: {k} differs from the JAX package's")
+    print(f"fixture (the JAX package's sec11 chunk, C={FIXTURE_C}, "
+          f"T={FIXTURE_T}): equal; wait rows off by a log tie {ties}")
+
+
+def lowered_plain_run(cl, bg, spec, params, state, n_steps: int):
+    """The runner's chunk loop over the kernel's plain version on the
+    card: (final state, mean recorded cut count)."""
+    static = cl.make_static_inputs(bg, spec, params)
+    cuts, done = [], 0
+    while done < n_steps - 1:
+        this = min(CHUNK, n_steps - 1 - done)
+        args = (bg, static, spec, this, state.board,
+                *cl.pack_state(state, params))
+        outs = cl.lowered_chunk_reference(*args)
+        state = cl.unpack_state(state, outs, this)
+        cuts.append(outs[7].double().mean().item())
+        done += this
+    return state, sum(cuts) / len(cuts)
+
+
+def lowered_candidates(tb, bg, spec, board, dist_pop, scal, outs, unit):
+    """Sum over a chunk's steps and chains of the candidate cells
+    (boundary & population gate) whose contiguity the kernel checks,
+    replayed from the chunk's flip log (``outs`` of a lowered chunk from
+    ``board``); the replay must give the kernel's boundary counts and its
+    final board."""
+    import dataclasses
+
+    import torch
+    t_len, c = outs[8].shape
+    b = board.clone()
+    dp = dist_pop.T.to(torch.int32).clone()
+    gate_only = dataclasses.replace(spec, contiguity="none")
+    ar = torch.arange(c, device=b.device)
+    acc = torch.cat([outs[10][1:], outs[4][5][None]])
+    flip = torch.cat([outs[5][1:], outs[4][1][None]]).long()
+    before = outs[10][0]
+    total = torch.zeros((), dtype=torch.int64, device=b.device)
+    for t in range(t_len):
+        planes = tb.planes_stencil(bg, gate_only, scal[2], scal[3], b, dp)
+        if not torch.equal(planes["b_count"], outs[8][t]):
+            fail(f"candidate replay: boundary counts differ at step {t}")
+        total += planes["valid"].sum()
+        moved = acc[t] != before
+        before = acc[t]
+        d_from = b[ar, flip[t]]
+        b[ar, flip[t]] = torch.where(moved, 1 - d_from, d_from)
+        step = torch.where(moved & (d_from == 0), unit, 0) - torch.where(
+            moved & (d_from == 1), unit, 0)
+        dp = torch.stack([dp[:, 0] - step, dp[:, 1] + step], dim=1)
+    if not torch.equal(b, outs[0]):
+        fail("candidate replay: final board differs from the kernel's")
+    return int(total)
+
+
+def graph_connected(graph, nodes) -> bool:
+    """Host BFS over the graph's edges: each of the two districts of a
+    node-order assignment is one connected set."""
+    nbrs = [[] for _ in range(graph.n_nodes)]
+    for a, b in graph.edges.tolist():
+        nbrs[a].append(b)
+        nbrs[b].append(a)
+    for d in (0, 1):
+        cells = [i for i in range(graph.n_nodes) if nodes[i] == d]
+        if not cells:
+            return False
+        seen = {cells[0]}
+        todo = deque([cells[0]])
+        while todo:
+            for j in nbrs[todo.popleft()]:
+                if j not in seen and nodes[j] == d:
+                    seen.add(j)
+                    todo.append(j)
+        if len(seen) != len(cells):
+            return False
+    return True
+
+
+def lowered_main_path(port, cl, tb, which: str) -> dict:
+    """One graph's lowered main path with its checks and timings; returns
+    the numbers of the kernel row."""
+    import dataclasses
+
+    import torch
+    g, bg, st, params, spec = lowered_workload(port, which, CHAINS, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cl.run_lowered_chunk_cuda.launches = 0
+    t_w = time.perf_counter()
+    warm = port.run_board(bg, spec, params, st, n_steps=WARMUP, chunk=CHUNK,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t_w
+    state = warm.state.replace(
+        accept_count=torch.zeros_like(warm.state.accept_count),
+        tries_sum=torch.zeros_like(warm.state.tries_sum),
+        exhausted_count=torch.zeros_like(warm.state.exhausted_count))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    res = port.run_board(bg, spec, params, state, n_steps=STEPS,
+                         record_history=False, chunk=CHUNK, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = cl.run_lowered_chunk_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-(WARMUP - 1) // CHUNK) + -(-(STEPS - 1) // CHUNK)
+    fps = CHAINS * (STEPS - 1) / wall
+    print(f"lowered main path {which}: {CHAINS} chains x {STEPS} steps in "
+          f"{wall:.3f} s, {fps:.6e} flips/s (warmup {WARMUP} steps "
+          f"{warm_wall:.3f} s with history); peak memory "
+          f"{peak / 2 ** 20:.1f} MiB; lowered_chunk launches {launches} for "
+          f"{chunks} chunks")
+    if launches != chunks:
+        fail(f"lowered_chunk launched {launches} times for {chunks} chunks")
+
+    # result checks
+    fs = res.state
+    if not torch.equal(fs.cut_count, tb.recount_cuts(bg, fs.board)):
+        fail(f"{which}: cut_count disagrees with a recount from the board")
+    pop0 = ((fs.board == 0) * bg.pop).sum(dim=1)
+    if not torch.equal(fs.dist_pop[:, 0].to(torch.int64), pop0):
+        fail(f"{which}: dist_pop disagrees with a recount from the board")
+    if not bool((fs.t_yield == WARMUP + STEPS).all()):
+        fail(f"{which}: t_yield != {WARMUP + STEPS}")
+    if not bool((fs.board[:, ~bg.node_mask] == -1).all()):
+        fail(f"{which}: a hole left district -1")
+    hist_sum = warm.history["wait"].astype("float64").sum(axis=1)
+    if not (abs(warm.waits_total - hist_sum)
+            <= 1e-4 * abs(hist_sum).clip(min=1.0)).all():
+        fail(f"{which}: waits_total disagrees with the history's wait sum")
+    nodes = tb.node_view(bg, fs.board[:16])
+    if not all(graph_connected(g, row) for row in nodes):
+        fail(f"{which}: a sampled chain has a disconnected district")
+    rate = fs.accept_count.double().mean().item() / (STEPS - 1)
+    k_rate = (warm.state.accept_count.double().mean().item()
+              / (WARMUP - 1))
+    k_cut = float(warm.history["cut_count"][:, :-1].mean())
+    _, p_bg, p_st, p_par, _ = lowered_workload(port, which, PLAIN_CHAINS, 0)
+    p_state, p_cut = lowered_plain_run(cl, p_bg, spec, p_par, p_st, WARMUP)
+    p_rate = p_state.accept_count.double().mean().item() / (WARMUP - 1)
+    print(f"{which}: timed accept rate {rate:.6f}; first {WARMUP} steps: "
+          f"kernel (C={CHAINS}) accept {k_rate:.6f} mean cut {k_cut:.4f}, "
+          f"plain (C={PLAIN_CHAINS}) accept {p_rate:.6f} mean cut "
+          f"{p_cut:.4f}")
+    if (abs(k_rate - p_rate) > ACCEPT_AGREE
+            or abs(k_cut - p_cut) > CUT_AGREE * p_cut):
+        fail(f"{which}: kernel and plain version disagree in distribution")
+    # the same seed gives the plain run's chains the kernel's first keys
+    if not (torch.equal(p_state.accept_count,
+                        warm.state.accept_count[:PLAIN_CHAINS])
+            and torch.equal(p_state.board, warm.state.board[:PLAIN_CHAINS])):
+        fail(f"{which}: the plain run's chains differ from the kernel's")
+
+    # exactness and timings at the main path's shape
+    static = cl.make_static_inputs(bg, spec, params)
+    dp_scal_ints = cl.pack_state(fs, params)
+    args = (bg, static, spec, CHUNK, fs.board, *dp_scal_ints)
+    outs = cl.run_lowered_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = cl.lowered_chunk_reference(*args)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    err = compare_lowered(cl, outs, want, f"lowered {which} main-path shape")
+    del want
+    reps = 3
+    ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*args), reps)
+    t_a = time.perf_counter()
+    tb.apply_flip_log(fs.part_sum, fs.last_flipped, fs.num_flips, outs[5],
+                      outs[6], fs.t_yield)
+    torch.cuda.synchronize()
+    flip_log_ms = 1e3 * (time.perf_counter() - t_a)
+    print(f"lowered_chunk {which}: {ms:.3f} ms per {CHUNK}-step chunk (CUDA "
+          f"events, mean of {reps}); plain version {plain_ms:.3f} ms; "
+          f"apply_flip_log {flip_log_ms:.3f} ms wall")
+    # what the patch check and the interface cost: the same chunk with
+    # each switched off (a timing only, off the main path)
+    parts = []
+    for label, kw in (("contiguity none", {"contiguity": "none"}),
+                      ("no interface", {"record_interface": False})):
+        vspec = dataclasses.replace(spec, **kw)
+        vargs = (bg, cl.make_static_inputs(bg, vspec, params), vspec,
+                 *args[3:])
+        cl.run_lowered_chunk_cuda(*vargs)
+        v_ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*vargs), reps)
+        parts.append(f"{label} {v_ms:.3f} ms")
+    print(f"lowered_chunk {which} at the same state: " + "; ".join(parts))
+
+    n = bg.n
+    nw = -(-n // 32)
+    moved = int((outs[4][5] - dp_scal_ints[3][5]).sum())
+    n_cand = 0
+    if spec.contiguity == "patch":
+        n_cand = lowered_candidates(tb, bg, spec, fs.board, dp_scal_ints[1],
+                                    dp_scal_ints[2], outs, static.unit_pop)
+    ops = (CHAINS * CHUNK * (K_LWORD * nw + K_LTAIL + 6 * K_BLOCK)
+           + (K_BLOCK + K_WAIT) * moved + K_CAND * n_cand)
+    nbytes = (2 * CHAINS * n                   # board in, out (int8)
+              + 4 * CHAINS * 2 * (2 + 2 + 8)    # keys, dist_pop, ints
+              + 4 * CHAINS * (6 + 2)            # scalars in, out
+              + 4 * 8 * CHUNK * CHAINS          # eight (T, C) rows
+              + 16 * CHAINS * n                 # four cut planes out
+              + 4 * (13 * nw + n + 4 * n))      # static planes, classes
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    print(f"lowered_chunk {which} bound: {ops:.4e} operations (accepted "
+          f"moves {moved}, candidate cells {n_cand}) -> {t_ops:.4f} ms, "
+          f"{nbytes:.4e} bytes -> {t_bytes:.4f} ms")
+    print(f"profile of {2 * CHUNK + 1} lowered {which} steps: " + idle_share(
+        lambda: port.run_board(bg, spec, params, fs, n_steps=2 * CHUNK + 1,
+                               record_history=False, chunk=CHUNK,
+                               device=DEVICE)))
+    print(f"SM clock, power draw under lowered_chunk {which}: "
+          + clocks_under_load(lambda: cl.run_lowered_chunk_cuda(*args), 100))
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flips_per_s": fps, "apply_flip_log_ms": flip_log_ms,
+            "peak_mib": peak / 2 ** 20}
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -434,6 +836,7 @@ def main() -> None:
         from flipcomplexityempirical_tpu_torch.kernel import _build
         from flipcomplexityempirical_tpu_torch.kernel import board as tb
         from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+        from flipcomplexityempirical_tpu_torch.kernel import cuda_lowered as cl
         from flipcomplexityempirical_tpu_torch.kernel import probes
     except ImportError as exc:
         fail(f"the port's package is not importable here: {exc}")
@@ -578,12 +981,32 @@ def main() -> None:
           f"boundary words >= {b_words}, valid cells {n_valid}) "
           f"-> {t_ops:.4f} ms, {nbytes:.4e} bytes -> {t_bytes:.4f} ms; "
           f"the per-cell design's figure {per_cell_ms:.3f} ms")
-    print(f"profile of {2 * CHUNK + 1} main-path steps: "
-          + idle_share(port, bg, spec, params, fs, 2 * CHUNK + 1))
+    print(f"profile of {2 * CHUNK + 1} main-path steps: " + idle_share(
+        lambda: port.run_board_cuda(bg, spec, params, fs,
+                                    n_steps=2 * CHUNK + 1,
+                                    record_history=False, chunk=CHUNK,
+                                    seed=5, device=DEVICE)))
     print("SM clock, power draw under the kernel's load: "
           + clocks_under_load(lambda: cb.run_board_chunk_cuda(*args), 200))
     if opts.baseline:
         baseline_rounds(cb, args, opts.baseline)
+    # ---- 5, 6: the lowered path -----------------------------------------
+    lowered_err = lowered_exactness(port, cl)
+    lowered_fixture(port, cl, tb)
+    per_graph = {which: lowered_main_path(port, cl, tb, which)
+                 for which, *_ in LOWERED}
+    main_row = per_graph["sec11"]
+    kernels.insert(0, {
+        "name": "lowered_chunk", "route": "cuda",
+        "source": "flipcomplexityempirical_tpu_torch/csrc/lowered_chunk.cu",
+        "replaces": "flipcomplexityempirical_tpu/kernel/board.py:1267",
+        "launches": sum(r["launches"] for r in per_graph.values()),
+        "max_abs_err": max([lowered_err] + [r["max_abs_err"]
+                                            for r in per_graph.values()]),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None, "graphs": per_graph,
+    })
     kernels.insert(0, {
         "name": "board_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/board_chunk.cu",

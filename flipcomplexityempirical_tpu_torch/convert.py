@@ -3,9 +3,10 @@
 The JAX package's ``BoardGraph``, ``BoardState`` and ``StepParams``,
 handed over as host arrays (``jax.tree.map(np.asarray, obj)``), become
 ``kernel.board.BoardGraph`` / ``BoardState`` and ``kernel.step.StepParams``
-on a chosen device, field by field and dtype by dtype. Only attributes
-are read, so this module imports nothing of the JAX package; it is how a
-test hands both packages the same state.
+on a chosen device, field by field and dtype by dtype, for the rook body
+and the lowered body (stencil planes, the diagonal cut_times planes).
+Only attributes are read, so this module imports nothing of the JAX
+package; it is how a test hands both packages the same state.
 """
 
 from __future__ import annotations
@@ -29,7 +30,17 @@ _STATE_DTYPES = {
     "cut_times_e": torch.int32, "cut_times_s": torch.int32,
     "waits_sum": torch.float32, "accept_count": torch.int32,
     "tries_sum": torch.int32, "exhausted_count": torch.int32,
+    "cut_times_se": torch.int32, "cut_times_sw": torch.int32,
 }
+_GRAPH_PLANES = {
+    "pop": torch.int32, "deg": torch.int32, "east_ok": torch.bool,
+    "west_ok": torch.bool, "adj": torch.bool, "node_mask": torch.bool,
+    "cell_of_node": torch.int64, "b2_in": torch.bool, "b2_adj": torch.int32,
+    "nbr_bits": torch.int32, "iface_key": torch.int32,
+}
+_GRAPH_STATICS = ("h", "w", "uniform_pop", "surgical", "real_nodes",
+                  "b2_offsets", "b2_disp", "b2_iters", "patch_exact",
+                  "iface_ok", "iface_decode", "center")
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
@@ -40,25 +51,29 @@ def _tensor(x, dtype, dev) -> torch.Tensor:
 
 
 def board_graph(bg, device="cuda") -> BoardGraph:
-    """A rook-grid BoardGraph (the JAX package's, as host arrays)."""
+    """A BoardGraph (the JAX package's, as host arrays): the rook planes
+    and, where set, the lowered-stencil planes and statics."""
     dev = resolve_device(device)
-    if getattr(bg, "surgical", False):
-        raise ValueError("surgical (lowered) board graphs are not ported")
-    return BoardGraph(pop=_tensor(bg.pop, torch.int32, dev),
-                      deg=_tensor(bg.deg, torch.int32, dev),
-                      east_ok=_tensor(bg.east_ok, torch.bool, dev),
-                      west_ok=_tensor(bg.west_ok, torch.bool, dev),
-                      h=int(bg.h), w=int(bg.w))
+    planes = {name: _tensor(getattr(bg, name), dtype, dev)
+              for name, dtype in _GRAPH_PLANES.items()
+              if getattr(bg, name, None) is not None}
+    statics = {name: getattr(bg, name) for name in _GRAPH_STATICS}
+    statics["b2_offsets"] = tuple(int(o) for o in statics["b2_offsets"])
+    if statics["b2_disp"] is not None:
+        statics["b2_disp"] = tuple((int(r), int(c))
+                                   for r, c in statics["b2_disp"])
+    return BoardGraph(**planes, **statics)
 
 
 def board_state(state, device="cuda") -> BoardState:
-    """A rook-body BoardState (the JAX package's, as host arrays)."""
+    """A BoardState (the JAX package's, as host arrays), with the diagonal
+    cut_times planes where the lowered body made them."""
     dev = resolve_device(device)
-    for extra in ("cut_times_se", "cut_times_sw", "reject_count"):
-        if getattr(state, extra, None) is not None:
-            raise ValueError(f"BoardState.{extra} is not ported")
+    if getattr(state, "reject_count", None) is not None:
+        raise ValueError("BoardState.reject_count is not ported")
     return BoardState(**{name: _tensor(getattr(state, name), dtype, dev)
-                         for name, dtype in _STATE_DTYPES.items()})
+                         for name, dtype in _STATE_DTYPES.items()
+                         if getattr(state, name, None) is not None})
 
 
 def step_params(params, device="cuda") -> StepParams:
@@ -77,7 +92,8 @@ def step_params(params, device="cuda") -> StepParams:
 
 
 def to_numpy(obj) -> dict:
-    """A port dataclass of tensors as {field: numpy array or value}."""
+    """A port dataclass of tensors as {field: numpy array or value}; fields
+    that are None (a rook state's diagonal planes) are left out."""
     return {f.name: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
             for f in dataclasses.fields(obj)
-            for v in (getattr(obj, f.name),)}
+            for v in (getattr(obj, f.name),) if v is not None}

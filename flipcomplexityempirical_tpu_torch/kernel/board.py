@@ -1,13 +1,22 @@
-"""Board form of the 2-district flip chain on a plain rook grid: types and
-the plain PyTorch pieces around the chunk kernel.
+"""Board form of the 2-district flip chain: types and the plain PyTorch
+pieces around the chunk kernels.
 
-Port of the rook-grid subset of ``flipcomplexityempirical_tpu/kernel/
-board.py``. State is a flat (C, N) int8 board, N = H*W, flat index
-x*W + y. The chunk of steps itself runs in ``cuda_board`` (a hand-written
-kernel, or its plain version on the CPU); this module holds what runs
-around it: the stencil planes, the cut recount, the flip-log replay of
-part_sum / last_flipped / num_flips, the final record, initialisation and
-the per-edge cut_times view.
+Port of ``flipcomplexityempirical_tpu/kernel/board.py`` for two bodies:
+
+- the rook body, on a plain H x W rook grid: state is a flat (C, N) int8
+  board, N = H*W, flat index x*W + y; its chunk runs in ``cuda_board``;
+- the lowered body (``is_lowered``): a near-grid graph embedded by
+  ``lower.stencil_for`` into an H x W canvas (holes carry district -1),
+  with masked 8-direction planes, the exact B2-window contiguity, four
+  forward cut planes (E, SE, S, SW) and the wall-key interface metrics;
+  it serves surgical canvases (sec11, Frankengraph, queen grids) and every
+  ``record_interface`` spec, and its chunk runs in ``cuda_lowered``.
+
+The chunk of steps itself runs in a hand-written kernel, or its plain
+version on the CPU; this module holds what runs around it: the stencil
+planes, the cut recount, the flip-log replay of part_sum / last_flipped /
+num_flips, the final record, initialisation and the per-edge cut_times
+view.
 
 Reference semantics (grid_chain_sec11.py, as the JAX package documents):
 uniform boundary proposal with re-propose-until-valid collapsed into one
@@ -20,6 +29,7 @@ cut_times accumulation.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,31 +37,62 @@ import torch
 from .. import rng
 from ..device import resolve_device
 from ..graphs.lattice import LatticeGraph
+from ..lower.stencil import stencil_for
 from .step import Spec, StepParams, sample_geom_minus1
 
 
 @dataclasses.dataclass
 class BoardGraph:
-    """Static per-graph planes of a plain rook grid."""
+    """Static per-graph planes. The rook fields serve both bodies; the
+    lowered fields (``lower.stencil.StencilSpec``'s planes) are set
+    wherever the graph lowers to a stencil, and only the lowered body
+    reads them."""
 
-    pop: torch.Tensor      # int32[N] node population weights
-    deg: torch.Tensor      # int32[N] graph degree (<= 4)
+    pop: torch.Tensor      # int32[N] node population weights (0 at holes)
+    deg: torch.Tensor      # int32[N] graph degree (<= 8)
     east_ok: torch.Tensor  # bool[N] node has an east (+1 flat) neighbor
     west_ok: torch.Tensor  # bool[N] node has a west (-1 flat) neighbor
     h: int
     w: int
+    # --- lowered-stencil planes ---
+    adj: Optional[torch.Tensor] = None           # bool[8, N] ring order
+    node_mask: Optional[torch.Tensor] = None     # bool[N] real node cells
+    cell_of_node: Optional[torch.Tensor] = None  # int64[n_real]
+    b2_in: Optional[torch.Tensor] = None         # bool[K, N]
+    b2_adj: Optional[torch.Tensor] = None        # int32[K, N]
+    nbr_bits: Optional[torch.Tensor] = None      # int32[N]
+    iface_key: Optional[torch.Tensor] = None     # int32[4, N]
+    uniform_pop: bool = False
+    surgical: bool = False
+    real_nodes: int = 0
+    b2_offsets: tuple = ()
+    # (dr, dc) canvas displacement of each B2 offset; None where a flat
+    # offset is two displacements (canvas width <= 4)
+    b2_disp: Optional[tuple] = None
+    b2_iters: int = 0
+    patch_exact: bool = False
+    iface_ok: bool = False
+    iface_decode: tuple = (0, 0, 0, 0)
+    center: tuple = (0.0, 0.0)
 
     @property
     def n(self) -> int:
         return self.h * self.w
 
+    @property
+    def n_real(self) -> int:
+        """Real node count (canvas minus holes): the geometric-wait
+        denominator uses this, never the canvas size."""
+        return self.real_nodes or self.h * self.w
+
 
 @dataclasses.dataclass
 class BoardState:
-    """Batched chain state, field for field the JAX package's rook-body
+    """Batched chain state, field for field the JAX package's
     ``BoardState``. ``key`` holds the raw uint32 threefry key words in
     int64; ``cut_times_e[c, i]`` counts cut yields of edge (i, i+1),
-    ``cut_times_s[c, i]`` of edge (i, i+W)."""
+    ``cut_times_s[c, i]`` of edge (i, i+W); the lowered body adds the
+    diagonal planes (None on rook-body states)."""
 
     key: torch.Tensor            # int64[C, 2]
     board: torch.Tensor          # int8[C, N] district 0/1
@@ -72,6 +113,9 @@ class BoardState:
     accept_count: torch.Tensor   # int32[C]
     tries_sum: torch.Tensor      # int32[C]
     exhausted_count: torch.Tensor  # int32[C]
+    # the lowered body's diagonal planes: edges (i, i+W+1), (i, i+W-1)
+    cut_times_se: Optional[torch.Tensor] = None  # int32[C, N]
+    cut_times_sw: Optional[torch.Tensor] = None  # int32[C, N]
 
     def replace(self, **kw) -> "BoardState":
         return dataclasses.replace(self, **kw)
@@ -106,37 +150,88 @@ def board_shape(graph: LatticeGraph):
     return h, w
 
 
-def supports(graph: LatticeGraph, spec: Spec) -> bool:
-    """True iff this module reproduces the reference chain for (graph,
-    spec): a plain rook grid under the 2-district 'bi' walk."""
-    return (board_shape(graph) is not None
-            and spec.n_districts == 2
+def _common_ok(spec: Spec) -> bool:
+    return (spec.n_districts == 2
             and spec.proposal == "bi"
             and spec.accept in ("cut", "corrected", "always")
-            and spec.contiguity in ("patch", "none")
             and spec.invalid == "repropose"
             and spec.anneal in ("none", "linear")
             and not spec.frame_interface
             and not spec.weighted_cut
-            and not spec.record_interface
             and not spec.record_assignment_bits
             and not spec.nobacktrack
             and not spec.lazy_uniform)
 
 
+def supports(graph: LatticeGraph, spec: Spec) -> bool:
+    """True iff a body of this module reproduces the reference chain for
+    (graph, spec) under the 2-district 'bi' walk: the rook body on a
+    plain rook grid without ``record_interface``, or the lowered body on
+    any graph ``lower.stencil_for`` embeds (surgical canvases, and every
+    ``record_interface`` spec whose wall planes encode). Lowered 'patch'
+    contiguity needs the B2 tables to equal the graph's patch tables."""
+    if not _common_ok(spec):
+        return False
+    st = stencil_for(graph)
+    if st is None or not (st.surgical or spec.record_interface):
+        return (board_shape(graph) is not None
+                and spec.contiguity in ("patch", "none")
+                and not spec.record_interface)
+    return ((spec.contiguity == "none"
+             or (spec.contiguity == "patch"
+                 and (not st.surgical or st.patch_exact)))
+            and (not spec.record_interface or st.iface_ok))
+
+
+def is_lowered(bg: BoardGraph, spec: Spec) -> bool:
+    """True iff chunks of (bg, spec) run on the lowered body."""
+    return bg.surgical or spec.record_interface
+
+
 def make_board_graph(graph: LatticeGraph, device="cuda") -> BoardGraph:
-    shape = board_shape(graph)
-    if shape is None:
-        raise ValueError(f"graph {graph.name!r} is not a plain rook grid")
+    """The static planes of ``graph``: from its stencil where it lowers
+    (every plain grid of height and width >= 3 included), else the rook
+    planes of a plain rook grid."""
     dev = resolve_device(device)
-    h, w = shape
-    y = np.arange(h * w) % w
+    st = stencil_for(graph)
+    if st is None:
+        shape = board_shape(graph)
+        if shape is None:
+            raise ValueError(f"graph {graph.name!r} does not lower to a "
+                             "board stencil (see lower.lower_to_stencil)")
+        h, w = shape
+        y = np.arange(h * w) % w
+        return BoardGraph(
+            pop=torch.as_tensor(graph.pop, dtype=torch.int32, device=dev),
+            deg=torch.as_tensor(graph.deg, dtype=torch.int32, device=dev),
+            east_ok=torch.as_tensor(y < w - 1, device=dev),
+            west_ok=torch.as_tensor(y > 0, device=dev),
+            h=h, w=w, cell_of_node=torch.arange(h * w, device=dev))
+
+    def t(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
     return BoardGraph(
-        pop=torch.as_tensor(graph.pop, dtype=torch.int32, device=dev),
-        deg=torch.as_tensor(graph.deg, dtype=torch.int32, device=dev),
-        east_ok=torch.as_tensor(y < w - 1, device=dev),
-        west_ok=torch.as_tensor(y > 0, device=dev),
-        h=h, w=w)
+        pop=t(st.pop, torch.int32), deg=t(st.deg, torch.int32),
+        east_ok=t(st.adj[0]), west_ok=t(st.adj[4]), h=st.h, w=st.w,
+        adj=t(st.adj), node_mask=t(st.node_mask),
+        cell_of_node=t(st.cell_of_node, torch.int64),
+        b2_in=t(st.b2_in), b2_adj=t(st.b2_adj, torch.int32),
+        nbr_bits=t(st.nbr_bits, torch.int32),
+        iface_key=(t(st.iface_key, torch.int32)
+                   if st.iface_key is not None else None),
+        uniform_pop=st.uniform_pop, surgical=st.surgical,
+        real_nodes=st.n_real, b2_offsets=st.b2_offsets,
+        b2_disp=st.b2_disp, b2_iters=st.b2_iters, patch_exact=st.patch_exact,
+        iface_ok=st.iface_ok, iface_decode=st.iface_decode,
+        center=st.center)
+
+
+def node_view(bg: BoardGraph, arr):
+    """Restrict a canvas-indexed (..., N) array to real nodes in node
+    order (..., n_real); identity on plain full grids. Host-side."""
+    arr = arr.cpu().numpy() if isinstance(arr, torch.Tensor) else arr
+    return np.asarray(arr)[..., bg.cell_of_node.cpu().numpy()]
 
 
 # ---------------------------------------------------------------------------
@@ -144,10 +239,12 @@ def make_board_graph(graph: LatticeGraph, device="cuda") -> BoardGraph:
 # ---------------------------------------------------------------------------
 
 def _shifted(board: torch.Tensor, w: int, o: int) -> torch.Tensor:
-    """value[:, i] = board[:, i + o], -1 off the flat range."""
-    c, n = board.shape
-    p = torch.nn.functional.pad(board, (w + 1, w + 1), value=-1)
-    return p[:, w + 1 + o: w + 1 + o + n]
+    """value[:, i] = board[:, i + o], -1 off the flat range
+    (|o| <= 2w + 2)."""
+    n = board.shape[1]
+    pad = 2 * w + 2
+    p = torch.nn.functional.pad(board, (pad, pad), value=-1)
+    return p[:, pad + o: pad + o + n]
 
 
 def same_planes(bg: BoardGraph, board: torch.Tensor) -> list:
@@ -176,6 +273,11 @@ def cut_planes(bg: BoardGraph, board: torch.Tensor):
 
 def recount_cuts(bg: BoardGraph, board: torch.Tensor) -> torch.Tensor:
     """i32[C] cut-edge count recomputed from the board."""
+    if bg.surgical:
+        same = same_planes_stencil(bg, board)
+        # forward planes only: each edge counted once
+        return sum((bg.adj[d][None] & ~same[d]).sum(dim=1)
+                   for d in range(4)).to(torch.int32)
     cut_e, cut_s = cut_planes(bg, board)
     return (cut_e.sum(dim=1) + cut_s.sum(dim=1)).to(torch.int32)
 
@@ -202,6 +304,146 @@ def _planes(bg: BoardGraph, board: torch.Tensor) -> dict:
     south_ok = torch.arange(bg.n, device=board.device) < (bg.h - 1) * bg.w
     return dict(b_count=b_count, cut_e=bg.east_ok[None] & ~same[0],
                 cut_s=south_ok[None] & ~same[2])
+
+
+# ---------------------------------------------------------------------------
+# Lowered stencil body: masked 8-direction planes (holes + diagonals)
+# ---------------------------------------------------------------------------
+
+CUT_KEYS = ("cut_e", "cut_se", "cut_s", "cut_sw")
+IFACE_BIG = 2 ** 30
+
+
+def ring_offsets(w: int) -> tuple:
+    """Flat offsets of the ring directions E, SE, S, SW, W, NW, N, NE."""
+    return (1, w + 1, w, w - 1, -1, -w - 1, -w, -w + 1)
+
+
+def same_planes_stencil(bg: BoardGraph, board: torch.Tensor) -> list:
+    """same[d][c, i]: the ring-d neighbor EDGE exists in the lowered graph
+    and its cell shares i's district. Every direction, diagonals included,
+    is masked by its static adjacency plane, so holes and seams are
+    exact."""
+    return [(_shifted(board, bg.w, o) == board) & bg.adj[d][None]
+            for d, o in enumerate(ring_offsets(bg.w))]
+
+
+def _or_over(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise OR of an integer tensor over ``dim``, by halving."""
+    while x.shape[dim] > 1:
+        if x.shape[dim] % 2:
+            x = torch.cat([x, torch.zeros_like(x.narrow(dim, 0, 1))], dim=dim)
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) | x.narrow(dim, half, half)
+    return x.squeeze(dim)
+
+
+def stencil_patch_ok(bg: BoardGraph, board: torch.Tensor) -> torch.Tensor:
+    """The exact radius-2 ``patch_connected`` check for every cell at
+    once, as a bitset propagation over static flat offsets (the JAX
+    package's ``_stencil_patch_ok``): member bitset over the K B2-window
+    offsets (same district as the center, in its patch), seeds = direct
+    neighbors, reach grows from the lowest seed through ``b2_adj`` in
+    Jacobi rounds, ok iff every seed is reached. The rounds stop at the
+    fixpoint (at most ``b2_iters`` of them, which bound every shortest
+    path in a patch), where more rounds would change nothing."""
+    c, n = board.shape
+    dev = board.device
+    i32 = torch.int32
+    pad = 2 * bg.w + 2
+    offs = torch.tensor(bg.b2_offsets, dtype=torch.int64, device=dev)
+    idx = pad + torch.arange(n, device=dev)[None, :] + offs[:, None]
+    p = torch.nn.functional.pad(board, (pad, pad), value=-1)
+    same = (p[:, idx] == board[:, None, :]) & bg.b2_in[None]   # (C, K, N)
+    shifts = torch.arange(len(bg.b2_offsets), dtype=i32,
+                          device=dev)[None, :, None]
+    # distinct bits: their sum is their OR
+    member = (same.to(i32) << shifts).sum(dim=1).to(i32)
+    seeds = member & bg.nbr_bits[None]
+    reach = seeds & -seeds                     # lowest set bit (0 if none)
+    for _ in range(bg.b2_iters):
+        hit = ((reach[:, None, :] >> shifts) & 1) == 1
+        contrib = _or_over(torch.where(hit, bg.b2_adj[None], 0), dim=1)
+        grown = reach | (contrib & member)
+        if torch.equal(grown, reach):
+            break
+        reach = grown
+    return (seeds & ~reach) == 0
+
+
+def planes_stencil(bg: BoardGraph, spec: Spec, pop_lo, pop_hi,
+                   board: torch.Tensor, dist_pop: torch.Tensor) -> dict:
+    """The lowered body's plane pass (the JAX package's
+    ``_planes_stencil``): 8 masked same-planes, the graph degree, the 4
+    forward cut planes (E, SE, S, SW), B2 contiguity, the population gate
+    and validity."""
+    same = same_planes_stencil(bg, board)
+    same_deg = sum(x.to(torch.int32) for x in same)
+    diff_deg = bg.deg[None] - same_deg
+    b_mask = (diff_deg > 0) & bg.node_mask[None]
+    b_count = b_mask.sum(dim=1).to(torch.int32)
+    cuts = {k: bg.adj[d][None] & ~same[d] for d, k in enumerate(CUT_KEYS)}
+    if spec.contiguity == "patch":
+        contig = stencil_patch_ok(bg, board)
+    else:
+        contig = torch.ones_like(b_mask)
+    # the exact-f32 threshold form: ceil / floor of the bounds keep every
+    # operand an exact f32 integer; hole cells hold -1 (is1 False, pop 0)
+    # and are out of b_mask regardless
+    f32 = torch.float32
+    p0, p1 = dist_pop[:, 0].to(f32), dist_pop[:, 1].to(f32)
+    lo, hi = torch.ceil(pop_lo), torch.floor(pop_hi)
+    thr0 = torch.minimum(p0 - lo, hi - p1)
+    thr1 = torch.minimum(p1 - lo, hi - p0)
+    popn = bg.pop[None].to(f32)
+    pop_ok = popn <= torch.where(board == 1, thr1[:, None], thr0[:, None])
+    return dict(valid=b_mask & contig & pop_ok, b_count=b_count,
+                diff_deg=diff_deg, **cuts)
+
+
+def interface_stencil(bg: BoardGraph, cuts: list):
+    """The interface metrics on the lowered cut planes: each wall edge's
+    static key packs (canonical edge index << coord bits | doubled
+    midpoint coords), so the two smallest keys over the cut planes are
+    the two smallest-index wall-cut edges; their midpoints decode
+    arithmetically. Returns f32 (slope, angle), NaN where fewer than two
+    wall edges are cut."""
+    qx_off, qy_off, bx, by = bg.iface_decode
+    f32 = torch.float32
+    keyed = [torch.where(cuts[d], bg.iface_key[d][None], IFACE_BIG)
+             for d in range(4)]
+    first = keyed[0].min(dim=1).values
+    for kd in keyed[1:]:
+        first = torch.minimum(first, kd.min(dim=1).values)
+    second = None
+    for kd in keyed:
+        sk = torch.where(kd > first[:, None], kd, IFACE_BIG).min(dim=1).values
+        second = sk if second is None else torch.minimum(second, sk)
+    ok = second < IFACE_BIG
+
+    def decode(key):
+        qy = (key & ((1 << by) - 1)) + qy_off
+        qx = ((key >> by) & ((1 << bx) - 1)) + qx_off
+        return qx.to(f32) * 0.5, qy.to(f32) * 0.5
+
+    ax, ay = decode(first)
+    ex, ey = decode(second)
+    dx, dy = ex - ax, ey - ay
+    one = torch.ones_like(dx)
+    slope = torch.where(dx != 0, dy / torch.where(dx != 0, dx, one),
+                        torch.full_like(dx, float("inf")))
+    cx = torch.tensor(bg.center[0], dtype=f32, device=dx.device)
+    cy = torch.tensor(bg.center[1], dtype=f32, device=dx.device)
+    vax, vay = ax - cx, ay - cy
+    vbx, vby = ex - cx, ey - cy
+    norm = (torch.sqrt(vax * vax + vay * vay)
+            * torch.sqrt(vbx * vbx + vby * vby))
+    tiny = torch.tensor(1e-12, dtype=f32, device=dx.device)
+    cosang = torch.clamp((vax * vbx + vay * vby) / torch.maximum(norm, tiny),
+                         -1.0, 1.0)
+    angle = torch.acos(cosang)
+    nan = torch.full_like(dx, float("nan"))
+    return torch.where(ok, slope, nan), torch.where(ok, angle, nan)
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +539,33 @@ def _split4(keys: torch.Tensor):
     return ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
 
 
+def _record_stencil(bg: BoardGraph, spec: Spec, state: BoardState,
+                    planes: dict, cur_wait):
+    """The lowered body's measurement yield: ``_record``'s row with the
+    four forward cut planes and, under ``record_interface``, the
+    interface slope / angle."""
+    out = {"cut_count": state.cut_count, "b_count": planes["b_count"],
+           "wait": cur_wait, "accepts": state.accept_count}
+    if spec.record_interface:
+        if not bg.iface_ok:
+            raise ValueError("record_interface needs wall planes the "
+                             "lowering could not encode (lower.stencil)")
+        out["slope"], out["angle"] = interface_stencil(
+            bg, [planes[k] for k in CUT_KEYS])
+    log = {"f": state.cur_flip, "s": state.cur_sign}
+    i32 = torch.int32
+    state = state.replace(
+        cur_wait=cur_wait,
+        wait_pending=torch.zeros_like(state.wait_pending),
+        waits_sum=state.waits_sum + cur_wait,
+        t_yield=state.t_yield + 1,
+        cut_times_e=state.cut_times_e + planes["cut_e"].to(i32),
+        cut_times_se=state.cut_times_se + planes["cut_se"].to(i32),
+        cut_times_s=state.cut_times_s + planes["cut_s"].to(i32),
+        cut_times_sw=state.cut_times_sw + planes["cut_sw"].to(i32))
+    return state, out, log
+
+
 def record_final(bg: BoardGraph, spec: Spec, params: StepParams,
                  state: BoardState):
     """Epilogue: complete any pending wait and record the last yield,
@@ -304,9 +573,17 @@ def record_final(bg: BoardGraph, spec: Spec, params: StepParams,
     t0 = state.t_yield
     key, _, _, kwait = _split4(state.key)
     state = state.replace(key=key)
-    planes = _planes(bg, state.board)
-    cur_wait = _complete_wait(spec, state, planes["b_count"], kwait, bg.n)
-    state, out, log = _record(state, planes, cur_wait)
+    if is_lowered(bg, spec):
+        planes = planes_stencil(bg, spec, params.pop_lo, params.pop_hi,
+                                state.board, state.dist_pop)
+        cur_wait = _complete_wait(spec, state, planes["b_count"], kwait,
+                                  bg.n_real)
+        state, out, log = _record_stencil(bg, spec, state, planes, cur_wait)
+    else:
+        planes = _planes(bg, state.board)
+        cur_wait = _complete_wait(spec, state, planes["b_count"], kwait,
+                                  bg.n)
+        state, out, log = _record(state, planes, cur_wait)
     if spec.parity_metrics:
         ps, lf, nf = apply_flip_log(state.part_sum, state.last_flipped,
                                     state.num_flips, log["f"][None],
@@ -318,15 +595,21 @@ def record_final(bg: BoardGraph, spec: Spec, params: StepParams,
 def init_board_state(graph: LatticeGraph, bg: BoardGraph,
                      assignment: np.ndarray, n_chains: int, seed: int,
                      spec: Spec, params: StepParams) -> BoardState:
-    """Broadcast a node-order assignment onto C chains and seed the
-    per-chain state; keys are ``jax.random.split(PRNGKey(seed), C)``."""
+    """Broadcast a node-order assignment (length n_real) onto the canvas
+    (holes carry district -1, pop 0) and seed the per-chain state; keys
+    are ``jax.random.split(PRNGKey(seed), C)``."""
     dev = bg.pop.device
     n = bg.n
+    lowered = is_lowered(bg, spec)
     a = np.asarray(assignment, np.int8)
+    cell = bg.cell_of_node.cpu().numpy()
+    a0 = np.full(n, -1, np.int8)
+    a0[cell] = a
     pops = np.bincount(a.astype(np.int64), weights=graph.pop,
                        minlength=spec.n_districts).astype(np.int32)
     label_values = params.label_values.cpu().numpy()
-    part0 = label_values[a.astype(np.int64)].astype(np.int32)
+    part0 = np.zeros(n, np.int32)
+    part0[cell] = label_values[a.astype(np.int64)]
     cut0 = int((a[graph.edges[:, 0]] != a[graph.edges[:, 1]]).sum())
 
     def full(v, dtype):
@@ -341,7 +624,7 @@ def init_board_state(graph: LatticeGraph, bg: BoardGraph,
 
     return BoardState(
         key=rng.split(rng.prng_key(seed, device=dev), n_chains),
-        board=plane(a),
+        board=plane(a0),
         dist_pop=plane(pops),
         cut_count=full(cut0, torch.int32),
         cur_wait=full(0.0, torch.float32),
@@ -359,17 +642,39 @@ def init_board_state(graph: LatticeGraph, bg: BoardGraph,
         waits_sum=full(0.0, torch.float32),
         accept_count=full(0, torch.int32),
         tries_sum=full(0, torch.int32),
-        exhausted_count=full(0, torch.int32))
+        exhausted_count=full(0, torch.int32),
+        cut_times_se=zplane() if lowered else None,
+        cut_times_sw=zplane() if lowered else None)
 
 
 def edge_cut_times(graph: LatticeGraph, state: BoardState) -> np.ndarray:
-    """cut_times as a (C, E) numpy array in LatticeGraph edge order: edge
-    (u, u+1) reads the E plane at u, edge (u, u+W) the S plane at u."""
-    shape = board_shape(graph)
-    if shape is None:
-        raise ValueError(f"graph {graph.name!r} is not a plain rook grid")
-    u = graph.edges[:, 0].astype(np.int64)
-    east = (graph.edges[:, 1] - u == 1) & (shape[1] > 1)
-    ct_e = state.cut_times_e.cpu().numpy()
-    ct_s = state.cut_times_s.cpu().numpy()
-    return np.where(east[None], ct_e[:, u], ct_s[:, u])
+    """cut_times as a (C, E) numpy array in LatticeGraph edge order. Each
+    edge's plane (E, SE, S, SW) and cell come from the lowering's
+    per-edge map, so holes, diagonal and seam edges land in the right
+    accumulator; a plain grid too small to lower reads edge (u, u+1) from
+    the E plane at u and (u, u+W) from the S plane."""
+    st = stencil_for(graph)
+    planes = {0: state.cut_times_e.cpu().numpy(),
+              2: state.cut_times_s.cpu().numpy()}
+    if st is None:
+        shape = board_shape(graph)
+        if shape is None:
+            raise ValueError(f"graph {graph.name!r} is not a plain rook "
+                             "grid and does not lower to a stencil")
+        u = graph.edges[:, 0].astype(np.int64)
+        east = (graph.edges[:, 1] - u == 1) & (shape[1] > 1)
+        return np.where(east[None], planes[0][:, u], planes[2][:, u])
+    if state.cut_times_se is not None:
+        planes[1] = state.cut_times_se.cpu().numpy()
+        planes[3] = state.cut_times_sw.cpu().numpy()
+    out = np.empty((planes[0].shape[0], graph.n_edges), planes[0].dtype)
+    for d in (0, 1, 2, 3):
+        sel = np.asarray(st.edge_plane) == d
+        if not sel.any():
+            continue
+        if d not in planes:
+            raise ValueError("graph has diagonal edges but state has no "
+                             "diagonal cut_times planes (the chunk was "
+                             "not run on the lowered body)")
+        out[:, sel] = planes[d][:, np.asarray(st.edge_cell)[sel]]
+    return out

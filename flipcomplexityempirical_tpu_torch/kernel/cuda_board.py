@@ -52,6 +52,7 @@ def supports(graph, spec: Spec, params: StepParams) -> bool:
     lv = params.label_values.cpu().numpy()
     return (board_shape(graph) is not None
             and _board_supports(graph, spec)
+            and not spec.record_interface
             and spec.accept == "cut"
             and spec.anneal == "none"
             and lv.shape == (2,) and lv[0] == 1 and lv[1] == -1)
@@ -71,6 +72,9 @@ def check(spec: Spec, params: StepParams) -> None:
                          f"got {spec.anneal!r}")
     if spec.contiguity not in ("patch", "none"):
         raise ValueError(f"contiguity {spec.contiguity!r} not supported")
+    if spec.record_interface:
+        raise ValueError("record_interface runs on the lowered body "
+                         "(sampling.run_board), not the board-chunk kernel")
     lv = params.label_values.cpu().numpy()
     if lv.shape != (2,) or lv[0] != 1 or lv[1] != -1:
         raise ValueError(f"the board-chunk kernel requires label_values "

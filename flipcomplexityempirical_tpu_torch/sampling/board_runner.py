@@ -1,23 +1,30 @@
-"""Initialisation and epilogue of the board-path runners.
+"""The board-path runners' initialisation and epilogue, and the lowered
+body's runner.
 
-Port of ``init_board``, ``drain_waits``, ``_sum_pending`` and
-``finalize_board_run`` from
+Port of ``init_board``, ``drain_waits``, ``_sum_pending``,
+``finalize_board_run`` and ``run_board`` from
 ``flipcomplexityempirical_tpu/sampling/board_runner.py`` (without the
-observability and analytics hooks, which this package has not ported).
+observability, analytics and degradation hooks, which this package has
+not ported). ``run_board`` serves the lowered body (surgical canvases such
+as sec11 and the Frankengraph, and every ``record_interface`` spec); the
+rook grid's chunk kernel has its own runner, ``cuda_runner.run_board_cuda``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import check_on, resolve_device
 from ..graphs.lattice import LatticeGraph
 from ..kernel import board as kboard
+from ..kernel import cuda_lowered as clow
 from ..kernel import step as kstep
 from ..kernel.step import Spec
-from .runner import RunResult, assemble_history, default_label_values, \
-    pop_bounds
+from .runner import (RunResult, assemble_history, default_label_values,
+                     pick_chunk, pop_bounds, snap_chunk_to)
 
 
 def init_board(graph: LatticeGraph, assignment: np.ndarray, n_chains: int,
@@ -53,11 +60,13 @@ def _sum_pending(waits_total: np.ndarray, pending_waits: list) -> np.ndarray:
 
 
 def finalize_board_run(bg, spec, params, state, hist_parts, waits_total,
-                       pending_waits, record_history, n_steps) -> RunResult:
+                       pending_waits, record_history, n_steps,
+                       record_every: int = 1) -> RunResult:
     """Record the final yield (no trailing transition), drain waits and
-    assemble the RunResult."""
+    assemble the RunResult. Under thinning the final yield joins the
+    history only when it lands on the record grid."""
     state, out_last = kboard.record_final(bg, spec, params, state)
-    if record_history:
+    if record_history and (n_steps - 1) % record_every == 0:
         for k, v in out_last.items():
             hist_parts.setdefault(k, []).append(v.cpu().numpy()[:, None])
     state = drain_waits(state, pending_waits)
@@ -65,3 +74,51 @@ def finalize_board_run(bg, spec, params, state, hist_parts, waits_total,
     history = assemble_history(hist_parts, record_history)
     return RunResult(state=state, history=history, waits_total=waits_total,
                      n_yields=n_steps)
+
+
+def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
+              state: kboard.BoardState, n_steps: int,
+              record_history: bool = True, chunk: Optional[int] = None,
+              record_every: int = 1, device="cuda") -> RunResult:
+    """Run the batched lowered-body chain for ``n_steps`` yields (yield 0
+    is the initial state) on ``device``, where the state must already
+    live: per chunk the lowered-chunk kernel (its plain version on the
+    CPU), the flip-log replay, the history copy, then the final record.
+    ``record_every=k`` keeps yields 0, k, 2k, ... in the history; every
+    accumulator still advances every step. The chains draw the JAX
+    package's threefry stream, so a run equals the JAX package's
+    ``run_board`` draw for draw."""
+    dev = resolve_device(device)
+    check_on(dev, state.board, bg.pop, params.log_base)
+    if not kboard.is_lowered(bg, spec):
+        raise ValueError(
+            f"graph {bg.h}x{bg.w} is a plain rook grid and the spec does not "
+            "record the interface: its chunk body (the JAX package's "
+            "_scan_bits) is not ported; run it with run_board_cuda")
+    if record_every < 1:
+        raise ValueError(f"record_every must be >= 1, got {record_every}")
+    static = clow.make_static_inputs(bg, spec, params)
+    transitions = n_steps - 1
+    if chunk is None:
+        chunk = pick_chunk(n_steps, 512)
+    if record_every > 1:
+        chunk = snap_chunk_to(chunk, record_every)
+
+    hist_parts: dict = {}
+    waits_total = state.waits_sum.cpu().numpy().astype(np.float64)
+    state = state.replace(waits_sum=torch.zeros_like(state.waits_sum))
+    pending_waits: list = []
+    done = 0
+    while done < transitions:
+        this = min(chunk, transitions - done)
+        state, rows = clow.run_chunk(bg, spec, params, state, this, static)
+        if record_history:
+            # records precede their transitions: row 0 is on the grid
+            for k, v in rows.items():
+                hist_parts.setdefault(k, []).append(
+                    v[::record_every].cpu().numpy().T)
+        state = drain_waits(state, pending_waits)
+        done += this
+    return finalize_board_run(bg, spec, params, state, hist_parts,
+                              waits_total, pending_waits, record_history,
+                              n_steps, record_every)

@@ -1,6 +1,6 @@
 """Run results and the helpers shared by the runners.
 
-Port of ``RunResult``, ``pick_chunk``, ``pop_bounds``,
+Port of ``RunResult``, ``pick_chunk``, ``snap_chunk_to``, ``pop_bounds``,
 ``default_label_values`` and ``assemble_history`` from
 ``flipcomplexityempirical_tpu/sampling/runner.py``. Long-horizon wait sums
 accumulate on the host in float64 from per-chunk float32 partial sums.
@@ -37,6 +37,13 @@ def pick_chunk(n_steps: int, cap: int) -> int:
         if total % d == 0:
             return d
     return chunk
+
+
+def snap_chunk_to(chunk: int, every: int) -> int:
+    """Largest multiple of ``every`` <= chunk (at least ``every``): full
+    chunks hold a whole number of record periods, so every chunk boundary
+    lands on the thinned grid."""
+    return max(every, chunk - chunk % every)
 
 
 def pop_bounds(graph: LatticeGraph, k: int, tol: float):

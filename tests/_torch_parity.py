@@ -58,3 +58,18 @@ def jax_host(obj):
 def spec_port(spec):
     """The JAX package's Spec as the port's Spec (same fields)."""
     return Spec(**dataclasses.asdict(spec))
+
+
+def assert_ulps_close(got, want, ulps=4, name="value"):
+    """f32 values equal up to ``ulps`` units in the last place, NaN exactly
+    where ``want`` is NaN (the interface metrics: torch's and XLA's
+    ``acos`` may round the same input differently)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=name)
+    g = got[~nan].view(np.int32).astype(np.int64)
+    w = want[~nan].view(np.int32).astype(np.int64)
+    same = got[~nan] == want[~nan]      # inf == inf, +0 == -0
+    assert (same | (np.abs(g - w) <= ulps)).all(), name

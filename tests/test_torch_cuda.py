@@ -6,7 +6,8 @@ only the port (no JAX), so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: every output bit-equal (kernel and plain version share CUDA's
-``logf`` and ``log1pf`` and round every float step alike).
+``logf``, ``log1pf`` and ``acosf`` and round every float step alike;
+NaN interface metrics compare equal).
 """
 
 import numpy as np
@@ -15,8 +16,10 @@ import torch
 
 from flipcomplexityempirical_tpu_torch import graphs, init_board, Spec
 from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+from flipcomplexityempirical_tpu_torch.kernel import cuda_lowered as cl
 from flipcomplexityempirical_tpu_torch.kernel import probes
-from flipcomplexityempirical_tpu_torch.sampling import run_board_cuda
+from flipcomplexityempirical_tpu_torch.sampling import (run_board,
+                                                        run_board_cuda)
 
 
 @pytest.fixture
@@ -115,3 +118,54 @@ def test_probe_kernels_match_plain_version(card, which):
                                       mode)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _lowered_inputs(which, chains, tol, card, **spec_kw):
+    g = graphs.grid_sec11() if which == "sec11" else graphs.frankengraph()
+    plan = (graphs.sec11_plan(g, 0) if which == "sec11"
+            else graphs.frank_plan(g, 0))
+    spec = Spec(**{"contiguity": "patch", "record_interface": True,
+                   **spec_kw})
+    bg, st, params = init_board(g, plan, n_chains=chains, seed=2, spec=spec,
+                                base=2.63815853 if which == "sec11" else 0.3,
+                                pop_tol=tol, device=card)
+    return spec, bg, st, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,chains,tol,t_len,spec_kw", [
+    ("sec11", 32, 0.1, 64, {}),
+    ("frankengraph", 32, 0.1, 64, {}),
+    ("sec11", 16, 0.0, 20, {}),                     # empty valid set
+    ("sec11", 16, 0.1, 40, {"contiguity": "none"}),
+    ("frankengraph", 16, 0.1, 40, {"accept": "always"}),
+    ("sec11", 16, 0.1, 40, {"record_interface": False}),
+])
+def test_lowered_kernel_matches_plain_version(card, which, chains, tol,
+                                              t_len, spec_kw):
+    spec, bg, st, params = _lowered_inputs(which, chains, tol, card,
+                                           **spec_kw)
+    static = cl.make_static_inputs(bg, spec, params)
+    args = (bg, static, spec, t_len, st.board, *cl.pack_state(st, params))
+    launches = cl.run_lowered_chunk_cuda.launches
+    got = cl.run_lowered_chunk_cuda(*args)
+    assert cl.run_lowered_chunk_cuda.launches == launches + 1
+    want = cl.lowered_chunk_reference(*args)
+    torch.cuda.synchronize()
+    for name, g_arr, w_arr in zip(cl.OUT_NAMES, got, want):
+        w_arr = w_arr.to(g_arr.dtype)
+        same = g_arr == w_arr
+        if g_arr.dtype.is_floating_point:
+            same |= torch.isnan(g_arr) & torch.isnan(w_arr)
+        assert bool(same.all()), name
+
+
+@pytest.mark.cuda
+def test_lowered_runner_goes_through_the_kernel(card):
+    spec, bg, st, params = _lowered_inputs("sec11", 8, 0.1, card)
+    launches = cl.run_lowered_chunk_cuda.launches
+    res = run_board(bg, spec, params, st, n_steps=121, chunk=40,
+                    device=card)
+    assert cl.run_lowered_chunk_cuda.launches == launches + 3
+    assert (res.state.t_yield == 121).all()
+    assert res.history["slope"].shape == (8, 121)
