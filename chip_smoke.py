@@ -33,19 +33,23 @@ entry points a user calls, checks what comes out, and prints:
   5. the lowered-chunk kernel (the paper's experiment chains) against its
      plain version, every output bit-equal except counted log ties in the
      waits: sec11 and the Frankengraph at C=64, T=64, an empty valid set
-     (pop_tol 0) and contiguity 'none'; then against the JAX package's own
-     50-step sec11 chunk kept in ``tests/fixtures/torch/lowered_sec11.npz``;
+     (pop_tol 0), contiguity 'none', accept 'always' (the resident planes
+     updated after every step) and random starts where most cells are
+     candidates; then against the JAX package's own 50-step sec11 chunk
+     kept in ``tests/fixtures/torch/lowered_sec11.npz``;
   6. the lowered main path for sec11 (config 0B263P10) and the
      Frankengraph (0B30P10), each through ``run_board`` at C=4096, chunk
      500, a 501-step warmup and 3001 timed steps: flips/s, peak memory,
-     the kernel's launches (equal to the chunks run), result checks
-     (cut_count and dist_pop against recounts, both districts connected,
-     accept rate and mean cut beside a 501-step plain run at C=256 whose
-     chains must match the kernel's first 256 exactly), then at that
-     shape the kernel against its plain version, the kernel's ms per
-     chunk and the plain version's, the wall ms of ``apply_flip_log``, the
-     bound (candidate cells replayed from the flip log), the idle share
-     of 1001 steps and the SM clock under load;
+     the kernel's launches (equal to the chunks run) and the calls of
+     ``apply_flip_log``, result checks (cut_count and dist_pop against
+     recounts, both districts connected, accept rate and mean cut beside
+     a 501-step plain run at C=256 whose chains must match the kernel's
+     first 256 exactly), then at that shape the kernel against its plain
+     version, the kernel's ms per chunk and the plain version's, the wall
+     ms of ``apply_flip_log`` and its bound, the kernel's bound in two
+     forms (the candidate form, its candidate cells replayed from the flip
+     log, and the resident-plane form, its accepted moves counted), the
+     idle share of 1001 steps and the SM clock under load;
   7. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -53,12 +57,15 @@ entry points a user calls, checks what comes out, and prints:
 version's C interface), checks that its outputs equal the current
 kernel's at the main path's shape and times the two in turn (baseline,
 current, current, baseline; three rounds) in the same call.
+``--baseline-lowered PATH`` does the same for an earlier
+``lowered_chunk.cu`` (the same C interface) at both lowered main paths.
 
 Any failed phase exits nonzero before the last line. Without a CUDA card,
 or without the port's package beside it, the script exits nonzero and
 prints no result.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -129,13 +136,20 @@ LOWERED_EXACT_C, LOWERED_EXACT_T = 64, 64
 LOWERED_FIXTURE = "tests/fixtures/torch/lowered_sec11.npz"
 FIXTURE_SEED, FIXTURE_C, FIXTURE_T = 11, 4, 50
 FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
-# Operations the lowered-chunk function needs in its packed form, counted
-# on this run's data (a floor):
+# Operations the lowered-chunk function needs, counted on this run's data
+# (a floor), in two forms; the bound takes the smaller.
+# The candidate form checks the patch of every candidate cell each step:
 #   ops = C * T * (K_LWORD * ceil(N / 32) + K_LTAIL + 6 * K_BLOCK)
 #         + (K_BLOCK + K_WAIT) * accepted moves + K_CAND * candidates
-# K_LWORD, every word of 32 cells and step: 8 direction funnel shifts,
-# xor, and, or (32), 4 wall-plane ands, the population gate (3), a
-# popcount and an add: 41.
+# The resident form keeps the boundary and the patch verdicts in planes
+# and brings them up to date around each accepted move:
+#   ops = C * T * (K_RWORD * ceil(N / 32) + K_LTAIL + 6 * K_BLOCK)
+#         + (K_BLOCK + K_WAIT + K_MOVE) * accepted moves
+# K_LWORD, every word of 32 cells and step in the candidate form: 8
+# direction funnel shifts, xor, and, or (32), 4 wall-plane ands, the
+# population gate (3), a popcount and an add: 41.
+# K_RWORD, the same in the resident form: the population gate (and,
+# and-not, or: 3), the ands with bnd and ok (2), a popcount and an add: 7.
 # K_BLOCK, one threefry2x32 block: 20 rounds of add, rotate, xor and 5 key
 # injections of 3: 77. Six a chain-step: the four-way split, the proposal
 # and the accept uniforms; a seventh (the wait's) and the wait itself
@@ -145,7 +159,16 @@ FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
 # K_CAND, per candidate cell (boundary & population gate, replayed from
 # the flip log): the 5 x 5 window as five 5-bit fields (25) and the member
 # and seed masks (5): 30. The worklist, data-dependent, is left out.
+# K_MOVE, per accepted move in the resident form: the 25 patch verdicts of
+# the flipped cell's window (K_CAND each, worklists left out), the 9
+# boundary bits of the cell and its ring neighbours (8 directions of
+# neighbour bit, xor, adjacency and, or; then the old bit, a compare and
+# the boundary count's update: 35 each) and the wall-edge test (8 edges of
+# adjacency bit, wall bit, and: 24): 25 * 30 + 9 * 35 + 24 = 1089. The
+# wall rescan after a move with a wall edge is left out.
 K_LWORD, K_BLOCK, K_LTAIL, K_WAIT, K_CAND = 41, 77, 100, 30, 30
+K_RWORD, K_BCELL, K_WALL = 7, 35, 24
+K_MOVE = 25 * K_CAND + 9 * K_BCELL + K_WALL
 
 
 def fail(msg: str) -> None:
@@ -331,37 +354,104 @@ def clocks_under_load(fn, launches: int) -> str:
     return out.stdout.strip() or "not measured"
 
 
-def baseline_rounds(cb, args, path: str) -> None:
-    """Build an earlier board_chunk.cu (the first version's interface, no
-    last-flip scratch) with the package's flags, check that its outputs
-    equal the current kernel's, and time baseline, current, current,
-    baseline, three rounds, in this call."""
+def build_baseline(path: str, stem: str):
+    """Build an earlier kernel source with the package's flags into the
+    build directory; returns the loaded library."""
     import ctypes
-    import torch
     from flipcomplexityempirical_tpu_torch.kernel import _build
-    lib_path = _build.build_dir() / "baseline_board_chunk.so"
+    lib_path = _build.build_dir() / f"{stem}.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
                           str(lib_path), path], capture_output=True,
                          text=True, timeout=600)
     if out.returncode != 0:
-        fail(f"baseline build failed:\n{out.stdout}{out.stderr}")
+        fail(f"{stem} build failed:\n{out.stdout}{out.stderr}")
     for line in (out.stdout + out.stderr).splitlines():
         if "registers" in line:
-            print(f"  baseline: {line.strip()}")
-    lib = ctypes.CDLL(str(lib_path))
+            print(f"  {stem}: {line.strip()}")
+    return ctypes.CDLL(str(lib_path))
+
+
+def timed_rounds(base, cur, label: str) -> None:
+    """Time baseline, current, current, baseline, three rounds."""
+    for r in range(3):
+        for which, fn in (("baseline", base), ("current", cur),
+                          ("current", cur), ("baseline", base)):
+            fn()
+            print(f"{label}round {r} {which}: {event_ms(fn, 3):.3f} ms per "
+                  f"{CHUNK}-step chunk (CUDA events, mean of 3)")
+
+
+def baseline_rounds(cb, args, path: str) -> None:
+    """Build an earlier board_chunk.cu (the first version's interface, no
+    last-flip scratch), check that its outputs equal the current kernel's,
+    and time the two in turns in this call."""
+    import torch
+    lib = build_baseline(path, "baseline_board_chunk")
     base = lambda: cb._launch(lib, (*args, None, None),  # noqa: E731
                               scratch=False)
     cur = lambda: cb.run_board_chunk_cuda(*args)  # noqa: E731
     if not all(torch.equal(g, w) for g, w in zip(base(), cur())):
         fail("the baseline kernel's outputs differ from the current one's")
     print("baseline outputs equal the current kernel's")
-    for r in range(3):
-        for which, fn in (("baseline", base), ("current", cur),
-                          ("current", cur), ("baseline", base)):
-            fn()
-            print(f"round {r} {which}: {event_ms(fn, 3):.3f} ms per "
-                  f"{CHUNK}-step chunk (CUDA events, mean of 3)")
+    timed_rounds(base, cur, "")
+
+
+def baseline_lowered_rounds(cl, lib, args, which: str) -> None:
+    """An earlier lowered_chunk.cu (``lib``, the same C interface) against
+    the current kernel on the same inputs: every output equal (NaN where
+    NaN), then the two timed in turns in this call."""
+    import torch
+    base = lambda: cl._launch(lib, *args)  # noqa: E731
+    cur = lambda: cl.run_lowered_chunk_cuda(*args)  # noqa: E731
+    got_b, got_c = base(), cur()
+    torch.cuda.synchronize()
+    for name, b, c in zip(cl.OUT_NAMES, got_b, got_c):
+        same = b == c
+        if b.dtype.is_floating_point:
+            same |= torch.isnan(b) & torch.isnan(c)
+        if not bool(same.all()):
+            fail(f"baseline lowered {which}: {name} differs from the "
+                 "current kernel's")
+    print(f"baseline lowered {which}: outputs equal the current kernel's")
+    timed_rounds(base, cur, f"lowered {which} ")
+
+
+@contextlib.contextmanager
+def count_calls(modules, name: str):
+    """Count the calls of ``name`` made inside the block through any of
+    ``modules`` (each module that imported it by name): yields a list that
+    grows by one a call."""
+    calls = []
+    origs = [getattr(m, name) for m in modules]
+
+    def counting(orig):
+        def counted(*args, **kw):
+            calls.append(1)
+            return orig(*args, **kw)
+        return counted
+
+    for m, orig in zip(modules, origs):
+        setattr(m, name, counting(orig))
+    try:
+        yield calls
+    finally:
+        for m, orig in zip(modules, origs):
+            setattr(m, name, orig)
+
+
+def flip_log_bound(state, log_f, log_s) -> str:
+    """The bytes ``apply_flip_log`` must move for one chunk (the (T, C)
+    flip-log rows and the t0 row read once, the (C, N) part_sum,
+    last_flipped and num_flips planes read and written once) and their
+    time at the card's memory rate."""
+    def size(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+    nbytes = (size(log_f, log_s, state.t_yield)
+              + 2 * size(state.part_sum, state.last_flipped,
+                         state.num_flips))
+    return (f"apply_flip_log bound: {nbytes:.4e} bytes -> "
+            f"{1e3 * nbytes / PEAK_BYTES_PER_S:.4f} ms (bytes)")
 
 
 def districts_connected(board_row, h: int, w: int) -> bool:
@@ -467,11 +557,18 @@ def probe_phase(probes) -> list:
 # ---------------------------------------------------------------------------
 
 def lowered_workload(port, which: str, n_chains: int, seed: int,
-                     pop_tol: float = POP_TOL, **spec_kw):
-    """(graph, bg, state, params, spec) of one of ``LOWERED``'s graphs."""
+                     pop_tol: float = POP_TOL, random_start: bool = False,
+                     **spec_kw):
+    """(graph, bg, state, params, spec) of one of ``LOWERED``'s graphs,
+    from the family's plan or, with ``random_start``, from a seeded
+    random assignment (most cells on the boundary)."""
+    import numpy as np
     _, builder, plan_fn, base = next(x for x in LOWERED if x[0] == which)
     g = getattr(port.graphs, builder)()
-    plan = getattr(port.graphs, plan_fn)(g, 0)
+    if random_start:
+        plan = np.random.default_rng(seed).integers(0, 2, g.n_nodes)
+    else:
+        plan = getattr(port.graphs, plan_fn)(g, 0)
     kw = dict(contiguity="patch", accept="cut", record_interface=True)
     kw.update(spec_kw)
     spec = port.Spec(**kw)
@@ -528,7 +625,12 @@ def lowered_exactness(port, cl) -> float:
             ("frankengraph", "frankengraph", POP_TOL, {}),
             ("sec11 empty valid set", "sec11", 0.0, {}),
             ("sec11 contiguity none", "sec11", POP_TOL,
-             {"contiguity": "none"})):
+             {"contiguity": "none"}),
+            ("sec11 accept always", "sec11", POP_TOL, {"accept": "always"}),
+            ("sec11 dense candidates", "sec11", POP_TOL,
+             {"random_start": True}),
+            ("frankengraph dense candidates, accept always", "frankengraph",
+             POP_TOL, {"random_start": True, "accept": "always"})):
         _, bg, st, params, spec = lowered_workload(
             port, which, LOWERED_EXACT_C, 1, pop_tol=tol, **kw)
         static = cl.make_static_inputs(bg, spec, params)
@@ -542,6 +644,10 @@ def lowered_exactness(port, cl) -> float:
             cl, got, want, f"lowered {label} C={LOWERED_EXACT_C} "
             f"T={LOWERED_EXACT_T}"))
         moved = int((got[4][5] - st.accept_count).sum())
+        b0 = float(got[8][0].double().mean())
+        print(f"  {label}: boundary cells at step 0 {b0:.1f} of "
+              f"{bg.n_real} a chain, accepted moves {moved} of "
+              f"{LOWERED_EXACT_C * LOWERED_EXACT_T} chain-steps")
         if tol == 0.0 and moved:
             fail("the empty valid set moved a chain")
         if tol > 0.0 and not moved:
@@ -676,9 +782,10 @@ def graph_connected(graph, nodes) -> bool:
     return True
 
 
-def lowered_main_path(port, cl, tb, which: str) -> dict:
-    """One graph's lowered main path with its checks and timings; returns
-    the numbers of the kernel row."""
+def lowered_main_path(port, cl, tb, which: str, baseline=None) -> dict:
+    """One graph's lowered main path with its checks and timings (and,
+    given ``baseline``, an earlier kernel's library, that kernel timed
+    beside the current one); returns the numbers of the kernel row."""
     import dataclasses
 
     import torch
@@ -686,21 +793,23 @@ def lowered_main_path(port, cl, tb, which: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cl.run_lowered_chunk_cuda.launches = 0
-    t_w = time.perf_counter()
-    warm = port.run_board(bg, spec, params, st, n_steps=WARMUP, chunk=CHUNK,
-                          device=DEVICE)
-    torch.cuda.synchronize()
-    warm_wall = time.perf_counter() - t_w
-    state = warm.state.replace(
-        accept_count=torch.zeros_like(warm.state.accept_count),
-        tries_sum=torch.zeros_like(warm.state.tries_sum),
-        exhausted_count=torch.zeros_like(warm.state.exhausted_count))
-    torch.cuda.synchronize()
-    t_run = time.perf_counter()
-    res = port.run_board(bg, spec, params, state, n_steps=STEPS,
-                         record_history=False, chunk=CHUNK, device=DEVICE)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_run
+    with count_calls((cl, tb), "apply_flip_log") as flip_calls:
+        t_w = time.perf_counter()
+        warm = port.run_board(bg, spec, params, st, n_steps=WARMUP,
+                              chunk=CHUNK, device=DEVICE)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t_w
+        state = warm.state.replace(
+            accept_count=torch.zeros_like(warm.state.accept_count),
+            tries_sum=torch.zeros_like(warm.state.tries_sum),
+            exhausted_count=torch.zeros_like(warm.state.exhausted_count))
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        res = port.run_board(bg, spec, params, state, n_steps=STEPS,
+                             record_history=False, chunk=CHUNK,
+                             device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
     launches = cl.run_lowered_chunk_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     chunks = -(-(WARMUP - 1) // CHUNK) + -(-(STEPS - 1) // CHUNK)
@@ -709,9 +818,13 @@ def lowered_main_path(port, cl, tb, which: str) -> dict:
           f"{wall:.3f} s, {fps:.6e} flips/s (warmup {WARMUP} steps "
           f"{warm_wall:.3f} s with history); peak memory "
           f"{peak / 2 ** 20:.1f} MiB; lowered_chunk launches {launches} for "
-          f"{chunks} chunks")
+          f"{chunks} chunks; apply_flip_log calls {len(flip_calls)} (one "
+          f"a chunk and one in each run's final record)")
     if launches != chunks:
         fail(f"lowered_chunk launched {launches} times for {chunks} chunks")
+    if len(flip_calls) != chunks + 2:    # and each run's final record
+        fail(f"apply_flip_log ran {len(flip_calls)} times for {chunks} "
+             "chunks and 2 final records")
 
     # result checks
     fs = res.state
@@ -775,6 +888,7 @@ def lowered_main_path(port, cl, tb, which: str) -> dict:
     print(f"lowered_chunk {which}: {ms:.3f} ms per {CHUNK}-step chunk (CUDA "
           f"events, mean of {reps}); plain version {plain_ms:.3f} ms; "
           f"apply_flip_log {flip_log_ms:.3f} ms wall")
+    print(f"{which} " + flip_log_bound(fs, outs[5], outs[6]))
     # what the patch check and the interface cost: the same chunk with
     # each switched off (a timing only, off the main path)
     parts = []
@@ -795,8 +909,11 @@ def lowered_main_path(port, cl, tb, which: str) -> dict:
     if spec.contiguity == "patch":
         n_cand = lowered_candidates(tb, bg, spec, fs.board, dp_scal_ints[1],
                                     dp_scal_ints[2], outs, static.unit_pop)
-    ops = (CHAINS * CHUNK * (K_LWORD * nw + K_LTAIL + 6 * K_BLOCK)
-           + (K_BLOCK + K_WAIT) * moved + K_CAND * n_cand)
+    ops_cand = (CHAINS * CHUNK * (K_LWORD * nw + K_LTAIL + 6 * K_BLOCK)
+                + (K_BLOCK + K_WAIT) * moved + K_CAND * n_cand)
+    ops_res = (CHAINS * CHUNK * (K_RWORD * nw + K_LTAIL + 6 * K_BLOCK)
+               + (K_BLOCK + K_WAIT + K_MOVE) * moved)
+    ops = min(ops_cand, ops_res)
     nbytes = (2 * CHAINS * n                   # board in, out (int8)
               + 4 * CHAINS * 2 * (2 + 2 + 8)    # keys, dist_pop, ints
               + 4 * CHAINS * (6 + 2)            # scalars in, out
@@ -805,9 +922,15 @@ def lowered_main_path(port, cl, tb, which: str) -> dict:
               + 4 * (13 * nw + n + 4 * n))      # static planes, classes
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     t_ops = 1e3 * ops / PEAK_OPS_PER_S
-    print(f"lowered_chunk {which} bound: {ops:.4e} operations (accepted "
-          f"moves {moved}, candidate cells {n_cand}) -> {t_ops:.4f} ms, "
-          f"{nbytes:.4e} bytes -> {t_bytes:.4f} ms")
+    print(f"lowered_chunk {which} bound: candidate form {ops_cand:.4e} "
+          f"operations -> {1e3 * ops_cand / PEAK_OPS_PER_S:.4f} ms; "
+          f"resident form {ops_res:.4e} operations -> "
+          f"{1e3 * ops_res / PEAK_OPS_PER_S:.4f} ms (accepted moves "
+          f"{moved}, candidate cells {n_cand}); the smaller, the "
+          f"{'resident' if ops_res <= ops_cand else 'candidate'} form, "
+          f"{t_ops:.4f} ms; {nbytes:.4e} bytes -> {t_bytes:.4f} ms")
+    if baseline is not None:
+        baseline_lowered_rounds(cl, baseline, args, which)
     print(f"profile of {2 * CHUNK + 1} lowered {which} steps: " + idle_share(
         lambda: port.run_board(bg, spec, params, fs, n_steps=2 * CHUNK + 1,
                                record_history=False, chunk=CHUNK,
@@ -827,6 +950,9 @@ def main() -> None:
     ap.add_argument("--baseline", metavar="BOARD_CHUNK_CU",
                     help="an earlier csrc/board_chunk.cu (the first "
                     "version's interface) to time beside the current one")
+    ap.add_argument("--baseline-lowered", metavar="LOWERED_CHUNK_CU",
+                    help="an earlier csrc/lowered_chunk.cu (the same C "
+                    "interface) to check and time beside the current one")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -875,28 +1001,34 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cb.run_board_chunk_cuda.launches = 0
-    warm = port.run_board_cuda(bg, spec, params, st, n_steps=WARMUP,
-                               chunk=CHUNK, seed=0, device=dev)
-    state = warm.state.replace(
-        accept_count=torch.zeros_like(warm.state.accept_count),
-        tries_sum=torch.zeros_like(warm.state.tries_sum),
-        exhausted_count=torch.zeros_like(warm.state.exhausted_count))
-    torch.cuda.synchronize()
-    t_run = time.perf_counter()
-    res = port.run_board_cuda(bg, spec, params, state, n_steps=STEPS,
-                              record_history=False, chunk=CHUNK, seed=1,
-                              device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_run
+    with count_calls((tb,), "apply_flip_log") as flip_calls:
+        warm = port.run_board_cuda(bg, spec, params, st, n_steps=WARMUP,
+                                   chunk=CHUNK, seed=0, device=dev)
+        state = warm.state.replace(
+            accept_count=torch.zeros_like(warm.state.accept_count),
+            tries_sum=torch.zeros_like(warm.state.tries_sum),
+            exhausted_count=torch.zeros_like(warm.state.exhausted_count))
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        res = port.run_board_cuda(bg, spec, params, state, n_steps=STEPS,
+                                  record_history=False, chunk=CHUNK, seed=1,
+                                  device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
     launches = cb.run_board_chunk_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     chunks = -(-(WARMUP - 1) // CHUNK) + -(-(STEPS - 1) // CHUNK)
     fps = CHAINS * (STEPS - 1) / wall
     print(f"main path: {CHAINS} chains x {STEPS} steps in {wall:.3f} s, "
           f"{fps:.6e} flips/s; peak memory {peak / 2 ** 20:.1f} MiB; "
-          f"board_chunk launches {launches} for {chunks} chunks")
+          f"board_chunk launches {launches} for {chunks} chunks; "
+          f"apply_flip_log calls {len(flip_calls)} (one a chunk and one in "
+          f"each run's final record)")
     if launches != chunks:
         fail(f"board_chunk launched {launches} times for {chunks} chunks")
+    if len(flip_calls) != chunks + 2:    # and each run's final record
+        fail(f"apply_flip_log ran {len(flip_calls)} times for {chunks} "
+             "chunks and 2 final records")
 
     # result checks
     fs = res.state
@@ -960,6 +1092,7 @@ def main() -> None:
           f"mean of {reps}); plain version {plain_ms:.3f} ms; "
           f"apply_flip_log {flip_log_ms:.3f} ms wall; record_final "
           f"{final_ms:.3f} ms wall")
+    print("rook " + flip_log_bound(fs, outs[4], outs[5]))
 
     n_cells = bg.n
     sum_hb = int(outs[7].long().sum())
@@ -993,7 +1126,10 @@ def main() -> None:
     # ---- 5, 6: the lowered path -----------------------------------------
     lowered_err = lowered_exactness(port, cl)
     lowered_fixture(port, cl, tb)
-    per_graph = {which: lowered_main_path(port, cl, tb, which)
+    old_lowered = (build_baseline(opts.baseline_lowered,
+                                  "baseline_lowered_chunk")
+                   if opts.baseline_lowered else None)
+    per_graph = {which: lowered_main_path(port, cl, tb, which, old_lowered)
                  for which, *_ in LOWERED}
     main_row = per_graph["sec11"]
     kernels.insert(0, {

@@ -13,36 +13,60 @@
 // draws the JAX package's own threefry2x32 stream: split(key, 4) per step,
 // uniform() of each subkey, exactly as rng.py and jax.random do.
 //
+// Resident planes. Each chain keeps, beside its board, two bit planes in
+// shared memory that describe the board and change only around a flip:
+//   bnd, the boundary: bit c is set where a ring edge of c is cut (holes
+//     have no adjacency bits, so they never count). It depends on c and its
+//     ring neighbours only, so a flip at f changes it only in the 3 x 3
+//     block f + dr * w + dc, |dr|, |dc| <= 1;
+//   ok, the patch verdict: bit c is the exact radius-2 patch check of c (the
+//     JAX package's _stencil_patch_ok at that cell), which reads only the
+//     5 x 5 window around c, so a flip at f changes it only at the <= 25
+//     cells f + dr * w + dc, |dr|, |dc| <= 2. With contiguity 'none' it is
+//     all ones.
+// Both are filled once a chunk (the boundary by the 8-direction word pass,
+// the verdict by one patch check per cell). After each committed flip at
+// f, lanes 0..5 recompute the (at most six) boundary words of f's 3 x 3
+// block, then lanes 0..24 the verdicts of the cells of f's window that are
+// on the boundary now, written back by shared atomics. A cell off the
+// boundary keeps its old verdict bit, which the valid word masks out; it
+// joins the boundary only when one of its ring neighbours flips, and that
+// flip's window holds it, so its verdict is recomputed then. So ok is the
+// patch check wherever bnd is set, which is all that validity reads.
+// The wall keys work the same way: the two smallest keys among the cut wall
+// edges (first, second) and the last slope and angle stay in registers, and
+// only a committed flip that has a wall edge (its edges' cut states all
+// toggle) rescans the wall words, listed once a launch; the interface
+// metrics run only when the pair changed.
+//
 // Per step and chain (the order of the JAX scan body):
-//   1. split the key four ways: (key, kprop, kacc, kwait), lanes 0..3 one
-//      threefry block each, then lanes 1..3 the uniform of their subkey;
-//   2. the word pass: each lane owns board words lane, lane + 32, ...
-//      (cell = 32 * word + bit, the canvas in flat row-major order). Per
-//      word, the 8 ring-direction "differ" planes from funnel shifts by
-//      the flat offsets 1, w + 1, w, w - 1 and their negatives, masked by
-//      the static adjacency planes; their OR is the boundary (holes have
-//      no adjacency bits, so they never count); the population gate of a
-//      uniform population is one test per district; the wall-cut edges of
-//      the four forward planes feed two running minima of the wall keys;
-//   3. complete the pending wait from the boundary count, record the row:
-//      cut, b, wait, accepts, the flip-log pair, and slope / angle from
-//      the two smallest wall keys;
-//   4. contiguity (patch): the candidate cells (boundary & gate) are
-//      compacted into a per-warp list and spread over the lanes; per cell
-//      the exact radius-2 patch check: the member bitset over the B2
-//      window (same district as the cell, in its patch), seeds = direct
-//      neighbours, reach grown from the lowest seed by a worklist over the
-//      patch adjacency. The JAX body runs b2_iters Jacobi rounds instead;
-//      b2_iters = the largest patch size - 1 bounds every shortest path
-//      inside a patch, so both reach the same closure and give the same
-//      verdict. The bitsets are indexed by the position in the 5 x 5
-//      window around the cell rather than by the JAX package's offset
-//      index (a relabelling of the same bits), so that the member set is
-//      five 5-bit board fields. The valid cells are set in a per-chain bit
-//      plane (shared atomics);
-//   5. select the m-th valid cell in flat order, m = min(int(u * total),
-//      total - 1), by per-word popcounts and a warp scan; accept by the
-//      literal base**(-dcut) bound (or always); commit.
+//   1. the step's draws: every 32 steps one batch runs the key chain
+//      (split counter 0 of each step's key) serially and then, lane i for
+//      the batch's step i, the subkeys (split counters 1, 2, 3), their
+//      uniforms and the logs that the accept test and the wait take; a
+//      step reads its lane's values by shuffles;
+//   2. the word pass: each lane owns words lane, lane + 32, ... (cell =
+//      32 * word + bit, the canvas in flat row-major order); the valid word
+//      is bnd & ok & the population gate (one test per district for a
+//      uniform population), the boundary count a popcount of bnd; one warp
+//      scan of the valid counts, two words' counts packed in one value;
+//   3. complete the pending wait from the boundary count, record the row
+//      (lane r < 8 writes row r): cut, b, wait, accepts, the flip-log pair,
+//      and the resident slope / angle;
+//   4. select the m-th valid cell in flat order, m = min(int(u * total),
+//      total - 1), from the scan; accept by the literal base**(-dcut) bound
+//      (or always), dcut from ballots of lanes 0..7 over the cell's edges;
+//      commit, and bring the resident planes and the wall pair up to date
+//      around the flip.
+// The patch check is the member bitset over the B2 window (same district
+// as the cell, in its patch), seeds = direct neighbours, reach grown from
+// the lowest seed by a worklist over the patch adjacency. The JAX body runs
+// b2_iters Jacobi rounds instead; b2_iters = the largest patch size - 1
+// bounds every shortest path inside a patch, so both reach the same
+// closure and give the same verdict. The bitsets are indexed by the
+// position in the 5 x 5 window around the cell rather than by the JAX
+// package's offset index (a relabelling of the same bits), so that the
+// member set is five 5-bit board fields.
 // cut_times by events, as board_chunk.cu does for two planes: an edge's
 // cut state changes only when one of its ends flips, so an accepted flip
 // at step t updates its up-to-8 edges, acc += cut_old * (t + 1 - last),
@@ -67,18 +91,21 @@
 //     same device functions torch's CUDA ops call, so the plain version on
 //     the card agrees bit for bit.
 //
-// What bounds it on an H100: integer issue, not memory. Device memory
+// What bounds it on an H100: instruction issue, not memory. Device memory
 // carries the board in and out, the four cut planes out and the (T, C)
-// rows; the step is two threefry blocks a lane, the word pass (8 shifted
-// reads a word), and the patch check of each candidate cell: five 5-bit
-// window fields and a short worklist, against the class rows in shared
-// memory (with per-cell rows in device memory the check waits on L2,
-// since four blocks leave the SM ~28 KB of L1). The step loop's code is
-// kept small: the wall-key scan and the interface metrics are out of line,
-// because a fully unrolled step cost far more with both the patch check
-// and the interface on than their separate costs suggested, which points
-// at the instruction cache. chip_smoke.py reports the operation floor of
-// the run's data beside the measured time.
+// rows. At C = 4096 an SM holds ~31 warps, one chain each, ~8 a scheduler,
+// and each chain-step issues several hundred warp instructions: a little
+// over one threefry block (the serial key chain; the rest of the draws
+// are spread over the batch's lanes), three shared loads and a few logical
+// operations a word, the packed scan, the wait's division (its log1p read
+// from a per-block table by boundary count), and per accepted move the
+// boundary words and the window's patch checks (each five 5-bit fields and
+// a short worklist against the class rows in shared memory, padded so that
+// lanes reading different classes do not share a bank).
+// The per-step work no longer grows with the candidate count. The draws,
+// the wall rescan and the interface metrics are out of line, to keep the
+// step loop's code small. chip_smoke.py reports the operation floor of the
+// run's data beside the measured time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 //        -shared -Xcompiler -fPIC (kernel/_build.py).
@@ -93,6 +120,9 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kChainsPerBlock = 8;
 constexpr int kThreads = 32 * kChainsPerBlock;
 constexpr uint32_t kIfaceBig = 1u << 30;
+// a class row's stride in shared memory: 33 words, so that word q of
+// different classes' rows lies in different banks
+constexpr int kRowStride = 33;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
@@ -182,19 +212,21 @@ struct Args {
 };
 
 // Shared memory, in 32-bit words, sized at launch (NW = the board's words):
-//   per block: adj 8 * NW, wall 4 * NW, node NW, the cells' patch classes
-//     (uint16, N) and the class rows (32 each);
+//   per block: the 8 record rows' pointers (16), adj 8 * NW, wall 4 * NW,
+//     node NW, the class rows (kRowStride each), the wait's log1p table
+//     (f32, N + 1), the cells' patch classes (uint16, N), the wall-word
+//     list (uint16, NW) and its length;
 //   per chain: board guard + NW + guard (guards zero: a window cell is at
-//     most 2w + 2 cells away), flipped NW, valid NW, then a uint16 list of
-//     N candidate cells.
+//     most 2w + 2 cells away), then the planes flipped, bnd and ok, NW each.
 struct Layout {
   int nw, guard, board, stat, chain;
   __host__ __device__ Layout(int n, int w, int n_classes) {
     nw = (n + 31) >> 5;
     guard = ((2 * w + 2) >> 5) + 2;
     board = nw + 2 * guard;
-    stat = 13 * nw + (n + 1) / 2 + 32 * n_classes;
-    chain = board + 2 * nw + (n + 1) / 2;
+    stat = 16 + 13 * nw + kRowStride * n_classes + (n + 1) + (n + 1) / 2 +
+           (nw + 1) / 2 + 1;
+    chain = board + 3 * nw;
   }
   size_t bytes() const {
     return 4 * (size_t(stat) + size_t(kChainsPerBlock) * chain);
@@ -209,11 +241,10 @@ struct Layout {
 // board instead of ~128 KB of per-cell rows in device memory.
 
 // the two smallest wall keys among the set bits of wc (cells 32 * k + bit
-// of forward plane d): rare work, kept out of line so that the step loop's
-// code stays small
-__device__ __noinline__ void scan_walls(const int32_t* iface_key, int n,
-                                        int d, int k, uint32_t wc,
-                                        uint32_t& min1, uint32_t& min2) {
+// of forward plane d)
+__device__ __forceinline__ void scan_walls(const int32_t* iface_key, int n,
+                                           int d, int k, uint32_t wc,
+                                           uint32_t& min1, uint32_t& min2) {
   while (wc) {
     const int bit = __ffs(wc) - 1;
     wc &= wc - 1u;
@@ -228,12 +259,43 @@ __device__ __noinline__ void scan_walls(const int32_t* iface_key, int n,
   }
 }
 
+// the two smallest wall keys among the cut wall edges of the board, over
+// the listed wall words (the whole warp calls it): rare work, kept out of
+// line so that the step loop's code stays small
+__device__ __noinline__ void wall_pair(const uint32_t* B, const uint32_t* adjw,
+                                       const uint32_t* wallw,
+                                       const uint16_t* wlist, int n_ww,
+                                       int nw, int w,
+                                       const int32_t* iface_key, int n,
+                                       uint32_t& first, uint32_t& second) {
+  uint32_t min1 = kIfaceBig, min2 = kIfaceBig;
+  const int fwd[4] = {1, w + 1, w, w - 1};  // E, SE, S, SW (w >= 3)
+  for (int e = threadIdx.x & 31; e < n_ww; e += 32) {
+    const int k = wlist[e];
+    const uint32_t b = B[k];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const uint32_t wc = (b ^ shifted_fwd(B, k, fwd[d])) & adjw[d * nw + k] &
+                          wallw[d * nw + k];
+      if (wc) scan_walls(iface_key, n, d, k, wc, min1, min2);
+    }
+  }
+  first = __reduce_min_sync(kFull, min1);
+  second = __reduce_min_sync(kFull, min1 == first ? min2 : min1);
+}
+
 // slope and angle of the two wall edges with keys first < second (the JAX
-// package's _interface_stencil, float step for float step)
-__device__ __noinline__ void interface_metrics(int f, int s, int qx_off,
-                                               int qy_off, int bx, int by,
-                                               float cx, float cy,
+// package's _interface_stencil, float step for float step); NaN with fewer
+// than two cut wall edges
+__device__ __noinline__ void interface_metrics(uint32_t first, uint32_t second,
+                                               int qx_off, int qy_off, int bx,
+                                               int by, float cx, float cy,
                                                float& slope, float& angle) {
+  if (second >= kIfaceBig) {
+    slope = angle = NAN;
+    return;
+  }
+  const int f = static_cast<int>(first), s = static_cast<int>(second);
   const int mx = (1 << bx) - 1, my = (1 << by) - 1;
   const float ax = static_cast<float>(((f >> by) & mx) + qx_off) * 0.5f;
   const float ay = static_cast<float>((f & my) + qy_off) * 0.5f;
@@ -259,7 +321,7 @@ __device__ __noinline__ void interface_metrics(int f, int s, int qx_off,
 __device__ __forceinline__ bool patch_ok(const uint32_t* B, int w,
                                          const uint16_t* cls,
                                          const uint32_t* rows, int cell) {
-  const uint32_t* row = rows + 32 * cls[cell];
+  const uint32_t* row = rows + kRowStride * cls[cell];
   const uint32_t flip = bit_at(B, cell) ? 0u : 31u;  // xnor with the centre
   uint32_t same = 0u;
 #pragma unroll
@@ -284,6 +346,91 @@ __device__ __forceinline__ bool patch_ok(const uint32_t* B, int w,
   return false;
 }
 
+// set or clear bit i of a shared plane; lanes may share a word
+__device__ __forceinline__ void put_bit(uint32_t* words, int i, bool v) {
+  const uint32_t m = 1u << (i & 31);
+  if (v)
+    atomicOr(words + (i >> 5), m);
+  else
+    atomicAnd(words + (i >> 5), ~m);
+}
+
+// the flat offset of ring direction d (E, SE, S, SW, W, NW, N, NE);
+// directions d and d + 4 are opposite
+__device__ __forceinline__ int ring_off(int d, int w) {
+  const int o = (d & 3) == 0 ? 1 : (d & 3) == 1 ? w + 1 : (d & 3) == 2 ? w
+                                                                     : w - 1;
+  return d & 4 ? -o : o;
+}
+
+// the boundary bits of board word k: a ring edge of the cell is cut
+__device__ __forceinline__ uint32_t boundary_word(const uint32_t* B,
+                                                  const uint32_t* adjw,
+                                                  int nw, int w, int k) {
+  const uint32_t b = B[k];
+  uint32_t bmask = 0u;
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+    bmask |= (b ^ shifted_fwd(B, k, ring_off(d, w))) & adjw[d * nw + k];
+#pragma unroll
+  for (int d = 4; d < 8; ++d)
+    bmask |= (b ^ shifted_back(B, k, ring_off(d, w))) & adjw[d * nw + k];
+  return bmask;
+}
+
+// position of the r-th (from 0) set bit of x, r < popc(x)
+__device__ __forceinline__ int nth_bit(uint32_t x, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int low = __popc(x & ((1u << s) - 1u));
+    if (r >= low) {
+      r -= low;
+      x >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// The threefry draws of up to 32 steps: the key chain (split counter 0 of
+// each step's key) runs serially; lane i keeps the key of the batch's step
+// i and then draws that step's subkeys (split counters 1, 2, 3: proposal,
+// accept, wait), the uniform of each, and the logs that the accept test
+// and the wait take of the last two, all lanes at once. The same blocks,
+// and so the same stream, as splitting four ways every step. Out of line:
+// it runs once every 32 steps.
+struct Draws {
+  uint32_t key0, key1, prop;
+  float log_acc, log_wait;
+};
+__device__ __noinline__ Draws draw_batch(uint32_t key0, uint32_t key1,
+                                         int steps) {
+  const int lane = threadIdx.x & 31;
+  uint32_t m0 = 0u, m1 = 0u;
+  for (int i = 0; i < steps; ++i) {
+    if (lane == i) {
+      m0 = key0;
+      m1 = key1;
+    }
+    uint32_t s0 = 0u, s1 = 0u;
+    threefry2x32(key0, key1, s0, s1);
+    key0 = s0;
+    key1 = s1;
+  }
+  uint32_t p0 = 0u, p1 = 1u, q0 = 0u, q1 = 2u, r0 = 0u, r1 = 3u;
+  threefry2x32(m0, m1, p0, p1);
+  threefry2x32(m0, m1, q0, q1);
+  threefry2x32(m0, m1, r0, r1);
+  uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 0u, c0 = 0u, c1 = 0u;
+  threefry2x32(p0, p1, a0, a1);
+  threefry2x32(q0, q1, b0, b1);
+  threefry2x32(r0, r1, c0, c1);
+  return Draws{key0, key1, a0 ^ a1,
+               logf(fmaxf(uniform_of(b0 ^ b1), 1e-12f)),
+               logf(fmaxf(uniform_of(c0 ^ c1), 1e-12f))};
+}
+
 template <int WPL>
 __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
     lowered_chunk_kernel(const Args a) {
@@ -292,12 +439,28 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
   const Layout L(n, w, a.n_classes);
   const int nw = L.nw;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* adjw = smem;                     // [d * nw + k]
+  int32_t** row_out = reinterpret_cast<int32_t**>(smem);  // the 8 rows
+  uint32_t* adjw = smem + 16;                // [d * nw + k]
   uint32_t* wallw = adjw + 8 * nw;
   uint32_t* nodew = wallw + 4 * nw;
-  uint16_t* cls = reinterpret_cast<uint16_t*>(nodew + nw);
-  uint32_t* rows = nodew + nw + (n + 1) / 2;
+  uint32_t* rows = nodew + nw;
+  // log1p_b[b] = log1pf(-b / (n_real**2 - 1)), the wait's denominator at
+  // a boundary count of b (at most N)
+  float* log1p_b = reinterpret_cast<float*>(rows + kRowStride * a.n_classes);
+  uint16_t* cls = reinterpret_cast<uint16_t*>(log1p_b + n + 1);
+  uint16_t* wlist = cls + 2 * ((n + 1) / 2);
+  int* n_wall_words = reinterpret_cast<int*>(smem + L.stat - 1);
 
+  if (threadIdx.x == 0) {  // the record's rows, in lane order
+    row_out[0] = a.h_cut;
+    row_out[1] = a.h_b;
+    row_out[2] = reinterpret_cast<int32_t*>(a.h_wait);
+    row_out[3] = a.h_acc;
+    row_out[4] = a.log_f;
+    row_out[5] = a.log_s;
+    row_out[6] = reinterpret_cast<int32_t*>(a.h_slope);
+    row_out[7] = reinterpret_cast<int32_t*>(a.h_angle);
+  }
   for (int i = threadIdx.x; i < 8 * nw; i += kThreads)
     adjw[i] = a.adj_words[i];
   for (int i = threadIdx.x; i < 4 * nw; i += kThreads)
@@ -306,7 +469,25 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
   for (int i = threadIdx.x; i < n; i += kThreads)
     cls[i] = static_cast<uint16_t>(a.cell_class[i]);
   for (int i = threadIdx.x; i < 32 * a.n_classes; i += kThreads)
-    rows[i] = static_cast<uint32_t>(a.class_rows[i]);
+    rows[kRowStride * (i >> 5) + (i & 31)] =
+        static_cast<uint32_t>(a.class_rows[i]);
+  const float denom =
+      static_cast<float>(static_cast<double>(a.n_real) * a.n_real - 1.0);
+  for (int i = threadIdx.x; i <= n; i += kThreads)
+    log1p_b[i] = log1pf(-(static_cast<float>(i) / denom));
+  if (warp == 0) {  // the words holding a wall bit, in order
+    int cnt = 0;
+    for (int k0 = 0; k0 < nw; k0 += 32) {
+      const int k = k0 + lane;
+      uint32_t any = 0u;
+      if (k < nw)
+        for (int d = 0; d < 4; ++d) any |= a.wall_words[d * nw + k];
+      const unsigned has = __ballot_sync(kFull, any != 0u);
+      if (any) wlist[cnt + __popc(has & ((1u << lane) - 1u))] = k;
+      cnt += __popc(has);
+    }
+    if (lane == 0) *n_wall_words = cnt;
+  }
   __syncthreads();  // the only block barrier
 
   const int c = blockIdx.x * kChainsPerBlock + warp;
@@ -314,9 +495,10 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
   uint32_t* board_all = smem + L.stat + warp * L.chain;
   uint32_t* B = board_all + L.guard;  // B[-guard .. nw + guard) readable
   uint32_t* flipped = board_all + L.board;
-  uint32_t* vw = flipped + nw;
-  uint16_t* list = reinterpret_cast<uint16_t*>(vw + nw);
+  uint32_t* bnd = flipped + nw;
+  uint32_t* okw = bnd + nw;
   const size_t base = (size_t)c * n;
+  const int n_ww = *n_wall_words;
 
   for (int k = lane; k < L.board; k += 32) board_all[k] = 0u;
   for (int k = lane; k < nw; k += 32) flipped[k] = 0u;
@@ -329,12 +511,39 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
   }
   __syncwarp();
 
-  // the ring offsets E, SE, S, SW, W, NW, N, NE; lane d < 8 keeps its own
-  // (directions d and d + 4 are opposite)
-  const int ring[8] = {1, w + 1, w, w - 1, -1, -w - 1, -w, -w + 1};
-  const int fwd = lane & 3;
-  const int my_off = (fwd == 0 ? 1 : fwd == 1 ? w + 1 : fwd == 2 ? w : w - 1) *
-                     ((lane & 4) ? -1 : 1);
+  const int my_off = ring_off(lane, w);  // lane d < 8: direction d
+  // after a flip at f, lane 2 * (dr + 1) + e < 6 recomputes the boundary
+  // word e of the cells f + dr * w - 1 .. f + dr * w + 1 (f's ring and f
+  // itself) and lane 5 * (dr + 2) + dc + 2 < 25 the patch verdict of
+  // f + dr * w + dc (f's 5 x 5 window)
+  const int bnd_row = (lane / 2 - 1) * w - 1;
+  const int win_off = (lane / 5 - 2) * w + lane % 5 - 2;
+
+  // ---- the resident planes of the chunk's first board ------------------
+#pragma unroll
+  for (int j = 0; j < WPL; ++j) {
+    const int k = lane + 32 * j;
+    if (k >= nw) continue;
+    bnd[k] = boundary_word(B, adjw, nw, w, k);
+    okw[k] = kFull;
+  }
+  if (a.patch) {
+    for (int k = 0; k < nw; ++k) {
+      const int i = 32 * k + lane;
+      const uint32_t word =
+          __ballot_sync(kFull, i < n && patch_ok(B, w, cls, rows, i));
+      if (lane == (k & 31)) okw[k] = word;
+    }
+  }
+  __syncwarp();
+  uint32_t first = kIfaceBig, second = kIfaceBig;  // the resident wall pair
+  float slope = NAN, angle = NAN;
+  if (a.iface) {
+    wall_pair(B, adjw, wallw, wlist, n_ww, nw, w, a.iface_key, n, first,
+              second);
+    interface_metrics(first, second, a.qx_off, a.qy_off, a.bx, a.by, a.cx,
+                      a.cy, slope, angle);
+  }
 
   // per-chain state, warp-uniform
   uint32_t key0 = static_cast<uint32_t>(a.key_in[c]);
@@ -347,199 +556,167 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
       cur_sign = a.ints_in[2 * C + c], move_clock = a.ints_in[4 * C + c],
       acc_cnt = a.ints_in[5 * C + c], exh_cnt = a.ints_in[6 * C + c],
       cut_count = a.ints_in[7 * C + c];
-  const float denom =
-      static_cast<float>(static_cast<double>(a.n_real) * a.n_real - 1.0);
   const float unitf = static_cast<float>(a.unit_pop);
   const float lo = ceilf(pop_lo), hi = floorf(pop_hi);
+  Draws draws{0u, 0u, 0u, 0.f, 0.f};  // lane i: step 32 * q + i's draws
 
   for (int t = 0; t < T; ++t) {
-    // ---- 1. keys: split four ways, uniforms of the three subkeys -------
-    uint32_t s0 = 0u, s1 = static_cast<uint32_t>(lane & 3);
-    threefry2x32(key0, key1, s0, s1);
-    uint32_t u0 = 0u, u1 = 0u;
-    threefry2x32(s0, s1, u0, u1);
-    const uint32_t ubits = u0 ^ u1;
-    key0 = __shfl_sync(kFull, s0, 0);
-    key1 = __shfl_sync(kFull, s1, 0);
-    const float u_prop = uniform_of(__shfl_sync(kFull, ubits, 1));
-    const float u_acc = uniform_of(__shfl_sync(kFull, ubits, 2));
-    const float u_wait = uniform_of(__shfl_sync(kFull, ubits, 3));
+    // ---- 1. the step's uniforms, drawn 32 steps at a time -------------
+    const int slot = t & 31;
+    if (slot == 0) {
+      draws = draw_batch(key0, key1, min(32, T - t));
+      key0 = draws.key0;
+      key1 = draws.key1;
+    }
+    const float u_prop = uniform_of(__shfl_sync(kFull, draws.prop, slot));
+    const float log_acc = __shfl_sync(kFull, draws.log_acc, slot);
+    const float log_wait = __shfl_sync(kFull, draws.log_wait, slot);
 
-    // ---- 2. word pass: boundary, gate, wall keys ------------------------
+    // ---- 2. word pass: bnd & ok & gate, counts by one packed scan -------
     const float p0f = static_cast<float>(dp0), p1f = static_cast<float>(dp1);
     const uint32_t gate0 = unitf <= fminf(p0f - lo, hi - p1f) ? kFull : 0u;
     const uint32_t gate1 = unitf <= fminf(p1f - lo, hi - p0f) ? kFull : 0u;
     int bcnt = 0;
-    uint32_t min1 = kIfaceBig, min2 = kIfaceBig;
-    uint32_t cand[WPL];
+    uint32_t valid[WPL];
+    int cnt[WPL];
 #pragma unroll
     for (int j = 0; j < WPL; ++j) {
       const int k = lane + 32 * j;
-      cand[j] = 0u;
-      if (k >= nw) continue;
-      const uint32_t b = B[k];
-      uint32_t bmask = 0u;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {  // forward: E, SE, S, SW (w >= 3)
-        const uint32_t x =
-            (b ^ shifted_fwd(B, k, ring[d])) & adjw[d * nw + k];
-        bmask |= x;
-        const uint32_t wc = x & wallw[d * nw + k];  // zero without iface
-        if (wc) scan_walls(a.iface_key, n, d, k, wc, min1, min2);
+      valid[j] = 0u;
+      if (k < nw) {
+        const uint32_t b = B[k], bd = bnd[k];
+        bcnt += __popc(bd);
+        valid[j] = bd & okw[k] & ((b & gate1) | (~b & gate0));
       }
-#pragma unroll
-      for (int d = 4; d < 8; ++d)  // backward: W, NW, N, NE
-        bmask |= (b ^ shifted_back(B, k, ring[d])) & adjw[d * nw + k];
-      bcnt += __popc(bmask);
-      cand[j] = bmask & ((b & gate1) | (~b & gate0));
+      cnt[j] = __popc(valid[j]);
     }
     const int b_count = __reduce_add_sync(kFull, bcnt);
+    // inclusive prefix counts over the lanes, words j and j + 1 in the two
+    // 16-bit halves of one value (at most 32 * 32 cells each)
+    constexpr int NP = (WPL + 1) / 2;
+    int incl[NP], tot[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      incl[p] = cnt[2 * p] + (2 * p + 1 < WPL ? cnt[2 * p + 1] << 16 : 0);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int v = __shfl_up_sync(kFull, incl[p], d);
+        if (lane >= d) incl[p] += v;
+      }
+    }
+    int total = 0;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      tot[p] = __shfl_sync(kFull, incl[p], 31);
+      total += (tot[p] & 0xFFFF) + (tot[p] >> 16);
+    }
 
-    // ---- 3. wait, record ------------------------------------------------
+    // ---- 3. wait, record (lane r < 8 writes row r) ----------------------
     if (a.geom_waits && pending) {
-      const float p = static_cast<float>(b_count) / denom;
-      const float wn = floorf(logf(fmaxf(u_wait, 1e-12f)) / log1pf(-p));
+      const float wn = floorf(log_wait / log1p_b[b_count]);
       cur_wait = fmaxf(wn, 0.f);
     }
-    float slope = NAN, angle = NAN;
-    if (a.iface) {
-      const uint32_t first = __reduce_min_sync(kFull, min1);
-      const uint32_t second =
-          __reduce_min_sync(kFull, min1 == first ? min2 : min1);
-      if (second < kIfaceBig && lane == 0)
-        interface_metrics(static_cast<int>(first), static_cast<int>(second),
-                          a.qx_off, a.qy_off, a.bx, a.by, a.cx, a.cy, slope,
-                          angle);
-    }
-    if (lane == 0) {
-      const size_t row = (size_t)t * C + c;
-      a.h_cut[row] = cut_count;
-      a.h_b[row] = b_count;
-      a.h_wait[row] = cur_wait;
-      a.h_acc[row] = acc_cnt;
-      a.log_f[row] = cur_flip;
-      a.log_s[row] = cur_sign;
-      a.h_slope[row] = slope;
-      a.h_angle[row] = angle;
+    if (lane < 8) {
+      const int v = lane == 0   ? cut_count
+                    : lane == 1 ? b_count
+                    : lane == 2 ? __float_as_int(cur_wait)
+                    : lane == 3 ? acc_cnt
+                    : lane == 4 ? cur_flip
+                    : lane == 5 ? cur_sign
+                    : lane == 6 ? __float_as_int(slope)
+                                : __float_as_int(angle);
+      row_out[lane][(size_t)t * C + c] = v;
     }
     waits_sum += cur_wait;
 
-    // ---- 4. validity: the patch check of each candidate cell -----------
-    uint32_t valid[WPL];
-    if (a.patch) {
-      int mine = 0;
-#pragma unroll
-      for (int j = 0; j < WPL; ++j) mine += __popc(cand[j]);
-      int incl = mine;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(kFull, incl, d);
-        if (lane >= d) incl += v;
-      }
-      const int n_cand = __shfl_sync(kFull, incl, 31);
-      int pos = incl - mine;
-#pragma unroll
-      for (int j = 0; j < WPL; ++j) {
-        uint32_t cj = cand[j];
-        while (cj) {
-          const int bit = __ffs(cj) - 1;
-          cj &= cj - 1u;
-          list[pos++] = static_cast<uint16_t>(32 * (lane + 32 * j) + bit);
-        }
-        if (lane + 32 * j < nw) vw[lane + 32 * j] = 0u;
-      }
-      __syncwarp();
-      for (int e = lane; e < n_cand; e += 32) {
-        const int cell = list[e];
-        if (patch_ok(B, w, cls, rows, cell))
-          atomicOr(vw + (cell >> 5), 1u << (cell & 31));
-      }
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < WPL; ++j)
-        valid[j] = lane + 32 * j < nw ? vw[lane + 32 * j] : 0u;
-    } else {
-#pragma unroll
-      for (int j = 0; j < WPL; ++j) valid[j] = cand[j];
-    }
-
-    // ---- 5. select the m-th valid cell, accept, commit ------------------
-    int mine = 0;
-#pragma unroll
-    for (int j = 0; j < WPL; ++j) mine += __popc(valid[j]);
-    const int total = __reduce_add_sync(kFull, mine);
+    // ---- 4. select the m-th valid cell in flat order --------------------
     const bool any_valid = total > 0;
     int m = static_cast<int>(u_prop * static_cast<float>(total));
     m = min(m, max(total - 1, 0));
-    int flat = 0;
-    if (any_valid) {
-      int before = 0;  // valid cells in the words of earlier j
+    int before = 0, cell = -1;  // valid cells in the words of earlier j
 #pragma unroll
-      for (int j = 0; j < WPL; ++j) {
-        const int cnt = __popc(valid[j]);
-        int incl = cnt;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int v = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += v;
-        }
-        const int lo_rank = before + incl - cnt;
-        const unsigned here =
-            __ballot_sync(kFull, m >= lo_rank && m < before + incl);
-        if (here) {
-          const int src = __ffs(here) - 1;
-          int cell = 0;
-          if (lane == src) {
-            uint32_t word = valid[j];
-            for (int r = m - lo_rank; r > 0; --r) word &= word - 1u;
-            cell = 32 * (lane + 32 * j) + __ffs(word) - 1;
-          }
-          flat = __shfl_sync(kFull, cell, src);
-          break;
-        }
-        before += __shfl_sync(kFull, incl, 31);
-      }
+    for (int j = 0; j < WPL; ++j) {
+      const int sh = 16 * (j & 1);
+      const int in_j = (incl[j / 2] >> sh) & 0xFFFF;
+      const int lo_rank = before + in_j - cnt[j];
+      if (m >= lo_rank && m < before + in_j)
+        cell = 32 * (lane + 32 * j) + nth_bit(valid[j], m - lo_rank);
+      before += (tot[j / 2] >> sh) & 0xFFFF;
     }
+    const unsigned here = __ballot_sync(kFull, cell >= 0);
+    const int src = here ? __ffs(here) - 1 : 0;
+    const int flat = here ? __shfl_sync(kFull, cell, src) : 0;
 
+    // ---- 5. accept and commit; lane d < 8 holds flat's edge d -----------
     const uint32_t d_from = bit_at(B, flat);
-    int deg = 0, dd = 0;  // the degree of flat, its differing neighbours
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      const uint32_t has = (adjw[d * nw + (flat >> 5)] >> (flat & 31)) & 1u;
-      deg += int(has);
-      dd += int(has && bit_at(B, flat + ring[d]) != d_from);
-    }
-    const int dcut = deg - 2 * dd;
+    const int nb = flat + my_off;
+    const bool edge = lane < 8 && bit_at(adjw + (lane & 7) * nw, flat);
+    const bool differs = edge && bit_at(B, nb) != d_from;
+    const int dcut = __popc(__ballot_sync(kFull, edge)) -
+                     2 * __popc(__ballot_sync(kFull, differs));
     bool accept = any_valid;
     if (!a.accept_always) {
       const float log_bound = -beta * static_cast<float>(dcut) * log_base;
-      accept = any_valid && (logf(fmaxf(u_acc, 1e-12f)) < log_bound);
+      accept = any_valid && (log_acc < log_bound);
     }
     if (accept) {
-      // cut_times events for the edges of flat, lane d for direction d
+      // cut_times events for the edges of flat: the loads now, the stores
+      // after the planes' update, which hides their latency
       const bool was_flipped = bit_at(flipped, flat);
-      int32_t* slot_ptr = nullptr;
-      int32_t val = 0;
-      const bool edge = lane < 8 &&
-          ((adjw[lane * nw + (flat >> 5)] >> (flat & 31)) & 1u);
+      // forward directions keep the edge at flat, backward at nb
+      const int at = lane < 4 ? flat : nb;
+      int32_t* const slot_ptr =
+          a.cut_planes + ((size_t)(lane & 3) * C) * n + base + at;
+      int last_i = 0, last_n = 0, acc_old = 0;
+      bool wall_edge = false;
       if (edge) {
-        const int nb = flat + my_off;
         const bool nb_flipped = bit_at(flipped, nb);
-        const int last_i = was_flipped ? a.last_flip[base + flat] : 0;
-        const int last_n = nb_flipped ? a.last_flip[base + nb] : 0;
-        const int last = last_i > last_n ? last_i : last_n;
-        // forward directions keep the edge at flat, backward at nb
-        slot_ptr = a.cut_planes + ((size_t)(lane & 3) * C) * n + base +
-                   (lane < 4 ? flat : nb);
-        const int acc_old = (was_flipped || nb_flipped) ? *slot_ptr : 0;
-        val = acc_old + int(d_from != bit_at(B, nb)) * (t + 1 - last);
+        if (was_flipped) last_i = a.last_flip[base + flat];
+        if (nb_flipped) last_n = a.last_flip[base + nb];
+        if (was_flipped || nb_flipped) acc_old = *slot_ptr;
+        wall_edge = bit_at(wallw + (lane & 3) * nw, at);
       }
+      // every edge of flat changes its cut state: a wall edge among them
+      // changes the set of cut wall edges
+      const bool touched = a.iface && __ballot_sync(kFull, wall_edge) != 0u;
       __syncwarp();
-      if (slot_ptr) *slot_ptr = val;
       if (lane == 0) {
-        a.last_flip[base + flat] = t + 1;
         flipped[flat >> 5] |= 1u << (flat & 31);
         B[flat >> 5] ^= 1u << (flat & 31);
+      }
+      __syncwarp();
+      // the resident planes around flat
+      if (lane < 6) {
+        const int row0 = flat + bnd_row;
+        const int k = (row0 >> 5) + (lane & 1);
+        if (k >= 0 && k < nw && k <= ((row0 + 2) >> 5))
+          bnd[k] = boundary_word(B, adjw, nw, w, k);
+      }
+      __syncwarp();
+      // verdicts only where the boundary now is (see the header)
+      if (a.patch && lane < 25) {
+        const int wc = flat + win_off;
+        if (wc >= 0 && wc < n && bit_at(bnd, wc))
+          put_bit(okw, wc, patch_ok(B, w, cls, rows, wc));
+      }
+      if (edge) {
+        const int last = last_i > last_n ? last_i : last_n;
+        *slot_ptr = acc_old + int(differs) * (t + 1 - last);
+      }
+      // after every lane's loads of it have returned (the stores above)
+      if (lane == 0) a.last_flip[base + flat] = t + 1;
+      if (touched) {
+        uint32_t f2, s2;
+        wall_pair(B, adjw, wallw, wlist, n_ww, nw, w, a.iface_key, n, f2,
+                  s2);
+        if (f2 != first || s2 != second) {
+          first = f2;
+          second = s2;
+          interface_metrics(first, second, a.qx_off, a.qy_off, a.bx, a.by,
+                            a.cx, a.cy, slope, angle);
+        }
       }
       dp0 += d_from == 0u ? -a.unit_pop : a.unit_pop;
       dp1 += d_from == 0u ? a.unit_pop : -a.unit_pop;
@@ -568,7 +745,7 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
       int32_t* out = a.cut_planes + ((size_t)d * C) * n + base + i;
       int32_t total = 0;
       if ((adjw[d * nw + k] >> lane) & 1u) {
-        const int nb = i + ring[d];
+        const int nb = i + ring_off(d, w);
         const bool fn = bit_at(flipped, nb);
         const int last_n = fn ? a.last_flip[base + nb] : 0;
         const int last = last_i > last_n ? last_i : last_n;

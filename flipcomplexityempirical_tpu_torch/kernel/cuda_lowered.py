@@ -24,7 +24,10 @@ so they agree with the JAX package draw for draw.
              the forward planes E, SE, S, SW.
 
 ``run_chunk`` is the chunk at the level of BoardState (the JAX package's
-``run_board_chunk`` contract on this body).
+``run_board_chunk`` contract on this body). ``window_patch_ok`` and
+``touches_wall`` are plain forms of two of the kernel's own tests (its
+window patch check and its wall-edge test), which the CPU tests hold
+against this package's plane functions.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from .. import rng
 from .board import (CUT_KEYS, IFACE_BIG, BoardGraph, BoardState,
                     apply_flip_log, interface_stencil, is_lowered,
-                    planes_stencil)
+                    planes_stencil, ring_offsets)
 from .step import Spec, StepParams, geom_denom_finite, geom_wait
 
 # the kernel keeps 128 words of 32 cells a chain (WPL <= 4)
@@ -64,6 +67,7 @@ class LoweredStatic:
     iface_key: torch.Tensor   # int32 (4, N), IFACE_BIG where no wall edge
     labels: tuple             # the district labels (label_values)
     unit_pop: int             # pop[cell_of_node[0]]: cell 0 may be a hole
+    w: int                    # the canvas width (flat row-major cells)
 
 
 def supports(bg: BoardGraph, spec: Spec) -> bool:
@@ -176,7 +180,63 @@ def make_static_inputs(bg: BoardGraph, spec: Spec,
         class_rows=torch.as_tensor(class_rows, device=dev),
         iface_key=iface_key,
         labels=tuple(int(x) for x in params.label_values.cpu()),
-        unit_pop=unit)
+        unit_pop=unit, w=bg.w)
+
+
+def window_patch_ok(static: LoweredStatic, board: torch.Tensor,
+                    cells) -> torch.Tensor:
+    """The kernel's patch check (``csrc/lowered_chunk.cu::patch_ok``) of
+    ``cells`` on every chain: bool (C, len(cells)). The kernel's own
+    formulation: the cell's class row from ``patch_classes``, the member
+    bitset over the 5 x 5 window of the bit-packed board (holes and cells
+    off the canvas pack as 0), seeds = direct neighbours, reach grown from
+    the lowest seed over the class row's patch adjacency until nothing new
+    is reached (the worklist's closure, taken a frontier at a time)."""
+    i64 = torch.int64
+    dev = board.device
+    w = static.w
+    cells = torch.as_tensor(cells, dtype=i64, device=dev).reshape(-1)
+    bits = (board == 1).to(i64)
+    pad = 2 * w + 2
+    padded = torch.nn.functional.pad(bits, (pad, pad))
+    p = torch.arange(25, dtype=i64, device=dev)
+    off = (p // 5 - 2) * w + p % 5 - 2                    # window position p
+    win = padded[:, pad + cells[:, None] + off[None, :]]  # (C, M, 25)
+    same = ((win == bits[:, cells][..., None]).to(i64) << p).sum(dim=-1)
+    rows = static.class_rows.to(i64)[static.cell_class.to(i64)[cells]]
+    rows = rows & 0xFFFFFFFF                              # (M, 32) uint32
+    member = same & rows[:, 0]
+    seeds = member & rows[:, 1]
+    reach = seeds & -seeds
+    frontier = reach
+    while bool((frontier != 0).any()):
+        grown = torch.zeros_like(frontier)
+        for q in range(25):
+            hit = ((frontier >> q) & 1) == 1
+            grown |= torch.where(hit, rows[:, 2 + q], 0)
+        frontier = grown & member & ~reach
+        reach |= frontier
+    return (seeds & ~reach) == 0
+
+
+def touches_wall(bg: BoardGraph, static: LoweredStatic,
+                 cells) -> torch.Tensor:
+    """The kernel's test of whether a flip at each of ``cells`` changes the
+    set of cut wall edges: bool (len(cells),), True where the cell has a
+    wall edge (every edge of a flipped cell changes its cut state). An
+    edge in a backward direction d is stored at the neighbour, in plane
+    d & 3."""
+    i64 = torch.int64
+    n = bg.n
+    wall = static.iface_key < IFACE_BIG                   # (4, N)
+    cells = torch.as_tensor(cells, dtype=i64,
+                            device=wall.device).reshape(-1)
+    hit = torch.zeros(cells.shape, dtype=torch.bool, device=wall.device)
+    for d, o in enumerate(ring_offsets(bg.w)):
+        at = cells if d < 4 else cells + o
+        inside = (at >= 0) & (at < n)
+        hit |= bg.adj[d][cells] & inside & wall[d & 3][at.clamp(0, n - 1)]
+    return hit
 
 
 def _words_i32(x: torch.Tensor) -> torch.Tensor:

@@ -120,10 +120,16 @@ def test_probe_kernels_match_plain_version(card, which):
         assert torch.equal(got, want)
 
 
-def _lowered_inputs(which, chains, tol, card, **spec_kw):
+def _lowered_inputs(which, chains, tol, card, random_start=False,
+                    **spec_kw):
+    """The family's start or, with ``random_start``, a seeded random
+    assignment, where most cells are candidates."""
     g = graphs.grid_sec11() if which == "sec11" else graphs.frankengraph()
-    plan = (graphs.sec11_plan(g, 0) if which == "sec11"
-            else graphs.frank_plan(g, 0))
+    if random_start:
+        plan = np.random.default_rng(chains).integers(0, 2, g.n_nodes)
+    else:
+        plan = (graphs.sec11_plan(g, 0) if which == "sec11"
+                else graphs.frank_plan(g, 0))
     spec = Spec(**{"contiguity": "patch", "record_interface": True,
                    **spec_kw})
     bg, st, params = init_board(g, plan, n_chains=chains, seed=2, spec=spec,
@@ -140,6 +146,13 @@ def _lowered_inputs(which, chains, tol, card, **spec_kw):
     ("sec11", 16, 0.1, 40, {"contiguity": "none"}),
     ("frankengraph", 16, 0.1, 40, {"accept": "always"}),
     ("sec11", 16, 0.1, 40, {"record_interface": False}),
+    # the resident planes brought up to date after every step
+    ("sec11", 16, 0.1, 40, {"accept": "always"}),
+    ("frankengraph", 8, 0.1, 500, {"accept": "always"}),
+    # most cells candidates: random starts
+    ("sec11", 16, 0.1, 40, {"random_start": True}),
+    ("frankengraph", 16, 0.1, 40, {"random_start": True,
+                                   "accept": "always"}),
 ])
 def test_lowered_kernel_matches_plain_version(card, which, chains, tol,
                                               t_len, spec_kw):
