@@ -50,7 +50,28 @@ entry points a user calls, checks what comes out, and prints:
      forms (the candidate form, its candidate cells replayed from the flip
      log, and the resident-plane form, its accepted moves counted), the
      idle share of 1001 steps and the SM clock under load;
-  7. one JSON line per kernel table (``{"kernels": [...]}``), then as the
+  7. the paper's experiment driver: the CLI as a user calls it
+     (``python -m flipcomplexityempirical_tpu_torch.experiments --family
+     frank --only 0B30P10`` at 100,000 steps, 8 chains) must leave the
+     13 artifacts, and a second call must skip the config and leave every
+     file as it was; the kernel against its plain version at that
+     path's own shape (C=8, one 369-step chunk) for sec11 0B263P10 and
+     the Frankengraph 2B333P90, from each config's start and from its
+     state after 25,000 steps, then timed there beside the plain version
+     with its bound; ``run_config`` for the same two configs at the
+     paper's shape: seconds split into run, render and set-up, flips/s,
+     the kernel's launches (equal to the chunks run), the calls of
+     ``apply_flip_log`` (one a chunk and one in the final record) and
+     checks on all 8 chains (cut_count against a recount, both
+     districts connected, |part_sum| <= T, wait.txt from chain 0's wait
+     total); the sec11 config stopped after two 25,000-step segments and
+     resumed through ``run_config``, equal to the uninterrupted run in
+     every history key and state field; the JAX package's Frankengraph
+     run (``tests/fixtures/torch/experiment_frank.npz``) and its
+     checkpoint after one segment, resumed, both equal under the CPU
+     tests' tolerance; the device's idle share over a 10,001-step config
+     and that config's time split (kernel, ``apply_flip_log``, host);
+  8. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
@@ -136,6 +157,22 @@ LOWERED_EXACT_C, LOWERED_EXACT_T = 64, 64
 LOWERED_FIXTURE = "tests/fixtures/torch/lowered_sec11.npz"
 FIXTURE_SEED, FIXTURE_C, FIXTURE_T = 11, 4, 50
 FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
+# The experiment driver (phase 7): the paper's shape (100,000 steps, 8
+# chains, chain 0 renders), the configs run in-process (the families'
+# 0B263P10 and 2B333P90) and by the CLI, the resume's segment, the steps
+# of the profiled config, and the JAX package's Frankengraph run and its
+# checkpoint after the first segment (tests/test_torch_experiments_
+# fixture.py), held under the CPU tests' tolerance.
+EXP_STEPS, EXP_CHAINS = 100_000, 8
+EXP_RUNS = (("sec11", "0B263P10"), ("frank", "2B333P90"))
+EXP_CLI_TAG = "0B30P10"
+EXP_CKPT_EVERY = 25_000
+EXP_PROFILE_STEPS = 10_001
+EXP_FIXTURE = "tests/fixtures/torch/experiment_frank.npz"
+EXP_FIXTURE_CKPT = "tests/fixtures/torch/experiment_frank_ckpt"
+EXP_FIXTURE_CFG = dict(family="frank", alignment=0, base=0.3, pop_tol=0.5,
+                       total_steps=401, n_chains=2, seed=0)
+EXP_FIXTURE_CKPT_EVERY = 200
 # Operations the lowered-chunk function needs, counted on this run's data
 # (a floor), in two forms; the bound takes the smaller.
 # The candidate form checks the patch of every candidate cell each step:
@@ -782,6 +819,46 @@ def graph_connected(graph, nodes) -> bool:
     return True
 
 
+def lowered_bound(tb, cl, bg, spec, static, board, ins, outs,
+                  label: str):
+    """The least time of one lowered chunk from ``board`` with the packed
+    per-chain inputs ``ins`` (``pack_state``'s) that gave ``outs``: the
+    larger of its bytes over the memory rate and its operations (the
+    smaller of the candidate and resident forms, counted on this chunk's
+    data) over the peak rate. Prints both forms; returns (ms, bound_by)."""
+    chains, n = board.shape
+    t_len = outs[8].shape[0]
+    nw = -(-n // 32)
+    moved = int((outs[4][5] - ins[3][5]).sum())
+    n_cand = 0
+    if spec.contiguity == "patch":
+        n_cand = lowered_candidates(tb, bg, spec, board, ins[1], ins[2],
+                                    outs, static.unit_pop)
+    ops_cand = (chains * t_len * (K_LWORD * nw + K_LTAIL + 6 * K_BLOCK)
+                + (K_BLOCK + K_WAIT) * moved + K_CAND * n_cand)
+    ops_res = (chains * t_len * (K_RWORD * nw + K_LTAIL + 6 * K_BLOCK)
+               + (K_BLOCK + K_WAIT + K_MOVE) * moved)
+    ops = min(ops_cand, ops_res)
+    nbytes = (2 * chains * n                   # board in, out (int8)
+              + 4 * chains * 2 * (2 + 2 + 8)    # keys, dist_pop, ints
+              + 4 * chains * (6 + 2)            # scalars in, out
+              + 4 * 8 * t_len * chains          # eight (T, C) rows
+              + 16 * chains * n                 # four cut planes out
+              + 4 * (13 * nw + n + 4 * n))      # static planes, classes
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    print(f"lowered_chunk {label} bound (C={chains}, T={t_len}): candidate "
+          f"form {ops_cand:.4e} operations -> "
+          f"{1e3 * ops_cand / PEAK_OPS_PER_S:.4e} ms; resident form "
+          f"{ops_res:.4e} operations -> "
+          f"{1e3 * ops_res / PEAK_OPS_PER_S:.4e} ms (accepted moves "
+          f"{moved}, candidate cells {n_cand}); the smaller, the "
+          f"{'resident' if ops_res <= ops_cand else 'candidate'} form, "
+          f"{t_ops:.4e} ms; {nbytes:.4e} bytes -> {t_bytes:.4e} ms")
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def lowered_main_path(port, cl, tb, which: str, baseline=None) -> dict:
     """One graph's lowered main path with its checks and timings (and,
     given ``baseline``, an earlier kernel's library, that kernel timed
@@ -902,33 +979,8 @@ def lowered_main_path(port, cl, tb, which: str, baseline=None) -> dict:
         parts.append(f"{label} {v_ms:.3f} ms")
     print(f"lowered_chunk {which} at the same state: " + "; ".join(parts))
 
-    n = bg.n
-    nw = -(-n // 32)
-    moved = int((outs[4][5] - dp_scal_ints[3][5]).sum())
-    n_cand = 0
-    if spec.contiguity == "patch":
-        n_cand = lowered_candidates(tb, bg, spec, fs.board, dp_scal_ints[1],
-                                    dp_scal_ints[2], outs, static.unit_pop)
-    ops_cand = (CHAINS * CHUNK * (K_LWORD * nw + K_LTAIL + 6 * K_BLOCK)
-                + (K_BLOCK + K_WAIT) * moved + K_CAND * n_cand)
-    ops_res = (CHAINS * CHUNK * (K_RWORD * nw + K_LTAIL + 6 * K_BLOCK)
-               + (K_BLOCK + K_WAIT + K_MOVE) * moved)
-    ops = min(ops_cand, ops_res)
-    nbytes = (2 * CHAINS * n                   # board in, out (int8)
-              + 4 * CHAINS * 2 * (2 + 2 + 8)    # keys, dist_pop, ints
-              + 4 * CHAINS * (6 + 2)            # scalars in, out
-              + 4 * 8 * CHUNK * CHAINS          # eight (T, C) rows
-              + 16 * CHAINS * n                 # four cut planes out
-              + 4 * (13 * nw + n + 4 * n))      # static planes, classes
-    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    t_ops = 1e3 * ops / PEAK_OPS_PER_S
-    print(f"lowered_chunk {which} bound: candidate form {ops_cand:.4e} "
-          f"operations -> {1e3 * ops_cand / PEAK_OPS_PER_S:.4f} ms; "
-          f"resident form {ops_res:.4e} operations -> "
-          f"{1e3 * ops_res / PEAK_OPS_PER_S:.4f} ms (accepted moves "
-          f"{moved}, candidate cells {n_cand}); the smaller, the "
-          f"{'resident' if ops_res <= ops_cand else 'candidate'} form, "
-          f"{t_ops:.4f} ms; {nbytes:.4e} bytes -> {t_bytes:.4f} ms")
+    bound_ms, bound_by = lowered_bound(tb, cl, bg, spec, static, fs.board,
+                                       dp_scal_ints, outs, which)
     if baseline is not None:
         baseline_lowered_rounds(cl, baseline, args, which)
     print(f"profile of {2 * CHUNK + 1} lowered {which} steps: " + idle_share(
@@ -938,10 +990,361 @@ def lowered_main_path(port, cl, tb, which: str, baseline=None) -> dict:
     print(f"SM clock, power draw under lowered_chunk {which}: "
           + clocks_under_load(lambda: cl.run_lowered_chunk_cuda(*args), 100))
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "flips_per_s": fps, "apply_flip_log_ms": flip_log_ms,
             "peak_mib": peak / 2 ** 20}
+
+
+# ---------------------------------------------------------------------------
+# The experiment driver: the paper's configs end to end through the CLI and
+# run_config (every chunk in lowered_chunk), resume, the JAX fixtures
+# ---------------------------------------------------------------------------
+
+def experiment_config(ex, family: str, tag: str, **kw):
+    """The config of ``family``'s sweep whose tag is ``tag``."""
+    cfgs = [c for c in ex.SWEEPS[family](**kw) if c.tag == tag]
+    if len(cfgs) != 1:
+        fail(f"no single {family} config has tag {tag}")
+    return cfgs[0]
+
+
+def expected_chunks(runner, cfg) -> int:
+    """The chunks ``run_board_segment`` runs for ``cfg``'s segments at its
+    default chunk length."""
+    total = cfg.total_steps - 1
+    every = cfg.checkpoint_every or total
+    chunks, done = 0, 0
+    while done < total:
+        n = min(every, total - done)
+        chunks += -(-n // runner.pick_chunk(n + 1, 512))
+        done += n
+    return chunks
+
+
+def experiment_cli(root, out: str) -> None:
+    """The CLI as a user calls it, twice: the first call runs one
+    Frankengraph config at the paper's shape and leaves its 13 artifacts,
+    the second skips it and leaves every file as it was."""
+    import os
+    cmd = [sys.executable, "-m", "flipcomplexityempirical_tpu_torch."
+           "experiments", "--family", "frank", "--only", EXP_CLI_TAG,
+           "--out", out]
+    walls, runs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(subprocess.run(cmd, cwd=root, capture_output=True,
+                                   text=True, timeout=900))
+        walls.append(time.perf_counter() - t0)
+        if runs[-1].returncode != 0:
+            fail(f"the experiment CLI exited {runs[-1].returncode}:\n"
+                 f"{runs[-1].stdout}{runs[-1].stderr}")
+        if len(runs) == 1:
+            names = sorted(os.listdir(out))
+            mtimes = {n: os.stat(os.path.join(out, n)).st_mtime_ns
+                      for n in names}
+    first, second = (r.stdout.strip() for r in runs)
+    if len(names) != 13 or not first.startswith(f"[done] frank "
+                                                f"{EXP_CLI_TAG}"):
+        fail(f"the CLI's first call left {len(names)} files: {first}")
+    if not second.startswith(f"[skip] frank {EXP_CLI_TAG}"):
+        fail(f"the CLI's second call did not skip: {second}")
+    if {n: os.stat(os.path.join(out, n)).st_mtime_ns
+            for n in sorted(os.listdir(out))} != mtimes:
+        fail("the CLI's second call changed the artifacts")
+    print(f"experiment CLI --family frank --only {EXP_CLI_TAG} "
+          f"({EXP_STEPS} steps, {EXP_CHAINS} chains): {first!r} in "
+          f"{walls[0]:.3f} s wall with 13 artifacts; second call "
+          f"{second!r} in {walls[1]:.3f} s, every mtime unchanged")
+
+
+def check_run(ex, drv, tb, cfg, data, out: str) -> None:
+    """What a run must hold on every chain: cut_count against a recount
+    over the graph's edges, both districts connected, |part_sum| <= T
+    after the reference's finalisation, wait.txt from chain 0's waits,
+    and the 13 artifacts."""
+    import os
+    from types import SimpleNamespace
+
+    import numpy as np
+    g, _, _ = drv.build_graph_and_plan(cfg)
+    bg = tb.make_board_graph(g, device="cpu")
+    a = np.asarray(data["assignments"]).astype(np.int64)
+    recount = (a[:, g.edges[:, 0]] != a[:, g.edges[:, 1]]).sum(axis=1)
+    if not np.array_equal(recount, data["state"]["cut_count"]):
+        fail(f"{cfg.tag}: cut_count disagrees with a recount")
+    if not all(graph_connected(g, row) for row in a):
+        fail(f"{cfg.tag}: a chain has a disconnected district")
+    nodes = {k: tb.node_view(bg, data["state"][k])
+             for k in ("part_sum", "last_flipped", "num_flips")}
+    for c in range(cfg.n_chains):
+        ps, _ = drv.finalize_host(
+            SimpleNamespace(**{k: v[c] for k, v in nodes.items()}),
+            drv._labels_for(cfg), cfg.total_steps, assignment=a[c])
+        if np.abs(ps).max() > cfg.total_steps:
+            fail(f"{cfg.tag}: chain {c} has |part_sum| > T")
+    with open(os.path.join(out, cfg.tag + "wait.txt")) as f:
+        wait = f.read()
+    if wait != str(int(round(data["waits_all"][0]))):
+        fail(f"{cfg.tag}: wait.txt {wait} is not chain 0's wait total")
+    if not ex.is_done(cfg, out):
+        fail(f"{cfg.tag}: the 13 artifacts are not all there")
+
+
+def experiment_runs(ex, drv, runner, cl, tb, out: str) -> dict:
+    """run_config for the two paper configs at the paper's shape, with
+    the kernel's launches counted against the chunks run."""
+    import torch
+    results = {}
+    for family, tag in EXP_RUNS:
+        cfg = experiment_config(ex, family, tag, total_steps=EXP_STEPS,
+                                n_chains=EXP_CHAINS)
+        torch.cuda.synchronize()
+        cl.run_lowered_chunk_cuda.launches = 0
+        with count_calls((cl,), "run_chunk") as chunk_calls, \
+                count_calls((cl, tb), "apply_flip_log") as flip_calls:
+            t0 = time.perf_counter()
+            data = ex.run_config(cfg, out, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = cl.run_lowered_chunk_cuda.launches
+        chunks = len(chunk_calls)
+        run_s, render_s = data["seconds"], data["render_seconds"]
+        fps = cfg.n_chains * (cfg.total_steps - 1) / run_s
+        print(f"experiment {family} {tag} ({cfg.n_chains} chains x "
+              f"{cfg.total_steps} steps): {wall:.3f} s in all, run "
+              f"{run_s:.3f} s, render {render_s:.3f} s (share "
+              f"{render_s / wall:.4f}), set-up and scores "
+              f"{wall - run_s - render_s:.3f} s; {fps:.6e} flips/s; "
+              f"lowered_chunk launches {launches} for {chunks} chunks; "
+              f"apply_flip_log calls {len(flip_calls)} (one a chunk and "
+              "one in the final record)")
+        if launches != chunks or chunks != expected_chunks(runner, cfg):
+            fail(f"{tag}: lowered_chunk launched {launches} times for "
+                 f"{chunks} chunks ({expected_chunks(runner, cfg)} "
+                 "expected)")
+        if len(flip_calls) != chunks + 1:
+            fail(f"{tag}: apply_flip_log ran {len(flip_calls)} times for "
+                 f"{chunks} chunks and 1 final record")
+        check_run(ex, drv, tb, cfg, data, out)
+        print(f"  {tag}: all {cfg.n_chains} chains: cut_count equal to a "
+              "recount, both districts connected, |part_sum| <= T; "
+              f"wait.txt {int(round(data['waits_all'][0]))}; 13 artifacts")
+        results[tag] = dict(cfg=cfg, data=data, launches=launches,
+                            chunks=chunks, flip_calls=len(flip_calls),
+                            wall_s=wall, run_s=run_s,
+                            render_s=render_s, flips_per_s=fps)
+    return results
+
+
+def same_run(a: dict, b: dict, label: str) -> None:
+    """Two runs' data equal in every history key and state field."""
+    import numpy as np
+    for part in ("history", "state"):
+        if sorted(a[part]) != sorted(b[part]):
+            fail(f"{label}: {part} keys differ")
+        for k in a[part]:
+            x, y = np.asarray(a[part][k]), np.asarray(b[part][k])
+            if x.dtype != y.dtype or not np.array_equal(
+                    x, y, equal_nan=x.dtype.kind == "f"):
+                fail(f"{label}: {part} {k} differs")
+    if not np.array_equal(a["waits_all"], b["waits_all"]):
+        fail(f"{label}: the wait totals differ")
+
+
+def experiment_resume(ex, drv, clean: dict, out: str, ck: str) -> None:
+    """The sec11 config in segments of EXP_CKPT_EVERY, stopped after two
+    segments and resumed through run_config, against the uninterrupted
+    run."""
+    import dataclasses
+    cfg = dataclasses.replace(clean["cfg"], checkpoint_every=EXP_CKPT_EVERY)
+    g, plan, _ = drv.build_graph_and_plan(cfg)
+    t0 = time.perf_counter()
+    try:
+        drv._run_torch(cfg, g, plan, checkpoint_dir=ck,
+                       _stop_after_segments=2, device=DEVICE)
+        fail("the segmented run did not stop")
+    except drv._SegmentStop as stop:
+        done = stop.done
+    resumed = ex.run_config(cfg, out, checkpoint_dir=ck, device=DEVICE)
+    same_run(clean["data"], resumed, "resumed run")
+    print(f"experiment resume {cfg.tag}: stopped after 2 segments of "
+          f"{EXP_CKPT_EVERY} ({done} steps), resumed through run_config "
+          f"in {time.perf_counter() - t0:.3f} s: every history key and "
+          "state field equal to the uninterrupted run")
+
+
+def experiment_exactness(ex, drv, runner, cl, tb) -> dict:
+    """The kernel against its plain version at the experiment path's own
+    shape: each EXP_RUNS config's chains from ``_init_run`` on the card
+    and again after one EXP_CKPT_EVERY-step segment, one chunk of
+    ``pick_chunk(EXP_STEPS, 512)`` steps, with the launch count read
+    around the kernel's call; then at the later state the kernel timed
+    with CUDA events beside the plain version and its bound."""
+    import torch
+    t_len = runner.pick_chunk(EXP_STEPS, 512)
+    rows = {}
+    for family, tag in EXP_RUNS:
+        cfg = experiment_config(ex, family, tag,
+                                total_steps=EXP_STEPS, n_chains=EXP_CHAINS)
+        g, plan, _ = drv.build_graph_and_plan(cfg)
+        spec = drv.spec_for(cfg)
+        bg, st, params = drv._init_run(cfg, g, plan, spec, DEVICE)
+        static = cl.make_static_inputs(bg, spec, params)
+        mid = drv.run_board_segment(bg, spec, params, st, EXP_CKPT_EVERY,
+                                    device=DEVICE).state
+        err = 0.0
+        for when, state in (("start", st),
+                            (f"after {EXP_CKPT_EVERY} steps", mid)):
+            ins = cl.pack_state(state, params)
+            args = (bg, static, spec, t_len, state.board, *ins)
+            torch.cuda.synchronize()
+            cl.run_lowered_chunk_cuda.launches = 0
+            got = cl.run_lowered_chunk_cuda(*args)
+            torch.cuda.synchronize()
+            if cl.run_lowered_chunk_cuda.launches != 1:
+                fail(f"{tag}: the kernel's wrapper counted "
+                     f"{cl.run_lowered_chunk_cuda.launches} launches for "
+                     "one call")
+            want = cl.lowered_chunk_reference(*args)
+            torch.cuda.synchronize()
+            err = max(err, compare_lowered(
+                cl, got, want, f"lowered experiment {family} {tag} {when} "
+                f"C={cfg.n_chains} T={t_len}"))
+        reps = 20
+        ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*args), reps)
+        plain_ms = event_ms(lambda: cl.lowered_chunk_reference(*args), 1)
+        print(f"lowered_chunk experiment {family} {tag}: {ms:.4f} ms per "
+              f"{t_len}-step chunk at C={cfg.n_chains} (CUDA events, mean "
+              f"of {reps}); plain version {plain_ms:.3f} ms")
+        bound_ms, bound_by = lowered_bound(
+            tb, cl, bg, spec, static, state.board, ins, got,
+            f"experiment {tag}")
+        rows[tag] = {"chains": cfg.n_chains, "chunk": t_len, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err}
+    return rows
+
+
+def experiment_fixture(ex, root, out: str, ck: str) -> None:
+    """The Frankengraph fixture config on the card against the JAX
+    package's run_config, then the JAX package's checkpoint after one
+    segment resumed on the card to the same end, both under the CPU
+    tests' tolerance (``tests/_parity.py``, numpy only)."""
+    import os
+    import shutil
+
+    import numpy as np
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from _parity import assert_experiment_matches, experiment_arrays
+    want = dict(np.load(os.path.join(root, EXP_FIXTURE)))
+    for label, kw, ckpt in (("fixture", {}, None),
+                            ("fixture checkpoint resumed",
+                             {"checkpoint_every": EXP_FIXTURE_CKPT_EVERY},
+                             ck)):
+        cfg = ex.ExperimentConfig(**EXP_FIXTURE_CFG, **kw)
+        if ckpt is not None:
+            shutil.copytree(os.path.join(root, EXP_FIXTURE_CKPT), ckpt)
+        sub = os.path.join(out, label.replace(" ", "_"))
+        data = ex.run_config(cfg, sub, checkpoint_dir=ckpt, device=DEVICE)
+        with open(os.path.join(sub, cfg.tag + "wait.txt")) as f:
+            wait_txt = f.read()
+        try:
+            ties = assert_experiment_matches(
+                experiment_arrays(data, wait_txt), want)
+        except AssertionError as exc:
+            fail(f"{label}: differs from the JAX package's run: {exc!r}")
+        print(f"experiment {label} (the JAX package's frank {cfg.tag}, "
+              f"{cfg.n_chains} chains x {cfg.total_steps} steps): equal; "
+              f"wait rows off by a log tie {ties}")
+
+
+def experiment_split(drv, cl, tb, cfg) -> dict:
+    """Where a config's run time goes: under ``torch.profiler`` the
+    device's idle share, then a second run with every lowered_chunk
+    launch (``_launch``) and apply_flip_log call synchronised and timed
+    on the host's clock (which slows the run a little; the rest of the
+    run's wall is the host's per-chunk work)."""
+    import torch
+    g, plan, _ = drv.build_graph_and_plan(cfg)
+    setup = drv._init_run(cfg, g, plan, drv.spec_for(cfg), DEVICE)
+    print(f"profile of experiment {cfg.family} {cfg.tag} "
+          f"({cfg.n_chains} chains x {cfg.total_steps} steps, set-up "
+          "excluded): " + idle_share(
+              lambda: drv._run_torch(cfg, g, plan, device=DEVICE,
+                                     run=setup)))
+    spent = {"kernel": [], "flip": []}
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    kern, flip_cl, flip_tb = cl._launch, cl.apply_flip_log, tb.apply_flip_log
+    cl._launch = timed(kern, "kernel")
+    cl.apply_flip_log = timed(flip_cl, "flip")
+    tb.apply_flip_log = timed(flip_tb, "flip")
+    setup = drv._init_run(cfg, g, plan, drv.spec_for(cfg), DEVICE)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv._run_torch(cfg, g, plan, device=DEVICE, run=setup)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cl._launch = kern
+        cl.apply_flip_log = flip_cl
+        tb.apply_flip_log = flip_tb
+    n = len(spent["kernel"])
+    k_ms = 1e3 * sum(spent["kernel"]) / n
+    f_ms = 1e3 * sum(spent["flip"]) / n
+    rest_ms = 1e3 * wall / n - k_ms - f_ms
+    print(f"experiment split {cfg.tag} (synchronised, {n} chunks, "
+          f"{1e3 * wall:.3f} ms wall): lowered_chunk {k_ms:.3f} ms a chunk, "
+          f"apply_flip_log {f_ms:.3f} ms a chunk ({len(spent['flip'])} "
+          f"calls), the rest (host per chunk) {rest_ms:.3f} ms a chunk")
+    return {"chunks": n, "kernel_ms": k_ms, "apply_flip_log_ms": f_ms,
+            "host_ms": rest_ms}
+
+
+def experiment_phase(cl, tb) -> dict:
+    """Phase 7: the paper's experiment driver on the card; returns its
+    numbers for the kernel row."""
+    import dataclasses
+    import os
+    import pathlib
+    import tempfile
+
+    from flipcomplexityempirical_tpu_torch import experiments as ex
+    from flipcomplexityempirical_tpu_torch.experiments import driver as drv
+    from flipcomplexityempirical_tpu_torch.sampling import runner
+    root = pathlib.Path(__file__).resolve().parent
+    scratch = root / "build"
+    scratch.mkdir(exist_ok=True)
+    shape = experiment_exactness(ex, drv, runner, cl, tb)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        experiment_cli(root, os.path.join(tmp, "cli"))
+        runs = experiment_runs(ex, drv, runner, cl, tb,
+                               os.path.join(tmp, "run"))
+        sec11 = runs[EXP_RUNS[0][1]]
+        experiment_resume(ex, drv, sec11, os.path.join(tmp, "resume"),
+                          os.path.join(tmp, "ck"))
+        experiment_fixture(ex, root, os.path.join(tmp, "fixture"),
+                           os.path.join(tmp, "fixture_ck"))
+        split = experiment_split(drv, cl, tb, dataclasses.replace(
+            sec11["cfg"], total_steps=EXP_PROFILE_STEPS))
+    return {"launches": sum(r["launches"] for r in runs.values()),
+            "chunks": sum(r["chunks"] for r in runs.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in shape.values()),
+            "configs": {tag: {**{k: r[k] for k in (
+                "wall_s", "run_s", "render_s", "flips_per_s", "launches",
+                "flip_calls")}, "kernel": shape[tag]}
+                for tag, r in runs.items()},
+            "split_10001_steps": split}
 
 
 def main() -> None:
@@ -1132,6 +1535,8 @@ def main() -> None:
     per_graph = {which: lowered_main_path(port, cl, tb, which, old_lowered)
                  for which, *_ in LOWERED}
     main_row = per_graph["sec11"]
+    # ---- 7: the experiment driver ---------------------------------------
+    per_graph["experiment"] = experiment_phase(cl, tb)
     kernels.insert(0, {
         "name": "lowered_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/lowered_chunk.cu",

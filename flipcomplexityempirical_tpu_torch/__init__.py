@@ -8,9 +8,11 @@ paths: a plain rook grid through ``run_board_cuda`` (``kernel/
 cuda_board.py``, ``csrc/board_chunk.cu``), and the paper's experiment
 graphs (sec11, the Frankengraph) and every ``record_interface`` spec
 through ``run_board`` (the lowered body: ``lower/stencil.py``,
-``kernel/cuda_lowered.py``, ``csrc/lowered_chunk.cu``). Entry points run
-on ``device="cuda"`` unless the caller passes ``device="cpu"``, where
-every kernel runs its plain PyTorch version.
+``kernel/cuda_lowered.py``, ``csrc/lowered_chunk.cu``). The paper's sweeps
+run end to end through ``experiments`` (``run_config``, ``run_sweep``
+and the CLI ``python -m flipcomplexityempirical_tpu_torch.experiments``).
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``, where every kernel runs its plain PyTorch version.
 """
 
 __version__ = "0.1.0"
@@ -19,5 +21,6 @@ from . import graphs  # noqa: F401
 from . import lower  # noqa: F401
 from . import kernel  # noqa: F401
 from . import sampling  # noqa: F401
+from . import experiments  # noqa: F401
 from .kernel import Spec  # noqa: F401
 from .sampling import init_board, run_board, run_board_cuda  # noqa: F401

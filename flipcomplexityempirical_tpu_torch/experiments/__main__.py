@@ -1,0 +1,69 @@
+"""CLI: python -m flipcomplexityempirical_tpu_torch.experiments
+         --family sec11 --out plots/sec11 [--steps N] [--chains C]
+         [--only 2B30P10 ...] [--device cuda|cpu]
+
+Runs the reference sweep grid of a family (150 sec11 configs, 24
+Frankengraph configs) on the card, with skip-if-done resume, writing the
+13 artifacts per config under the reference's file names. The bare
+fail-fast loop: the first failure ends the process with a nonzero exit.
+``--device cpu`` runs the plain PyTorch versions on the host, and only
+when asked; without a card the default ``cuda`` exits nonzero.
+"""
+
+import argparse
+import sys
+
+from ..device import resolve_device
+from .config import SWEEPS
+from .driver import run_sweep
+
+FAMILIES = ("sec11", "frank")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        prog="python -m flipcomplexityempirical_tpu_torch.experiments",
+        description="Run the paper's sweep of a family on the card.")
+    ap.add_argument("--family", choices=FAMILIES, required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--steps", type=int, default=100_000,
+                    help="total yields per config (default 100000)")
+    ap.add_argument("--chains", type=int, default=8,
+                    help="batched chains per config (default 8; chain 0 "
+                         "renders)")
+    ap.add_argument("--record-every", type=int, default=1,
+                    help="history thinning (yields 0, k, 2k, ... recorded; "
+                         "accumulators exact)")
+    ap.add_argument("--contiguity", choices=["patch"], default="patch",
+                    help="the radius-2 patch check; 'exact' waits for "
+                         "ROADMAP.md A6")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="steps between mid-config checkpoints (0: none); "
+                         "an interrupted config resumes from the last "
+                         "saved segment")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="config tags to run, e.g. 2B30P10")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu' (the plain versions)")
+    args = ap.parse_args(argv)
+    try:
+        resolve_device(args.device)
+    except RuntimeError as exc:
+        sys.exit(f"error: {exc}")
+    configs = list(SWEEPS[args.family](
+        total_steps=args.steps, n_chains=args.chains, seed=args.seed,
+        record_every=args.record_every, contiguity=args.contiguity,
+        checkpoint_every=args.checkpoint_every))
+    if args.only:
+        configs = [c for c in configs if c.tag in set(args.only)]
+        if not configs:
+            sys.exit(f"error: no {args.family} config has a tag in "
+                     f"{args.only}")
+    run_sweep(configs, args.out, checkpoint_dir=args.checkpoint_dir,
+              device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,7 @@
 """Chain configuration, per-chain parameters and the geometric wait.
 
-Port of ``Spec``, ``StepParams``, ``make_params`` and
-``sample_geom_minus1`` from ``flipcomplexityempirical_tpu/kernel/step.py``.
+Port of ``Spec``, ``StepParams``, ``make_params``, ``sample_geom_minus1``
+and ``finalize_host`` from ``flipcomplexityempirical_tpu/kernel/step.py``.
 The semantics notes there hold unchanged: invalid proposals re-propose,
 the accept is the literal ``base**(-dcut)``, waits are memoized per state
 with the literal ``n**k - 1`` denominator, and the last flip's bookkeeping
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from .. import rng
@@ -108,3 +109,22 @@ def sample_geom_minus1(keys: torch.Tensor, b_count: torch.Tensor,
     """The reference waiting-time sample per chain, drawn from raw
     threefry keys (C, 2) exactly as the JAX package draws it."""
     return geom_wait(rng.uniform(keys), b_count, n_nodes, k)
+
+
+def finalize_host(state_np, label_values, t_final, assignment=None):
+    """The reference's post-run finalisation (grid_chain_sec11.py:416-419)
+    on host arrays: never-flipped nodes get part_sum = t * final_sign;
+    lognum_flips = log(num_flips + 1). The reference does not add the
+    tail segment for flipped nodes, and neither does this.
+
+    ``assignment`` overrides ``state_np.assignment`` for state flavors
+    that carry it under another name (the board path's ``.board``)."""
+    if assignment is None:
+        assignment = state_np.assignment
+    sign = np.asarray(label_values)[np.asarray(assignment,
+                                               dtype=np.int64)]
+    part_sum = np.array(state_np.part_sum)
+    never = np.array(state_np.last_flipped) == 0
+    part_sum[never] = t_final * sign[never]
+    lognum = np.log(np.array(state_np.num_flips) + 1.0)
+    return part_sum, lognum

@@ -2,12 +2,13 @@
 body's runner.
 
 Port of ``init_board``, ``drain_waits``, ``_sum_pending``,
-``finalize_board_run`` and ``run_board`` from
+``finalize_board_run``, ``run_board_segment`` and ``run_board`` from
 ``flipcomplexityempirical_tpu/sampling/board_runner.py`` (without the
 observability, analytics and degradation hooks, which this package has
-not ported). ``run_board`` serves the lowered body (surgical canvases such
-as sec11 and the Frankengraph, and every ``record_interface`` spec); the
-rook grid's chunk kernel has its own runner, ``cuda_runner.run_board_cuda``.
+not ported). ``run_board_segment`` and ``run_board`` serve the lowered
+body (surgical canvases such as sec11 and the Frankengraph, and every
+``record_interface`` spec); the rook grid's chunk kernel has its own
+runner, ``cuda_runner.run_board_cuda``.
 """
 
 from __future__ import annotations
@@ -76,18 +77,23 @@ def finalize_board_run(bg, spec, params, state, hist_parts, waits_total,
                      n_yields=n_steps)
 
 
-def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
-              state: kboard.BoardState, n_steps: int,
-              record_history: bool = True, chunk: Optional[int] = None,
-              record_every: int = 1, device="cuda") -> RunResult:
-    """Run the batched lowered-body chain for ``n_steps`` yields (yield 0
-    is the initial state) on ``device``, where the state must already
-    live: per chunk the lowered-chunk kernel (its plain version on the
-    CPU), the flip-log replay, the history copy, then the final record.
-    ``record_every=k`` keeps yields 0, k, 2k, ... in the history; every
-    accumulator still advances every step. The chains draw the JAX
-    package's threefry stream, so a run equals the JAX package's
-    ``run_board`` draw for draw."""
+def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
+                      params: kstep.StepParams, state: kboard.BoardState,
+                      n_transitions: int, record_history: bool = True,
+                      chunk: Optional[int] = None, record_every: int = 1,
+                      device="cuda") -> RunResult:
+    """Advance ``n_transitions`` transitions of the batched lowered-body
+    chain on ``device``, where the state must already live, recording
+    the same number of yields (each before its transition) and no
+    trailing record, so segments compose without duplicate boundary
+    yields: a full run is segments summing to ``n_steps - 1`` transitions
+    plus one ``kboard.record_final`` (``run_board``), and the experiment
+    driver checkpoints between segments. Per chunk: the lowered-chunk
+    kernel (its plain version on the CPU), the flip-log replay and the
+    history copy. ``record_every=k`` keeps yields 0, k, 2k, ... of the
+    segment; every accumulator still advances every step. The chains
+    draw the JAX package's threefry stream, so a run equals the JAX
+    package's draw for draw."""
     dev = resolve_device(device)
     check_on(dev, state.board, bg.pop, params.log_base)
     if not kboard.is_lowered(bg, spec):
@@ -98,9 +104,8 @@ def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
     if record_every < 1:
         raise ValueError(f"record_every must be >= 1, got {record_every}")
     static = clow.make_static_inputs(bg, spec, params)
-    transitions = n_steps - 1
     if chunk is None:
-        chunk = pick_chunk(n_steps, 512)
+        chunk = pick_chunk(n_transitions + 1, 512)
     if record_every > 1:
         chunk = snap_chunk_to(chunk, record_every)
 
@@ -109,8 +114,8 @@ def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
     state = state.replace(waits_sum=torch.zeros_like(state.waits_sum))
     pending_waits: list = []
     done = 0
-    while done < transitions:
-        this = min(chunk, transitions - done)
+    while done < n_transitions:
+        this = min(chunk, n_transitions - done)
         state, rows = clow.run_chunk(bg, spec, params, state, this, static)
         if record_history:
             # records precede their transitions: row 0 is on the grid
@@ -119,6 +124,23 @@ def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
                     v[::record_every].cpu().numpy().T)
         state = drain_waits(state, pending_waits)
         done += this
-    return finalize_board_run(bg, spec, params, state, hist_parts,
-                              waits_total, pending_waits, record_history,
-                              n_steps, record_every)
+    waits_total = _sum_pending(waits_total, pending_waits)
+    return RunResult(state=state,
+                     history=assemble_history(hist_parts, record_history),
+                     waits_total=waits_total, n_yields=n_transitions)
+
+
+def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
+              state: kboard.BoardState, n_steps: int,
+              record_history: bool = True, chunk: Optional[int] = None,
+              record_every: int = 1, device="cuda") -> RunResult:
+    """Run the batched lowered-body chain for ``n_steps`` yields (yield 0
+    is the initial state): one ``run_board_segment`` of ``n_steps - 1``
+    transitions, then the final record (``finalize_board_run``)."""
+    seg = run_board_segment(bg, spec, params, state, n_steps - 1,
+                            record_history=record_history, chunk=chunk,
+                            record_every=record_every, device=device)
+    hist_parts = {k: [v] for k, v in seg.history.items()}
+    return finalize_board_run(bg, spec, params, seg.state, hist_parts,
+                              seg.waits_total, [], record_history, n_steps,
+                              record_every)

@@ -1,0 +1,109 @@
+"""The tolerance rules of the tests that hold the PyTorch port against the
+JAX package, in numpy alone: ``chip_smoke.py`` holds the card's runs to the
+same rules on a machine without JAX.
+
+Tolerance of every comparison here: integer outputs are bit-equal. Wait
+values are bit-equal except where torch's and XLA's f32 ``log`` round the
+same input differently, which moves ``floor(log u / log1p(-p))`` across an
+integer; such entries are counted, must be at most 1e-3 of all entries,
+and each must be off by exactly 1.0. A wait sum may differ by at most the
+number of such entries it contains. Interface metrics (slope, angle) are
+within 4 ulp, NaN exactly where the JAX value is NaN.
+"""
+
+import numpy as np
+
+WAIT_MISMATCH_SHARE = 1e-3
+FLOAT_STATE = ("state_cur_wait", "state_waits_sum")
+
+
+def assert_waits_close(got, want, name="wait"):
+    """Per-entry wait comparison under the module's tolerance; returns
+    the boolean mask of differing entries."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    bad = got != want
+    n_bad = int(bad.sum())
+    assert n_bad <= WAIT_MISMATCH_SHARE * got.size, (
+        f"{name}: {n_bad} of {got.size} entries differ")
+    if n_bad:
+        assert (np.abs(got[bad] - want[bad]) == 1.0).all(), (
+            name, got[bad], want[bad])
+    return bad
+
+
+def assert_wait_sums_close(got, want, n_bad, name="waits_sum"):
+    """Sums of waits: equal where no summed wait differed, else within
+    the number of differing waits."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    n_bad = np.broadcast_to(np.asarray(n_bad), got.shape)
+    np.testing.assert_array_equal(got[n_bad == 0], want[n_bad == 0],
+                                  err_msg=name)
+    assert (np.abs(got - want) <= n_bad).all(), name
+
+
+def assert_ulps_close(got, want, ulps=4, name="value"):
+    """f32 values equal up to ``ulps`` units in the last place, NaN exactly
+    where ``want`` is NaN (the interface metrics: torch's and XLA's
+    ``acos`` may round the same input differently)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=name)
+    g = got[~nan].view(np.int32).astype(np.int64)
+    w = want[~nan].view(np.int32).astype(np.int64)
+    same = got[~nan] == want[~nan]      # inf == inf, +0 == -0
+    assert (same | (np.abs(g - w) <= ulps)).all(), name
+
+
+def experiment_arrays(data: dict, wait_txt: str) -> dict:
+    """A ``run_config`` data dict (either package's) as the fixture's
+    arrays; the state's key words as uint32, the JAX package's dtype."""
+    out = {k: np.asarray(data[k]) for k in
+           ("end_signed", "cut_times", "part_sum", "num_flips", "slopes",
+            "angles", "waits_all", "assignments")}
+    out["end_signed"] = out["end_signed"].astype(np.int8)
+    out["assignments"] = out["assignments"].astype(np.int8)
+    out.update({f"hist_{k}": np.asarray(v)
+                for k, v in data["history"].items()})
+    out.update({f"partisan_{k}": np.asarray(v)
+                for k, v in data["partisan"].items()})
+    state = data["state"]
+    fields = (state.items() if isinstance(state, dict) else
+              ((f, getattr(state, f)) for f in state.__dataclass_fields__))
+    out.update({f"state_{f}": np.asarray(v) for f, v in fields
+                if v is not None})
+    out["state_key"] = out["state_key"].astype(np.uint32)
+    out["wait_txt"] = np.array(wait_txt)
+    return out
+
+
+def assert_experiment_matches(got: dict, want: dict) -> int:
+    """Hold a run's arrays (``experiment_arrays``) against a fixture's:
+    the rules above, the wait totals and float state fields within the
+    number of differing waits of their chain, ``wait.txt`` equal unless a
+    tie was counted in chain 0. Returns the differing waits."""
+    assert sorted(got) == sorted(want)
+    bad = assert_waits_close(got["hist_wait"], want["hist_wait"])
+    n_bad = bad.sum(axis=1)
+    assert_wait_sums_close(got["waits_all"], want["waits_all"], n_bad)
+    for k in ("slopes", "angles", "hist_slope", "hist_angle"):
+        assert_ulps_close(got[k], want[k], name=k)
+    for k in FLOAT_STATE:
+        assert_wait_sums_close(got[k], want[k], n_bad, name=k)
+    if n_bad[0] == 0:
+        assert str(got["wait_txt"]) == str(want["wait_txt"])
+    skip = {"hist_wait", "waits_all", "slopes", "angles", "hist_slope",
+            "hist_angle", "wait_txt", *FLOAT_STATE}
+    for k in sorted(set(want) - skip):
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.shape == w.shape, k
+        if k.startswith("partisan_"):
+            np.testing.assert_array_equal(g.astype(w.dtype), w, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+            assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
+    return int(n_bad.sum())

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``flipcomplexityempirical_tpu_torch``
-(nor ``chip_smoke.py``) imports jax, flax or the JAX package, and
-importing the whole port with jax made unimportable never loads the JAX
-package."""
+(nor ``chip_smoke.py``, nor ``tests/_parity.py``, which it imports) imports
+jax, flax, the JAX package, matplotlib or networkx (the card's machine has
+neither plotting nor graph library), and importing the whole port with
+those made unimportable never loads the JAX package."""
 
 import ast
 import pathlib
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "flipcomplexityempirical_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "flipcomplexityempirical_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "flipcomplexityempirical_tpu",
+             "matplotlib", "networkx")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -27,7 +29,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "_parity.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -37,7 +40,7 @@ def test_no_jax_imports(path):
 def test_port_imports_without_jax():
     code = textwrap.dedent("""
         import pkgutil, sys
-        for name in ("jax", "jaxlib", "flax"):
+        for name in ("jax", "jaxlib", "flax", "matplotlib", "networkx"):
             sys.modules[name] = None
         import flipcomplexityempirical_tpu_torch as port
         for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
