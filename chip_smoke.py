@@ -35,10 +35,15 @@ entry points a user calls, checks what comes out, and prints:
      waits: sec11 and the Frankengraph at C=64, T=64, an empty valid set
      (pop_tol 0), contiguity 'none', accept 'always' (the resident planes
      updated after every step) and random starts where most cells are
-     candidates; then against the JAX package's own 50-step sec11 chunk
-     kept in ``tests/fixtures/torch/lowered_sec11.npz``;
-  6. the lowered main path for sec11 (config 0B263P10) and the
-     Frankengraph (0B30P10), each through ``run_board`` at C=4096, chunk
+     candidates; the rook route (plain rook grids on their stencil, the
+     JAX package's ``_scan_bits`` draw for draw): 64x64 at C=256, T=64, a
+     width that straddles words (40x65) and contiguity 'none', with the SE
+     and SW cut planes zero and the launches counted; then against the
+     JAX package's own 50-step sec11 chunk kept in
+     ``tests/fixtures/torch/lowered_sec11.npz``;
+  6. the lowered main path for sec11 (config 0B263P10), the Frankengraph
+     (0B30P10) and the 64x64 rook grid (``bench.py``'s spec, no
+     interface), each through ``run_board`` at C=4096, chunk
      500, a 501-step warmup and 3001 timed steps: flips/s, peak memory,
      the kernel's launches (equal to the chunks run) and the calls of
      ``apply_flip_log``, result checks (cut_count and dist_pop against
@@ -49,7 +54,12 @@ entry points a user calls, checks what comes out, and prints:
      ms of ``apply_flip_log`` and its bound, the kernel's bound in two
      forms (the candidate form, its candidate cells replayed from the flip
      log, and the resident-plane form, its accepted moves counted), the
-     idle share of 1001 steps and the SM clock under load;
+     idle share of 1001 steps and the SM clock under load; at the bench's
+     spec (sec11 and the Frankengraph without the interface, checked
+     against the plain version at C=4096 with its launch counted) one
+     chunk at the bench's C=8192, the state twice over, whose halves must
+     each equal the checked C=4096 outputs bit for bit, timed with its
+     bound;
   7. the paper's experiment driver: the CLI as a user calls it
      (``python -m flipcomplexityempirical_tpu_torch.experiments --family
      frank --only 0B30P10`` at 100,000 steps, 8 chains) must leave the
@@ -71,7 +81,23 @@ entry points a user calls, checks what comes out, and prints:
      checkpoint after one segment, resumed, both equal under the CPU
      tests' tolerance; the device's idle share over a 10,001-step config
      and that config's time split (kernel, ``apply_flip_log``, host);
-  8. one JSON line per kernel table (``{"kernels": [...]}``), then as the
+  8. the bench entry point as a user runs it, in a subprocess
+     (``python -m flipcomplexityempirical_tpu_torch.bench``): ``--graph
+     square``, ``--pallas``, ``--graph sec11`` and ``--graph frank`` each
+     print bench.py's headline with this card's name, the JAX package's
+     body and the port's kernel, launched once a timed chunk; ``--grid 65``
+     exits nonzero naming ROADMAP B2;
+  9. both rook routes against the exact stationary distribution of the
+     3x4 grid of ``tests/test_enumeration.py`` (``tests/_torch_
+     enumeration.py``): after each kernel is held against its plain
+     version there, 4096 chains of the board-chunk kernel's Philox mode
+     and of the lowered kernel's threefry route each run 2000 steps, then
+     200 one-step calls whose boards are pooled; TV < 0.06 and E|cut|
+     within 2 % (``test_enumeration.py``'s bar), the pool's TV < 0.03, and
+     E|cut| and each node's district-1 share within 6 standard errors of
+     their exact values, the errors measured across 32 groups of chains
+     (``group_t``), at bases 0.5, 1.0 and 2.0;
+  10. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
@@ -173,6 +199,28 @@ EXP_FIXTURE_CKPT = "tests/fixtures/torch/experiment_frank_ckpt"
 EXP_FIXTURE_CFG = dict(family="frank", alignment=0, base=0.3, pop_tol=0.5,
                        total_steps=401, n_chains=2, seed=0)
 EXP_FIXTURE_CKPT_EVERY = 200
+# The rook route through lowered_chunk: (label, h, w, chains, pop_tol,
+# spec overrides) of its exactness cases
+ROOK_EXACT_CASES = (("64x64", GRID, GRID, EXACT_CHAINS, POP_TOL, {}),
+                    ("word-straddling width 40x65", 40, 65, 128, POP_TOL,
+                     {}),
+                    ("64x64 contiguity none", GRID, GRID, EXACT_CHAINS,
+                     POP_TOL, {"contiguity": "none"}))
+# The bench entry point's runs: (label, arguments, bench.py's metric, the
+# JAX package's body, the port's kernel)
+BENCH_RUNS = (
+    ("square", [], "flips_per_sec_per_chip_64x64", "bitboard",
+     "lowered_chunk"),
+    ("square --pallas", ["--pallas"], "flips_per_sec_per_chip_64x64",
+     "pallas", "board_chunk"),
+    ("sec11", ["--graph", "sec11"], "flips_per_sec_per_chip_sec11",
+     "lowered_bits", "lowered_chunk"),
+    ("frank", ["--graph", "frank"], "flips_per_sec_per_chip_frank",
+     "lowered_bits", "lowered_chunk"))
+# The stationary-distribution check (tests/test_enumeration.py's grid and
+# bar): bases, chains, burn-in steps and pooled one-step samples
+ENUM_BASES = (0.5, 1.0, 2.0)
+ENUM_BURN = 2000        # chains and samples: _torch_enumeration's
 # Operations the lowered-chunk function needs, counted on this run's data
 # (a floor), in two forms; the bound takes the smaller.
 # The candidate form checks the patch of every candidate cell each step:
@@ -595,18 +643,25 @@ def probe_phase(probes) -> list:
 
 def lowered_workload(port, which: str, n_chains: int, seed: int,
                      pop_tol: float = POP_TOL, random_start: bool = False,
-                     **spec_kw):
+                     h: int = GRID, w: int = GRID, **spec_kw):
     """(graph, bg, state, params, spec) of one of ``LOWERED``'s graphs,
-    from the family's plan or, with ``random_start``, from a seeded
-    random assignment (most cells on the boundary)."""
+    from the family's plan, or of the plain h x w rook grid ("square")
+    from its stripes plan with ``bench.py``'s spec (no interface), or,
+    with ``random_start``, from a seeded random assignment (most cells on
+    the boundary)."""
     import numpy as np
-    _, builder, plan_fn, base = next(x for x in LOWERED if x[0] == which)
-    g = getattr(port.graphs, builder)()
+    if which == "square":
+        g = port.graphs.square_grid(h, w)
+        plan, base = port.graphs.stripes_plan(g, 2), BASE
+        kw = dict(contiguity="patch", accept="cut")
+    else:
+        _, builder, plan_fn, base = next(x for x in LOWERED
+                                         if x[0] == which)
+        g = getattr(port.graphs, builder)()
+        plan = getattr(port.graphs, plan_fn)(g, 0)
+        kw = dict(contiguity="patch", accept="cut", record_interface=True)
     if random_start:
         plan = np.random.default_rng(seed).integers(0, 2, g.n_nodes)
-    else:
-        plan = getattr(port.graphs, plan_fn)(g, 0)
-    kw = dict(contiguity="patch", accept="cut", record_interface=True)
     kw.update(spec_kw)
     spec = port.Spec(**kw)
     bg, st, params = port.init_board(g, plan, n_chains=n_chains, seed=seed,
@@ -689,6 +744,41 @@ def lowered_exactness(port, cl) -> float:
             fail("the empty valid set moved a chain")
         if tol > 0.0 and not moved:
             fail(f"lowered {label}: no chain moved")
+    return err
+
+
+def rook_exactness(port, cl) -> float:
+    """The lowered kernel on plain rook grids (the route of the JAX
+    package's ``_scan_bits``) against its plain version: every output
+    bit-equal except counted log ties in the waits, and the SE and SW cut
+    planes zero (a rook grid has no diagonal edges); launches counted."""
+    import torch
+    err = 0.0
+    cl.run_lowered_chunk_cuda.launches = 0
+    for label, h, w, chains, tol, kw in ROOK_EXACT_CASES:
+        _, bg, st, params, spec = lowered_workload(
+            port, "square", chains, 1, pop_tol=tol, h=h, w=w, **kw)
+        static = cl.make_static_inputs(bg, spec, params)
+        args = (bg, static, spec, EXACT_T, st.board,
+                *cl.pack_state(st, params))
+        got = cl.run_lowered_chunk_cuda(*args)
+        torch.cuda.synchronize()
+        want = cl.lowered_chunk_reference(*args)
+        torch.cuda.synchronize()
+        err = max(err, compare_lowered(
+            cl, got, want, f"rook {label} C={chains} T={EXACT_T}"))
+        if bool(got[13][1].any()) or bool(got[13][3].any()):
+            fail(f"rook {label}: a diagonal cut plane is not zero")
+        moved = int((got[4][5] - st.accept_count).sum())
+        if not moved:
+            fail(f"rook {label}: no chain moved")
+        print(f"  rook {label}: SE and SW planes zero; accepted moves "
+              f"{moved} of {chains * EXACT_T} chain-steps")
+    launches = cl.run_lowered_chunk_cuda.launches
+    print(f"rook route: lowered_chunk launches {launches} for "
+          f"{len(ROOK_EXACT_CASES)} cases")
+    if launches != len(ROOK_EXACT_CASES):
+        fail(f"the rook cases launched lowered_chunk {launches} times")
     return err
 
 
@@ -967,20 +1057,35 @@ def lowered_main_path(port, cl, tb, which: str, baseline=None) -> dict:
           f"apply_flip_log {flip_log_ms:.3f} ms wall")
     print(f"{which} " + flip_log_bound(fs, outs[5], outs[6]))
     # what the patch check and the interface cost: the same chunk with
-    # each switched off (a timing only, off the main path)
+    # each switched off. Without the interface is the bench's spec, so
+    # that chunk is held against the plain version too
     parts = []
+    bench_args, bench_outs = args, outs
     for label, kw in (("contiguity none", {"contiguity": "none"}),
                       ("no interface", {"record_interface": False})):
         vspec = dataclasses.replace(spec, **kw)
+        if vspec == spec:
+            continue
         vargs = (bg, cl.make_static_inputs(bg, vspec, params), vspec,
                  *args[3:])
-        cl.run_lowered_chunk_cuda(*vargs)
+        before = cl.run_lowered_chunk_cuda.launches
+        vouts = cl.run_lowered_chunk_cuda(*vargs)
+        torch.cuda.synchronize()
+        if cl.run_lowered_chunk_cuda.launches != before + 1:
+            fail(f"lowered {which} {label}: the wrapper did not count one "
+                 "launch")
+        if label == "no interface":
+            err = max(err, compare_lowered(
+                cl, vouts, cl.lowered_chunk_reference(*vargs),
+                f"lowered {which} {label} main-path shape (1 launch)"))
+            bench_args, bench_outs = vargs, vouts
         v_ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*vargs), reps)
         parts.append(f"{label} {v_ms:.3f} ms")
     print(f"lowered_chunk {which} at the same state: " + "; ".join(parts))
 
     bound_ms, bound_by = lowered_bound(tb, cl, bg, spec, static, fs.board,
                                        dp_scal_ints, outs, which)
+    wide = doubled_chunk(tb, cl, which, bench_args, bench_outs)
     if baseline is not None:
         baseline_lowered_rounds(cl, baseline, args, which)
     print(f"profile of {2 * CHUNK + 1} lowered {which} steps: " + idle_share(
@@ -992,7 +1097,49 @@ def lowered_main_path(port, cl, tb, which: str, baseline=None) -> dict:
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "flips_per_s": fps, "apply_flip_log_ms": flip_log_ms,
-            "peak_mib": peak / 2 ** 20}
+            "peak_mib": peak / 2 ** 20, **wide}
+
+
+def same_outputs(got, want) -> bool:
+    """Bit-equal tensors, NaN where NaN."""
+    import torch
+    if got.dtype.is_floating_point:
+        return bool(((got == want) | (torch.isnan(got) & torch.isnan(want)))
+                    .all())
+    return torch.equal(got, want)
+
+
+def doubled_chunk(tb, cl, which: str, args, outs) -> dict:
+    """One chunk at the bench's default 2 * CHAINS chains (a second wave
+    of blocks), the main path's state twice over at the bench's spec:
+    each half of every output must equal ``outs``, that state's checked
+    outputs at CHAINS, bit for bit; then the kernel's CUDA event time and
+    its bound."""
+    import torch
+    bg, static, spec, t_len, board, *ins = args
+    c = board.shape[0]
+    board2 = torch.cat([board, board])
+    ins2 = tuple(torch.cat([x, x], dim=1).contiguous() for x in ins)
+    args2 = (bg, static, spec, t_len, board2, *ins2)
+    outs2 = cl.run_lowered_chunk_cuda(*args2)
+    torch.cuda.synchronize()
+    for name, got, want in zip(cl.OUT_NAMES, outs2, outs):
+        dims = [d for d in range(got.dim()) if got.shape[d] != want.shape[d]]
+        if len(dims) != 1 or got.shape[dims[0]] != 2 * c:
+            fail(f"{which} C={2 * c}: {name} has shape {tuple(got.shape)} "
+                 f"against {tuple(want.shape)}")
+        if not all(same_outputs(h, want) for h in got.split(c, dim=dims[0])):
+            fail(f"{which} C={2 * c}: a half of {name} differs from the "
+                 f"C={c} outputs")
+    reps = 3
+    ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*args2), reps)
+    print(f"lowered_chunk {which} at the bench's spec and C={2 * c}: both "
+          f"halves equal the C={c} outputs; {ms:.3f} ms per {t_len}-step "
+          f"chunk (CUDA events, mean of {reps})")
+    bound_ms, bound_by = lowered_bound(tb, cl, bg, spec, static, board2,
+                                       ins2, outs2, f"{which} C={2 * c}")
+    return {f"ms_c{2 * c}": ms, f"bound_ms_c{2 * c}": bound_ms,
+            f"bound_by_c{2 * c}": bound_by}
 
 
 # ---------------------------------------------------------------------------
@@ -1347,6 +1494,167 @@ def experiment_phase(cl, tb) -> dict:
             "split_10001_steps": split}
 
 
+# ---------------------------------------------------------------------------
+# The bench entry point as a user runs it, and the Philox mode against the
+# exact stationary distribution
+# ---------------------------------------------------------------------------
+
+def last_json(text: str) -> dict:
+    """The last line of ``text`` that is a JSON object."""
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    fail(f"no JSON line in: {text[-2000:]}")
+
+
+def bench_phase(root) -> dict:
+    """``python -m flipcomplexityempirical_tpu_torch.bench`` in a
+    subprocess, as a user calls it, for each of BENCH_RUNS: exit 0 and a
+    headline under bench.py's metric name, tagged with this card, the JAX
+    package's body and the port's kernel, with the kernel launched once a
+    chunk of the timed runs; then ``--grid 65``, which must exit nonzero
+    naming ROADMAP B2. Returns the headlines by label."""
+    import torch
+    card = torch.cuda.get_device_name(0)
+    mod = [sys.executable, "-m", "flipcomplexityempirical_tpu_torch.bench"]
+    heads = {}
+    for label, extra, metric, kernel_path, kernel in BENCH_RUNS:
+        t0 = time.perf_counter()
+        out = subprocess.run(mod + extra, cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"bench {label} exited {out.returncode}:\n{out.stderr}")
+        lines = out.stdout.strip().splitlines()
+        head, meta = json.loads(lines[-1]), last_json(out.stderr)
+        want = {"metric": metric, "unit": "flips/s", "device": card,
+                "kernel_path": kernel_path, "kernel": kernel,
+                "repeat_policy": "best"}
+        got = {k: head.get(k) for k in want}
+        if len(lines) != 1 or got != want or not head["value"] > 0:
+            fail(f"bench {label}: headline {head}, expected {want}")
+        chunks = meta["repeats"] * ((STEPS - 1) // CHUNK)
+        if meta["launches"] != chunks:
+            fail(f"bench {label}: {kernel} launched {meta['launches']} times "
+                 f"for {chunks} timed chunks")
+        print(f"bench {label} ({wall:.3f} s wall): {lines[-1]}")
+        print(f"bench {label} meta: {json.dumps(meta)}")
+        heads[label] = {**head, "chains": meta["chains"],
+                        "seconds": meta["seconds"],
+                        "accept_rate": meta["accept_rate"]}
+    out = subprocess.run(mod + ["--grid", "65"], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode == 0 or "B2" not in out.stderr or out.stdout:
+        fail(f"bench --grid 65 exited {out.returncode}: {out.stderr}")
+    print(f"bench --grid 65: exit {out.returncode}, "
+          f"{out.stderr.strip().splitlines()[-1]}")
+    return heads
+
+
+def stationary_phase(port, cb, cl, runner) -> dict:
+    """Both rook routes against the exact stationary distribution of the
+    3 x 4 grid (``tests/_torch_enumeration.py``, numpy only): C chains of
+    each route run ENUM_BURN steps, then en.SAMPLES one-step calls, each
+    on a fresh Philox seed (the board-chunk kernel's stream is keyed by
+    seed, chain and chunk, and a call starts at chunk 0) or on the
+    threefry keys the lowered kernel carries in the state; the boards
+    after every call are pooled, mapped to their states (a board outside
+    the set fails) and held to the stationary distribution
+    (``stationary_lazy``: at base 1.0 the chain has period 2, and pooling
+    successive steps weighs both phases alike): TV < 0.06 and E|cut|
+    within 2 % (``test_enumeration.py``'s bar), the pool's TV below
+    ``en.TV_POOL_TOL``, and every ``en.group_t`` statistic (E|cut| and
+    each node's district-1 share, against their sampling noise across
+    groups of chains) below ``en.T_TOL`` in size. First the board-chunk
+    kernel against its plain version on this grid, and last the lowered
+    kernel."""
+    import os
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import _torch_enumeration as en
+    g, nbrmask = en.build_masks()
+    states = en.enumerate_states(nbrmask)
+    spec = port.Spec(contiguity="patch", geom_waits=False,
+                     parity_metrics=False)
+    plan = port.graphs.stripes_plan(g, 2)
+    err = chunk_cases(cb, port, EXACT_T, en.CHAINS, en.NX, en.NY, en.EPS,
+                      False, f"enumeration grid {en.NX}x{en.NY}")
+    out = {"philox": {}, "threefry": {}, "board_chunk_err": err,
+           "states": len(states)}
+    for b, base in enumerate(ENUM_BASES):
+        P, cuts = en.build_transition(states, g, base)
+        pi = en.stationary_lazy(P)
+        for route in ("philox", "threefry"):
+            seed = 100 * b + (route == "threefry")
+            bg, st, params = port.init_board(
+                g, plan, n_chains=en.CHAINS, seed=seed, spec=spec,
+                base=base, pop_tol=en.EPS, device=DEVICE)
+            t0 = time.perf_counter()
+            if route == "philox":
+                st = port.run_board_cuda(
+                    bg, spec, params, st, n_steps=ENUM_BURN + 1,
+                    record_history=False, chunk=CHUNK, seed=seed,
+                    device=DEVICE).state
+
+                def step(st, i):
+                    return port.run_board_cuda(
+                        bg, spec, params, st, n_steps=2,
+                        record_history=False, seed=seed + 1 + i,
+                        device=DEVICE).state
+            else:
+                st = port.run_board(bg, spec, params, st,
+                                    n_steps=ENUM_BURN + 1,
+                                    record_history=False, chunk=CHUNK,
+                                    device=DEVICE).state
+
+                def step(st, i):
+                    return runner.run_board_segment(
+                        bg, spec, params, st, 1, record_history=False,
+                        device=DEVICE).state
+            boards = []
+            for i in range(en.SAMPLES):
+                st = step(st, i)
+                boards.append(st.board)
+            abits = en.board_bits(torch.cat(boards).cpu().numpy())
+            chain = np.tile(np.arange(en.CHAINS), len(boards))
+            try:
+                tv, cut_err = en.occupancy_error(abits, states, pi, cuts)
+                t = en.group_t(abits, chain, states, pi, cuts)
+            except KeyError as exc:
+                fail(f"{route} base {base}: a chain left the valid states "
+                     f"({exc})")
+            t_max = float(np.abs(t).max())
+            print(f"stationary {route} base {base}: TV {tv:.6f}, E|cut| "
+                  f"relative error {cut_err:.6f}, t of E|cut| {t[0]:.3f}, "
+                  f"max |t| {t_max:.3f} over E|cut| and the {en.N} nodes' "
+                  f"shares ({en.GROUPS} groups of chains) ({abits.size} "
+                  f"boards of {len(states)} states, {en.CHAINS} chains x "
+                  f"{en.SAMPLES} steps after {ENUM_BURN}; "
+                  f"{time.perf_counter() - t0:.3f} s)")
+            if tv >= en.TV_TOL or cut_err >= en.CUT_TOL:
+                fail(f"{route} base {base}: TV {tv:.4f} or E|cut| error "
+                     f"{cut_err:.4f} above test_enumeration.py's bar")
+            if tv >= en.TV_POOL_TOL or not t_max < en.T_TOL:
+                fail(f"{route} base {base}: TV {tv:.4f} (bar "
+                     f"{en.TV_POOL_TOL}) or max |t| {t_max:.2f} (bar "
+                     f"{en.T_TOL}) above the pooled check's bar")
+            out[route][base] = {"tv": tv, "cut_err": cut_err,
+                                "t_cut": float(t[0]), "t_max": t_max}
+    # the lowered kernel against its plain version on the same grid
+    _, bg, st, params, lspec = lowered_workload(
+        port, "square", en.CHAINS, 1, pop_tol=en.EPS, h=en.NX, w=en.NY)
+    static = cl.make_static_inputs(bg, lspec, params)
+    args = (bg, static, lspec, EXACT_T, st.board, *cl.pack_state(st, params))
+    got = cl.run_lowered_chunk_cuda(*args)
+    want = cl.lowered_chunk_reference(*args)
+    out["lowered_chunk_err"] = compare_lowered(
+        cl, got, want, f"rook enumeration grid C={en.CHAINS} T={EXACT_T}")
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1528,15 +1836,24 @@ def main() -> None:
         baseline_rounds(cb, args, opts.baseline)
     # ---- 5, 6: the lowered path -----------------------------------------
     lowered_err = lowered_exactness(port, cl)
+    lowered_err = max(lowered_err, rook_exactness(port, cl))
     lowered_fixture(port, cl, tb)
     old_lowered = (build_baseline(opts.baseline_lowered,
                                   "baseline_lowered_chunk")
                    if opts.baseline_lowered else None)
     per_graph = {which: lowered_main_path(port, cl, tb, which, old_lowered)
-                 for which, *_ in LOWERED}
+                 for which in [x[0] for x in LOWERED] + ["square"]}
     main_row = per_graph["sec11"]
     # ---- 7: the experiment driver ---------------------------------------
     per_graph["experiment"] = experiment_phase(cl, tb)
+    # ---- 8: the bench entry point; 9: the stationary distribution -------
+    import pathlib
+
+    from flipcomplexityempirical_tpu_torch.sampling import board_runner
+    heads = bench_phase(str(pathlib.Path(__file__).resolve().parent))
+    stationary = stationary_phase(port, cb, cl, board_runner)
+    err = max(err, stationary["board_chunk_err"])
+    lowered_err = max(lowered_err, stationary["lowered_chunk_err"])
     kernels.insert(0, {
         "name": "lowered_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/lowered_chunk.cu",
@@ -1546,7 +1863,9 @@ def main() -> None:
                                             for r in per_graph.values()]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None, "graphs": per_graph,
+        "library_ms": None, "graphs": per_graph, "bench": heads,
+        "rook_route_replaces": "flipcomplexityempirical_tpu/kernel/"
+                               "board.py:1338",
     })
     kernels.insert(0, {
         "name": "board_chunk", "route": "cuda",
@@ -1555,7 +1874,7 @@ def main() -> None:
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "library_ms": None, "stationary": stationary,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,17 @@ CUDA for NVIDIA Hopper.
 The port of ``flipcomplexityempirical_tpu`` (which stays the reference):
 batched 2-district single-node-flip chains, with the chunk of steps in a
 hand-written CUDA kernel and the bookkeeping around it in PyTorch. Two
-paths: a plain rook grid through ``run_board_cuda`` (``kernel/
-cuda_board.py``, ``csrc/board_chunk.cu``), and the paper's experiment
-graphs (sec11, the Frankengraph) and every ``record_interface`` spec
-through ``run_board`` (the lowered body: ``lower/stencil.py``,
-``kernel/cuda_lowered.py``, ``csrc/lowered_chunk.cu``). The paper's sweeps
-run end to end through ``experiments`` (``run_config``, ``run_sweep``
-and the CLI ``python -m flipcomplexityempirical_tpu_torch.experiments``).
+paths: ``run_board`` (the lowered body: ``lower/stencil.py``,
+``kernel/cuda_lowered.py``, ``csrc/lowered_chunk.cu``) runs the paper's
+experiment graphs (sec11, the Frankengraph), every ``record_interface``
+spec and plain rook grids of up to 4096 cells, draw for draw as the JAX
+package's ``run_board``; ``run_board_cuda`` (``kernel/cuda_board.py``,
+``csrc/board_chunk.cu``, the Pallas kernel's twin) runs a plain rook grid
+on the port's own Philox stream. The paper's sweeps run end to end
+through ``experiments`` (``run_config``, ``run_sweep`` and the CLI
+``python -m flipcomplexityempirical_tpu_torch.experiments``), and
+``python -m flipcomplexityempirical_tpu_torch.bench`` is the port of the
+root ``bench.py``'s board path.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where every kernel runs its plain PyTorch version.
 """

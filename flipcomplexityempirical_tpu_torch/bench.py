@@ -1,0 +1,256 @@
+"""The port's benchmark: aggregate flip throughput on ``bench.py``'s board
+path, on the card.
+
+    python -m flipcomplexityempirical_tpu_torch.bench
+        [--graph square|sec11|frank] [--pallas] [--cpu] [--grid N]
+        [--chains C] [--steps S] [--warmup W] [--chunk T] [--base B]
+        [--pop-tol P] [--repeats R] [--body bits]
+
+The port of the root ``bench.py``'s default measurement, with its defaults:
+2-district single-node-flip chains with the full reference semantics
+(boundary proposal, re-propose on invalid, patch contiguity, population
+bounds, the literal ``base**(-dcut)`` accept, geometric waits, parity
+bookkeeping, no interface recording) on the 64 x 64 rook grid from a
+stripes start (``--graph square``), the sec11 grid from
+``sec11_plan(alignment=0)`` or the Frankengraph from
+``frank_plan(alignment=0)``.
+
+- Default, the board path: ``run_board`` on the lowered-chunk kernel, at
+  8192 chains. On square it equals the JAX package's ``bitboard`` body
+  (``_scan_bits``) draw for draw, on sec11 and frank its ``lowered_bits``
+  body.
+- ``--pallas``: ``run_board_cuda`` on the board-chunk kernel (the Pallas
+  kernel's twin, on the port's Philox stream), square only, at 4096 chains.
+- ``--cpu``: the same path through the kernels' plain PyTorch versions on
+  the host, at 4096 chains, tagged ``device`` "cpu". Without a card and
+  without ``--cpu`` the program exits 1: it never measures the host in
+  place of the card.
+
+It runs the warm-up (the first kernel build included), zeroes the accept,
+tries and exhausted counters, then times ``--repeats`` runs of ``--steps``
+steps from the warmed state, each ending in a synchronise, and keeps the
+best. It prints a meta line on stderr (``bench.py``'s fields, the port's
+kernel and its launches in the timed runs) and on stdout one headline,
+``{"metric", "value", "unit", "device", "path", "kernel_path", "kernel",
+"repeats", "repeat_policy"}``, under ``bench.py``'s metric names, so that
+``tools/bench_compare.py`` reads it. ``bench.py``'s other flags are refused
+with exit code 2, each naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from . import graphs
+from .kernel import cuda_board as cboard
+from .kernel import cuda_lowered as clow
+from .kernel.step import Spec
+from .sampling import init_board, run_board, run_board_cuda
+
+# bench.py's flags that this program does not port, by the ROADMAP.md item
+# that ports each; a "flag value" key refuses that value only
+_NOT_PORTED = {
+    "--graph hex": "A6 (the general and dense paths)",
+    "--general": "A6 (the general and dense paths)",
+    "--k": "A7 (the k-district pair walk)",
+    "--ess": "A5 (device analytics)",
+    "--ess-host": "A5 (device analytics)",
+    "--devstats": "A5 (device analytics)",
+    "--record-every": "A5 (device analytics)",
+    "--mesh": "A10 (multiple GPUs)",
+    "--service": "A11 (the host layers: the sweep service)",
+    "--tenants": "A11 (the host layers: the sweep service)",
+    "--adaptive": "A11 (the host layers: the control plane)",
+    "--target-rhat": "A11 (the host layers: the control plane)",
+    "--target-ess": "A11 (the host layers: the control plane)",
+    "--workload-matrix": "A11 (the host layers: workloads)",
+    "--workloads": "A11 (the host layers: workloads)",
+    "--fleet": "A11 (the host layers: the fleet)",
+    "--events": "A11 (the host layers: obs events)",
+    "--profile": "A11 (the host layers: obs profiling)",
+    "--body int8": "B7 (the JAX package's int8 bodies)",
+}
+
+
+def _not_ported(argv) -> str | None:
+    """Why ``argv`` asks for a flag of ``bench.py`` that this program does
+    not port (``--k 2``, bench.py's default, excepted), or None."""
+    toks = [t for a in argv
+            for t in (a.split("=", 1) if a.startswith("--") else [a])]
+    for flag, value in zip(toks, toks[1:] + [""]):
+        if flag == "--k" and value == "2":
+            continue
+        for key in (f"{flag} {value}", flag):
+            if key in _NOT_PORTED:
+                return f"{key} is not ported: ROADMAP.md {_NOT_PORTED[key]}"
+    return None
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m flipcomplexityempirical_tpu_torch.bench",
+        description="Aggregate flip throughput of bench.py's board path "
+                    "on the card.")
+    ap.add_argument("--grid", type=int, default=64)
+    ap.add_argument("--graph", choices=["square", "sec11", "frank"],
+                    default="square")
+    ap.add_argument("--chains", type=int, default=None,
+                    help="default 8192 on the board path, 4096 with "
+                         "--pallas or --cpu (bench.py's rule)")
+    ap.add_argument("--steps", type=int, default=3001)
+    ap.add_argument("--warmup", type=int, default=501)
+    ap.add_argument("--chunk", type=int, default=500)
+    ap.add_argument("--base", type=float, default=2.63815853)
+    ap.add_argument("--pop-tol", type=float, default=0.1)
+    ap.add_argument("--k", type=int, choices=[2], default=2)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the kernels' plain versions on the host")
+    ap.add_argument("--pallas", action="store_true",
+                    help="the board-chunk kernel (run_board_cuda), square "
+                         "only")
+    ap.add_argument("--body", choices=["bits"], default=None)
+    ap.add_argument("--repeats", type=int, default=2,
+                    help="timed runs; the best is reported")
+    return ap
+
+
+def _refusal(args) -> str | None:
+    """Why this program does not run ``args``, or None."""
+    if args.body is not None and args.pallas:
+        return "--body selects a board-path body; drop --pallas"
+    if args.pallas and args.graph != "square":
+        return ("the board-chunk kernel runs the plain rook grid; sec11 and "
+                "frank run the board path (drop --pallas)")
+    if ((args.steps - 1) % args.chunk or (args.warmup - 1) % args.chunk
+            or args.warmup - 1 < args.chunk):
+        return (f"--chunk {args.chunk} must divide steps-1 "
+                f"({args.steps - 1}) and warmup-1 ({args.warmup - 1}), and "
+                "warmup-1 must be >= chunk")
+    if args.repeats < 1:
+        return "--repeats must be >= 1"
+    return None
+
+
+def _workload(args):
+    """(graph, plan) of ``--graph``, as ``bench.py`` builds them."""
+    if args.graph == "sec11":
+        g = graphs.grid_sec11()
+        return g, graphs.sec11_plan(g, alignment=0)
+    if args.graph == "frank":
+        g = graphs.frankengraph()
+        return g, graphs.frank_plan(g, alignment=0)
+    g = graphs.square_grid(args.grid, args.grid)
+    return g, graphs.stripes_plan(g, 2)
+
+
+def _metric(graph: str) -> str:
+    """``bench.py``'s headline name for a 2-district run."""
+    if graph != "square":
+        return f"flips_per_sec_per_chip_{graph}"
+    return "flips_per_sec_per_chip_64x64"
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    why = _not_ported(argv)
+    if why is None:
+        args = _parser().parse_args(argv)
+        why = _refusal(args)
+    if why is not None:
+        print(f"bench: {why}", file=sys.stderr)
+        return 2
+    if not args.cpu and not torch.cuda.is_available():
+        print("bench: no CUDA device is available; pass --cpu to run the "
+              "plain PyTorch versions on the host", file=sys.stderr)
+        return 1
+    dev = torch.device("cpu" if args.cpu else "cuda")
+    if args.chains is None:
+        args.chains = 4096 if (args.pallas or args.cpu) else 8192
+    spec = Spec(n_districts=2, proposal="bi", contiguity="patch",
+                invalid="repropose", accept="cut", parity_metrics=True,
+                geom_waits=True, record_interface=False)
+    g, plan = _workload(args)
+    bg, state, params = init_board(g, plan, n_chains=args.chains, seed=0,
+                                   spec=spec, base=args.base,
+                                   pop_tol=args.pop_tol, device=dev)
+    bits = True if args.body == "bits" else None
+    try:
+        if args.pallas:
+            cboard.check(spec, params)
+            kernel_path, wrapper = "pallas", cboard.run_board_chunk_cuda
+        else:
+            kernel_path = clow.body_for(bg, spec, bits)
+            clow.check(bg, spec, params)
+            wrapper = clow.run_lowered_chunk_cuda
+    except ValueError as exc:
+        print(f"bench: {exc}", file=sys.stderr)
+        return 2
+
+    def run(st, n_steps: int, seed: int):
+        if args.pallas:
+            return run_board_cuda(bg, spec, params, st, n_steps=n_steps,
+                                  record_history=False, chunk=args.chunk,
+                                  seed=seed, device=dev)
+        return run_board(bg, spec, params, st, n_steps=n_steps,
+                         record_history=False, chunk=args.chunk, bits=bits,
+                         device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # the warm-up, outside the timed window: the kernel's first build and
+    # steady boundary sizes; then zero the counters the rates below read
+    state = run(state, args.warmup, seed=0).state
+    state = state.replace(
+        accept_count=torch.zeros_like(state.accept_count),
+        tries_sum=torch.zeros_like(state.tries_sum),
+        exhausted_count=torch.zeros_like(state.exhausted_count))
+    sync()
+    launches0 = wrapper.launches
+    dt = float("inf")
+    for _ in range(args.repeats):
+        t0 = time.perf_counter()
+        res = run(state, args.steps, seed=1)
+        sync()
+        dt = min(dt, time.perf_counter() - t0)
+    fps = args.chains * (args.steps - 1) / dt
+    s = res.state
+    device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    path = "pallas" if args.pallas else "board"
+    kernel = "board_chunk" if args.pallas else "lowered_chunk"
+    meta = {
+        "device": device, "path": path, "kernel_path": kernel_path,
+        "kernel": kernel, "graph": args.graph, "chains": args.chains,
+        "steps": args.steps, "chunk": args.chunk, "grid": args.grid,
+        "k": args.k, "seconds": round(dt, 3), "repeats": args.repeats,
+        "repeat_policy": "best",
+        "mean_tries_per_step": float(s.tries_sum.double().mean())
+        / (args.steps - 1),
+        "accept_rate": float(s.accept_count.double().mean())
+        / (args.steps - 1),
+        # the kernel's launches in the timed runs (0 for the plain versions)
+        "launches": wrapper.launches - launches0,
+    }
+    print(json.dumps(meta), file=sys.stderr)
+    headline = {
+        "metric": _metric(args.graph), "value": round(fps, 1),
+        "unit": "flips/s", "device": device, "path": path,
+        "kernel_path": kernel_path, "kernel": kernel,
+        "repeats": args.repeats, "repeat_policy": "best",
+    }
+    if args.graph != "square":
+        headline["graph"] = args.graph
+    if args.body is not None:
+        headline["body"] = kernel_path
+    print(json.dumps(headline))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,8 +5,11 @@
 //
 // Replaces the body of the JAX package's lowered chunk scan,
 // flipcomplexityempirical_tpu/kernel/board.py::_scan_bits_lowered (:1267),
-// bit-identical to its int8 form _scan_stencil (:1201). On the TPU that
-// body is XLA code fused per scan step, not a Pallas kernel; replayed as
+// bit-identical to its int8 form _scan_stencil (:1201), and on a plain rook
+// grid's stencil (edges in four of the eight ring directions, no wall keys,
+// the rook radius-2 patch) the packed rook body _scan_bits (:1338), which
+// draws the same stream in the same order. On the TPU these bodies are
+// XLA code fused per scan step, not Pallas kernels; replayed as
 // torch ops (the plain version) it is hundreds of small launches a step.
 // Here one launch runs the whole chunk. It is bit-equal to its plain version
 // (kernel/cuda_lowered.py::lowered_chunk_reference) on every output, and

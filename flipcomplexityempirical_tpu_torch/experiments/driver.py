@@ -207,12 +207,13 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
                _stop_after_segments: Optional[int] = None, device="cuda",
                run=None) -> dict:
     """The batched run, in checkpoint segments when cfg.checkpoint_every
-    > 0: ``run_board_segment`` per segment, a checkpoint after each, then
-    the final record. The segmented run equals an uninterrupted one bit
-    for bit: the PRNG keys live in the chain state, and segments record
-    no trailing yield. ``_stop_after_segments`` simulates an interruption
-    for tests; ``run`` is ``_init_run``'s triple when the caller made it
-    already."""
+    > 0: ``run_board_segment`` per segment (its history kept on the
+    device and copied to the host once a segment), a checkpoint after
+    each, then the final record. The segmented run equals an
+    uninterrupted one bit for bit: the PRNG keys live in the chain state,
+    and segments record no trailing yield. ``_stop_after_segments``
+    simulates an interruption for tests; ``run`` is ``_init_run``'s
+    triple when the caller made it already."""
     dev = resolve_device(device)
     spec = spec_for(cfg)
     bg, states, params = (run if run is not None
@@ -237,10 +238,14 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
     segments = 0
     while done < total:
         n = min(every, total - done)
+        # the segment's history stays on the device and comes to the host
+        # in one copy a key
         res = run_board_segment(bg, spec, params, states, n,
-                                record_every=cfg.record_every, device=dev)
+                                record_every=cfg.record_every,
+                                history_device=True, device=dev)
         states = res.state
-        for k, v in res.history.items():
+        seg_hist = {k: v.cpu().numpy() for k, v in res.history.items()}
+        for k, v in seg_hist.items():
             hist_parts.setdefault(k, []).append(v)
         waits_total += res.waits_total
         done += n
@@ -248,7 +253,7 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
         if checkpoint_dir:
             n_parts = save_checkpoint(checkpoint_dir, cfg, states,
                                       done=done, waits_total=waits_total,
-                                      new_hist=res.history, part_idx=n_parts)
+                                      new_hist=seg_hist, part_idx=n_parts)
         if _stop_after_segments and segments >= _stop_after_segments:
             raise _SegmentStop(done)
 

@@ -4,7 +4,9 @@ pieces around the chunk kernels.
 Port of ``flipcomplexityempirical_tpu/kernel/board.py`` for two bodies:
 
 - the rook body, on a plain H x W rook grid: state is a flat (C, N) int8
-  board, N = H*W, flat index x*W + y; its chunk runs in ``cuda_board``;
+  board, N = H*W, flat index x*W + y; its chunk runs in ``cuda_board``
+  (the Pallas kernel's twin, on Philox) or, equal to the JAX package's
+  rook bodies draw for draw, in ``cuda_lowered`` on the grid's stencil;
 - the lowered body (``is_lowered``): a near-grid graph embedded by
   ``lower.stencil_for`` into an H x W canvas (holes carry district -1),
   with masked 8-direction planes, the exact B2-window contiguity, four

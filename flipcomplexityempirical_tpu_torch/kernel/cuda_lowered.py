@@ -2,8 +2,11 @@
 
 ``run_lowered_chunk_cuda`` runs ``t_inner`` steps of the lowered body (the
 JAX package's ``_scan_bits_lowered``, bit-identical to its int8 form
-``_scan_stencil``) for every chain: sec11, the Frankengraph, queen grids
-and every ``record_interface`` spec. On a CUDA tensor it launches the
+``_scan_stencil``) for every chain: sec11, the Frankengraph, queen grids,
+every ``record_interface`` spec, and plain rook grids on their stencil
+(four of the eight ring directions carry edges, no wall keys), where it
+equals the JAX package's rook bodies (``_scan_bits`` and its int8 form)
+draw for draw. On a CUDA tensor it launches the
 hand-written kernel of ``csrc/lowered_chunk.cu`` (built on first use by
 ``_build``; one warp per chain, the board bit-packed); on a CPU tensor it
 runs ``lowered_chunk_reference``, a per-step PyTorch replay of the int8
@@ -21,10 +24,12 @@ so they agree with the JAX package draw for draw.
              [log_f, log_s, cut, b, wait (f32), accepts], slope and angle
              (f32, NaN without ``record_interface`` or with fewer than two
              cut wall edges), and the chunk's cut counts (4, C, N) int32 of
-             the forward planes E, SE, S, SW.
+             the forward planes E, SE, S, SW (SE and SW stay zero on a
+             rook grid, whose state keeps no diagonal planes).
 
 ``run_chunk`` is the chunk at the level of BoardState (the JAX package's
-``run_board_chunk`` contract on this body). ``window_patch_ok`` and
+``run_board_chunk`` contract on this body); ``body_for`` names the JAX
+package's body that a run equals. ``window_patch_ok`` and
 ``touches_wall`` are plain forms of two of the kernel's own tests (its
 window patch check and its wall-edge test), which the CPU tests hold
 against this package's plane functions.
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,13 +77,14 @@ class LoweredStatic:
 
 
 def supports(bg: BoardGraph, spec: Spec) -> bool:
-    """What ``bitboard.supported_lowered`` admits, on a lowered workload:
-    uniform population, the 2-district 'bi' walk, accept 'cut' / 'always',
-    contiguity 'patch' / 'none' ('patch' with one 2-D displacement per
-    window offset); no annealing or assignment bits."""
-    return (is_lowered(bg, spec)
+    """What ``bitboard.supported_lowered`` admits, on a graph with a
+    stencil (a lowered workload, or a plain rook grid of height and width
+    at least 3): uniform population, the 2-district 'bi' walk, accept
+    'cut' / 'always', contiguity 'patch' / 'none' ('patch' with one 2-D
+    displacement per window offset, which a canvas of width 3 lacks); no
+    annealing or assignment bits."""
+    return (bg.adj is not None
             and (spec.contiguity != "patch" or bg.b2_disp is not None)
-            and bg.adj is not None
             and bool(bg.uniform_pop)
             and spec.n_districts == 2
             and spec.proposal == "bi"
@@ -88,11 +95,38 @@ def supports(bg: BoardGraph, spec: Spec) -> bool:
             and (not spec.record_interface or bg.iface_ok))
 
 
+def body_for(bg: BoardGraph, spec: Spec, bits: Optional[bool] = None) -> str:
+    """The JAX package's body (its ``kernel/board.py::body_for``) that a
+    run of this kernel equals draw for draw: 'lowered_bits' on surgical
+    canvases and ``record_interface`` specs; on a plain rook grid
+    'bitboard' (``_scan_bits``) where the JAX package packs it (a width
+    that is a multiple of 32) and its bit-identical int8 rook body
+    'board' elsewhere. The JAX package packs what ``supports`` admits
+    (its ``bitboard.supported_lowered``; ``bitboard.supported`` adds the
+    width rule on a rook grid). ``bits=True`` insists on a packed body,
+    as in the JAX package; ``bits=False`` selects the JAX package's int8
+    bodies as a performance choice, which this package has not ported
+    (ROADMAP.md B7), and raises."""
+    if bits is not None and not bits:
+        raise ValueError("bits=False selects the JAX package's int8 board "
+                         "bodies, which this package has not ported "
+                         "(ROADMAP.md B7); pass bits=None")
+    lowered = is_lowered(bg, spec)
+    packs = supports(bg, spec) and (lowered or bg.w % 32 == 0)
+    if bits and not packs:
+        raise ValueError("bits=True: workload not supported by the JAX "
+                         "package's packed bodies")
+    if lowered:
+        return "lowered_bits" if packs else "lowered"
+    return "bitboard" if packs else "board"
+
+
 def check(bg: BoardGraph, spec: Spec, params: StepParams) -> None:
     """Raise unless the kernel reproduces the requested semantics."""
-    if not is_lowered(bg, spec) or bg.adj is None:
-        raise ValueError("not a lowered workload (a plain rook grid without "
-                         "record_interface runs on run_board_cuda)")
+    if bg.adj is None:
+        raise ValueError(f"the {bg.h}x{bg.w} grid does not lower to a "
+                         "stencil (a plain grid needs height and width of at "
+                         "least 3); run it with run_board_cuda")
     if not supports(bg, spec):
         raise ValueError(
             "the lowered-chunk kernel serves uniform population, the "
@@ -102,8 +136,10 @@ def check(bg: BoardGraph, spec: Spec, params: StepParams) -> None:
     if params.label_values.numel() != 2:
         raise ValueError("label_values must hold the two district labels")
     if bg.n > MAX_CELLS:
-        raise ValueError(f"canvas of {bg.n} cells exceeds the kernel's "
-                         f"{MAX_CELLS}")
+        raise ValueError(f"canvas of {bg.n} cells exceeds the lowered "
+                         f"kernel's {MAX_CELLS} (a plain rook grid that "
+                         "large waits for ROADMAP.md B2; run_board_cuda "
+                         "takes it)")
     if spec.geom_waits and not geom_denom_finite(bg.n_real, 2):
         raise ValueError("geom_waits: n**2 - 1 overflows float32")
 
@@ -263,9 +299,15 @@ def pack_state(state: BoardState, params: StepParams):
 
 def unpack_state(state: BoardState, outs, t_inner: int) -> BoardState:
     """Merge chunk outputs back into a BoardState (tries_sum counts one
-    draw per yield)."""
+    draw per yield). A rook grid's state keeps no diagonal planes
+    (``cut_times_se`` / ``cut_times_sw`` None, as in the JAX package): the
+    kernel's SE and SW counts, zero there, are dropped."""
     board, key, dist_pop, scal, ints = outs[:5]
     cuts = outs[13]
+    diag = {}
+    if state.cut_times_se is not None:
+        diag = dict(cut_times_se=state.cut_times_se + cuts[1],
+                    cut_times_sw=state.cut_times_sw + cuts[3])
     return state.replace(
         key=key.T.to(torch.int64) & rng.MASK32,
         board=board,
@@ -282,9 +324,7 @@ def unpack_state(state: BoardState, outs, t_inner: int) -> BoardState:
         waits_sum=scal[1],
         tries_sum=state.tries_sum + t_inner,
         cut_times_e=state.cut_times_e + cuts[0],
-        cut_times_se=state.cut_times_se + cuts[1],
-        cut_times_s=state.cut_times_s + cuts[2],
-        cut_times_sw=state.cut_times_sw + cuts[3])
+        cut_times_s=state.cut_times_s + cuts[2], **diag)
 
 
 def lowered_chunk_reference(bg: BoardGraph, static: LoweredStatic,

@@ -1,14 +1,25 @@
-"""The board-path runners' initialisation and epilogue, and the lowered
-body's runner.
+"""The board-path runners' initialisation and epilogue, and the runner of
+the lowered-chunk kernel.
 
 Port of ``init_board``, ``drain_waits``, ``_sum_pending``,
 ``finalize_board_run``, ``run_board_segment`` and ``run_board`` from
 ``flipcomplexityempirical_tpu/sampling/board_runner.py`` (without the
 observability, analytics and degradation hooks, which this package has
-not ported). ``run_board_segment`` and ``run_board`` serve the lowered
-body (surgical canvases such as sec11 and the Frankengraph, and every
-``record_interface`` spec); the rook grid's chunk kernel has its own
-runner, ``cuda_runner.run_board_cuda``.
+not ported). Which graphs take which kernel:
+
+- ``run_board_segment`` / ``run_board`` run every chunk on the
+  lowered-chunk kernel (``kernel/cuda_lowered.py``,
+  ``csrc/lowered_chunk.cu``): the surgical canvases (sec11, the
+  Frankengraph, queen grids), every ``record_interface`` spec, and plain
+  rook grids of height and width at least 3 and at most
+  ``cuda_lowered.MAX_CELLS`` cells. The kernel draws the JAX package's
+  threefry stream, so a run equals the JAX package's ``run_board`` draw
+  for draw: its ``lowered_bits`` body on the lowered workloads, its rook
+  bodies (``bitboard``, the packed ``_scan_bits``, or ``board``) on a
+  plain grid (``kernel.cuda_lowered.body_for`` names the one);
+- ``cuda_runner.run_board_cuda`` runs a plain rook grid through the
+  board-chunk kernel (``csrc/board_chunk.cu``, the Pallas kernel's twin)
+  on the port's own Philox stream.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ from ..kernel import cuda_lowered as clow
 from ..kernel import step as kstep
 from ..kernel.step import Spec
 from .runner import (RunResult, assemble_history, default_label_values,
-                     pick_chunk, pop_bounds, snap_chunk_to)
+                     maybe_host, pick_chunk, pop_bounds, snap_chunk_to)
 
 
 def init_board(graph: LatticeGraph, assignment: np.ndarray, n_chains: int,
@@ -62,17 +73,20 @@ def _sum_pending(waits_total: np.ndarray, pending_waits: list) -> np.ndarray:
 
 def finalize_board_run(bg, spec, params, state, hist_parts, waits_total,
                        pending_waits, record_history, n_steps,
-                       record_every: int = 1) -> RunResult:
+                       record_every: int = 1,
+                       history_device: bool = False) -> RunResult:
     """Record the final yield (no trailing transition), drain waits and
     assemble the RunResult. Under thinning the final yield joins the
-    history only when it lands on the record grid."""
+    history only when it lands on the record grid. ``history_device``
+    keeps the history as tensors on the run's device (``hist_parts``
+    then holds tensors too) instead of numpy arrays."""
     state, out_last = kboard.record_final(bg, spec, params, state)
     if record_history and (n_steps - 1) % record_every == 0:
-        for k, v in out_last.items():
-            hist_parts.setdefault(k, []).append(v.cpu().numpy()[:, None])
+        for k, v in maybe_host(out_last, history_device).items():
+            hist_parts.setdefault(k, []).append(v[:, None])
     state = drain_waits(state, pending_waits)
     waits_total = _sum_pending(waits_total, pending_waits)
-    history = assemble_history(hist_parts, record_history)
+    history = assemble_history(hist_parts, record_history, history_device)
     return RunResult(state=state, history=history, waits_total=waits_total,
                      n_yields=n_steps)
 
@@ -80,27 +94,30 @@ def finalize_board_run(bg, spec, params, state, hist_parts, waits_total,
 def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
                       params: kstep.StepParams, state: kboard.BoardState,
                       n_transitions: int, record_history: bool = True,
-                      chunk: Optional[int] = None, record_every: int = 1,
+                      chunk: Optional[int] = None,
+                      bits: Optional[bool] = None, record_every: int = 1,
+                      history_device: bool = False,
                       device="cuda") -> RunResult:
-    """Advance ``n_transitions`` transitions of the batched lowered-body
-    chain on ``device``, where the state must already live, recording
-    the same number of yields (each before its transition) and no
-    trailing record, so segments compose without duplicate boundary
-    yields: a full run is segments summing to ``n_steps - 1`` transitions
-    plus one ``kboard.record_final`` (``run_board``), and the experiment
-    driver checkpoints between segments. Per chunk: the lowered-chunk
-    kernel (its plain version on the CPU), the flip-log replay and the
-    history copy. ``record_every=k`` keeps yields 0, k, 2k, ... of the
-    segment; every accumulator still advances every step. The chains
-    draw the JAX package's threefry stream, so a run equals the JAX
-    package's draw for draw."""
+    """Advance ``n_transitions`` transitions of the batched chain on
+    ``device``, where the state must already live, recording the same
+    number of yields (each before its transition) and no trailing
+    record, so segments compose without duplicate boundary yields: a
+    full run is segments summing to ``n_steps - 1`` transitions plus one
+    ``kboard.record_final`` (``run_board``), and the experiment driver
+    checkpoints between segments. Per chunk: the lowered-chunk kernel
+    (its plain version on the CPU), the flip-log replay and, unless
+    ``history_device``, the history's copy to the host.
+    ``record_every=k`` keeps yields 0, k, 2k, ... of the segment; every
+    accumulator still advances every step. ``bits`` is the JAX
+    signature's body choice: None or True run the body ``body_for``
+    names, False (the JAX package's int8 bodies) raises.
+    ``history_device=True`` returns the history as tensors on the run's
+    device, (C, T_recorded) per key, copied nowhere. The chains draw the
+    JAX package's threefry stream, so a run equals the JAX package's
+    draw for draw."""
     dev = resolve_device(device)
     check_on(dev, state.board, bg.pop, params.log_base)
-    if not kboard.is_lowered(bg, spec):
-        raise ValueError(
-            f"graph {bg.h}x{bg.w} is a plain rook grid and the spec does not "
-            "record the interface: its chunk body (the JAX package's "
-            "_scan_bits) is not ported; run it with run_board_cuda")
+    clow.body_for(bg, spec, bits)
     if record_every < 1:
         raise ValueError(f"record_every must be >= 1, got {record_every}")
     static = clow.make_static_inputs(bg, spec, params)
@@ -119,27 +136,31 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
         state, rows = clow.run_chunk(bg, spec, params, state, this, static)
         if record_history:
             # records precede their transitions: row 0 is on the grid
+            rows = maybe_host({k: v[::record_every] for k, v in rows.items()},
+                              history_device)
             for k, v in rows.items():
-                hist_parts.setdefault(k, []).append(
-                    v[::record_every].cpu().numpy().T)
+                hist_parts.setdefault(k, []).append(v.T)
         state = drain_waits(state, pending_waits)
         done += this
     waits_total = _sum_pending(waits_total, pending_waits)
     return RunResult(state=state,
-                     history=assemble_history(hist_parts, record_history),
+                     history=assemble_history(hist_parts, record_history,
+                                              history_device),
                      waits_total=waits_total, n_yields=n_transitions)
 
 
 def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
               state: kboard.BoardState, n_steps: int,
               record_history: bool = True, chunk: Optional[int] = None,
-              record_every: int = 1, device="cuda") -> RunResult:
-    """Run the batched lowered-body chain for ``n_steps`` yields (yield 0
-    is the initial state): one ``run_board_segment`` of ``n_steps - 1``
+              bits: Optional[bool] = None, record_every: int = 1,
+              device="cuda") -> RunResult:
+    """Run the batched chain for ``n_steps`` yields (yield 0 is the
+    initial state): one ``run_board_segment`` of ``n_steps - 1``
     transitions, then the final record (``finalize_board_run``)."""
     seg = run_board_segment(bg, spec, params, state, n_steps - 1,
                             record_history=record_history, chunk=chunk,
-                            record_every=record_every, device=device)
+                            bits=bits, record_every=record_every,
+                            device=device)
     hist_parts = {k: [v] for k, v in seg.history.items()}
     return finalize_board_run(bg, spec, params, seg.state, hist_parts,
                               seg.waits_total, [], record_history, n_steps,

@@ -1,7 +1,7 @@
 """Run results and the helpers shared by the runners.
 
 Port of ``RunResult``, ``pick_chunk``, ``snap_chunk_to``, ``pop_bounds``,
-``default_label_values`` and ``assemble_history`` from
+``default_label_values``, ``maybe_host`` and ``assemble_history`` from
 ``flipcomplexityempirical_tpu/sampling/runner.py``. Long-horizon wait sums
 accumulate on the host in float64 from per-chunk float32 partial sums.
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..convert import to_numpy
 from ..graphs.lattice import LatticeGraph
@@ -20,6 +21,8 @@ from ..graphs.lattice import LatticeGraph
 class RunResult:
     state: object                # batched final state (on the run's device)
     history: dict                # name -> (C, T) np.ndarray when recorded
+                                 # (a tensor on the run's device under
+                                 # ``history_device``)
     waits_total: np.ndarray      # float64 (C,) host-accumulated sum of waits
     n_yields: int
 
@@ -59,8 +62,21 @@ def default_label_values(k: int):
     return [1, -1] if k == 2 else list(range(k))
 
 
-def assemble_history(hist_parts: dict, record_history: bool) -> dict:
-    """Concatenate per-chunk (C, t) history parts along T."""
+def maybe_host(outs: dict, history_device: bool) -> dict:
+    """A chunk's history block copied to the host as numpy arrays (each
+    copy synchronises), or left as tensors on the run's device when the
+    history is to stay there."""
+    if history_device:
+        return outs
+    return {k: v.cpu().numpy() for k, v in outs.items()}
+
+
+def assemble_history(hist_parts: dict, record_history: bool,
+                     history_device: bool = False) -> dict:
+    """Concatenate per-chunk (C, t) history parts along T: tensors on the
+    run's device under ``history_device``, numpy arrays otherwise."""
     if not (record_history and hist_parts):
         return {}
+    if history_device:
+        return {k: torch.cat(v, dim=1) for k, v in hist_parts.items()}
     return {k: np.concatenate(v, axis=1) for k, v in hist_parts.items()}

@@ -1,0 +1,252 @@
+"""The exact stationary distribution of the 2-district flip chain on a
+small rook grid, in numpy alone, for the checks that hold the port's
+chains to it: ``chip_smoke.py`` (on a machine without JAX) and the CPU
+tests.
+
+A copy of ``tests/test_enumeration.py``'s enumeration (whose module
+imports the JAX package): every 2-labelling of the 3 x 4 grid with both
+districts connected and populations within the bounds, the exact
+transition matrix of the re-propose chain with the literal
+``base**(-dcut)`` accept, its stationary distribution by power
+iteration (``stationary``, as there, and ``stationary_lazy``, which also
+converges where the chain is periodic), and the bar an empirical
+occupancy must clear (total variation below 0.06, E|cut| within 2 %).
+A state is the bitmask of the district-1 nodes, node i at bit i. The
+grid comes from the port's ``graphs.square_grid``.
+
+That bar is ``test_enumeration.py``'s, for one run of a few chains; it
+passes a sampler whose base is off by 10 %. Pooled over many independent
+chains, ``group_t`` holds E|cut| and every node's district-1 share to
+the sampling noise measured across groups of chains, and ``simulate``
+draws the exact chain itself, so that the CPU tests and
+``python tests/_torch_enumeration.py`` show what that check passes and
+what it catches.
+"""
+
+import numpy as np
+
+from flipcomplexityempirical_tpu_torch import graphs
+
+NX, NY = 3, 4          # 12 nodes -> 4096 assignments, exhaustive
+EPS = 0.5              # pops within [3, 9]
+N = NX * NY
+TV_TOL, CUT_TOL = 0.06, 0.02
+# chip_smoke.py's pooled sample: chains, steps read after the burn-in, and
+# the independent groups of chains that group_t compares
+CHAINS, SAMPLES, GROUPS = 4096, 200, 32
+T_TOL = 6.0            # |t| bar of group_t (Student t, GROUPS - 1 dof)
+TV_POOL_TOL = 0.03     # TV bar of such a pool (the exact chain's: 0.009-0.015)
+
+
+def build_masks(nx=NX, ny=NY):
+    """(graph, per-node neighbour bitmasks) of the nx x ny rook grid."""
+    g = graphs.square_grid(nx, ny)
+    n = nx * ny
+    nbrmask = [0] * n  # python ints: arbitrary-precision bit ops
+    for a, b in g.edges.tolist():
+        nbrmask[a] |= 1 << b
+        nbrmask[b] |= 1 << a
+    return g, nbrmask
+
+
+def connected_bitmask(mask, nbrmask):
+    if mask == 0:
+        return False
+    start = mask & (-mask)
+    reach = start
+    while True:
+        grow = reach
+        m = reach
+        while m:
+            b = m & (-m)
+            grow |= nbrmask[b.bit_length() - 1]
+            m ^= b
+        grow &= mask
+        if grow == reach:
+            return reach == mask
+        reach = grow
+
+
+def enumerate_states(nbrmask):
+    """All 2-labelings (district-1 bitmask) with both districts connected
+    and pops within bounds."""
+    full = (1 << N) - 1
+    ideal = N / 2
+    lo, hi = (1 - EPS) * ideal, (1 + EPS) * ideal
+    states = []
+    for m in range(1, full):
+        p1 = bin(m).count("1")
+        if not (lo <= p1 <= hi and lo <= N - p1 <= hi):
+            continue
+        if connected_bitmask(m, nbrmask) and \
+                connected_bitmask(full ^ m, nbrmask):
+            states.append(m)
+    return states
+
+
+def cut_count_of(m, edges):
+    a = np.array([(m >> i) & 1 for i in range(N)])
+    return int((a[edges[:, 0]] != a[edges[:, 1]]).sum())
+
+
+def build_transition(states, g, base):
+    """Row-stochastic matrix of the re-propose chain with literal accept."""
+    index = {m: i for i, m in enumerate(states)}
+    edges = g.edges
+    cuts = np.array([cut_count_of(m, edges) for m in states])
+    n = len(states)
+    P = np.zeros((n, n))
+    for i, m in enumerate(states):
+        a = np.array([(m >> v) & 1 for v in range(N)])
+        cut = a[edges[:, 0]] != a[edges[:, 1]]
+        bnodes = np.unique(edges[cut].ravel())
+        # valid moves: flips landing in the enumerated state set
+        moves = []
+        for v in bnodes:
+            m2 = m ^ (1 << int(v))
+            j = index.get(m2)
+            if j is not None:
+                moves.append(j)
+        V = len(moves)
+        if V == 0:
+            raise ValueError(f"state {m:#x} has no valid move")
+        stay = 0.0
+        for j in moves:
+            acc = min(1.0, base ** (cuts[i] - cuts[j]))
+            P[i, j] += acc / V
+            stay += (1 - acc) / V
+        P[i, i] += stay
+    if not np.allclose(P.sum(axis=1), 1.0):
+        raise ValueError("transition rows do not sum to 1")
+    return P, cuts
+
+
+def stationary(P):
+    pi = np.full(P.shape[0], 1.0 / P.shape[0])
+    for _ in range(20000):
+        nxt = pi @ P
+        if np.abs(nxt - pi).max() < 1e-13:
+            break
+        pi = nxt
+    return pi / pi.sum()
+
+
+def stationary_lazy(P):
+    """The stationary distribution of ``P`` by power iteration of its lazy
+    chain ``(I + P) / 2``, which has the same stationary distribution and
+    is aperiodic. ``stationary``'s iteration of ``P`` itself does not
+    converge where ``P`` is periodic: at base 1.0 on this grid every valid
+    move is accepted and changes the parity of the district-1 count, so
+    ``P`` has no self-loop and eigenvalue -1, and the vector it returns
+    after its 20000 steps is off the stationary distribution by a total
+    variation of 0.047 (11/234)."""
+    return stationary(0.5 * (np.eye(P.shape[0]) + P))
+
+
+def board_bits(boards) -> np.ndarray:
+    """(S, N) district boards (0/1, node order) -> (S,) state bitmasks."""
+    b = np.asarray(boards).astype(np.int64)
+    return (b << np.arange(b.shape[1], dtype=np.int64)).sum(axis=1)
+
+
+def occupancy_error(abits, states, pi, cuts):
+    """(TV distance, relative E|cut| error) of the empirical occupancy of
+    the state bitmasks ``abits`` against the exact ``pi``. A bitmask
+    outside the state set raises KeyError (the chain visited an invalid
+    state)."""
+    index = {m: i for i, m in enumerate(states)}
+    idx = np.array([index[int(m)] for m in abits])
+    emp = np.bincount(idx, minlength=len(states)).astype(float)
+    emp /= emp.sum()
+    tv = 0.5 * np.abs(emp - pi).sum()
+    e_cut_exact = float((pi * cuts).sum())
+    e_cut_emp = float((emp * cuts).sum())
+    return tv, abs(e_cut_emp - e_cut_exact) / e_cut_exact
+
+
+def assert_matches_stationary(abits, states, pi, cuts, tv_tol=TV_TOL,
+                              cut_tol=CUT_TOL):
+    """``test_enumeration.py``'s bar: TV below ``tv_tol`` and the E|cut|
+    error below ``cut_tol``."""
+    tv, cut_err = occupancy_error(abits, states, pi, cuts)
+    assert tv < tv_tol, f"TV distance {tv:.4f} (|S|={len(states)})"
+    assert cut_err < cut_tol, f"E|cut| relative error {cut_err:.4f}"
+
+
+def node_bits(states) -> np.ndarray:
+    """(K, N) float: node i's district (0/1) in each state."""
+    m = np.asarray(states, np.int64)[:, None]
+    return ((m >> np.arange(N)) & 1).astype(float)
+
+
+def group_t(abits, chain, states, pi, cuts, groups=GROUPS) -> np.ndarray:
+    """Student t statistics of the pooled occupancy's E|cut| (entry 0)
+    and of each node's district-1 share (entries 1..N) against their
+    exact values under ``pi``. ``chain`` holds each board's chain (each
+    chain contributes as many boards). The chains are independent, so the
+    occupancies of ``groups`` disjoint sets of chains are independent
+    draws, whatever the correlation along a chain: each t is the mean of
+    the groups' means less the exact value, over their standard error,
+    and on the exact chain it follows Student's t with ``groups - 1``
+    degrees of freedom. A bitmask outside the state set raises
+    KeyError."""
+    index = {m: i for i, m in enumerate(states)}
+    idx = np.array([index[int(m)] for m in abits])
+    chain = np.asarray(chain)
+    grp = chain * groups // (int(chain.max()) + 1)
+    counts = np.zeros((groups, len(states)))
+    np.add.at(counts, (grp, idx), 1.0)
+    emp = counts / counts.sum(axis=1, keepdims=True)
+    obs = np.concatenate([np.asarray(cuts, float)[:, None],
+                          node_bits(states)], axis=1)
+    means = emp @ obs
+    se = means.std(axis=0, ddof=1) / np.sqrt(groups)
+    return (means.mean(axis=0) - pi @ obs) / se
+
+
+def simulate(P, start, chains=CHAINS, steps=SAMPLES, seed=0):
+    """(steps, chains) state indices of ``chains`` independent runs of the
+    chain ``P`` from states drawn from ``start``, after each step."""
+    rng = np.random.default_rng(seed)
+    cdf = P.cumsum(axis=1)
+    cdf[:, -1] = 1.0
+    cur = rng.choice(P.shape[0], size=chains, p=start)
+    out = np.empty((steps, chains), np.int64)
+    for t in range(steps):
+        cur = (cdf[cur] < rng.random(chains)[:, None]).sum(axis=1)
+        out[t] = cur
+    return out
+
+
+def pool_check(idx, states, pi, cuts):
+    """(TV, relative E|cut| error, t statistics) of a (steps, chains) pool
+    of state indices, as ``chip_smoke.py`` reads the card's boards."""
+    abits = np.asarray(states, np.int64)[idx.ravel()]
+    chain = np.tile(np.arange(idx.shape[1]), idx.shape[0])
+    tv, cut_err = occupancy_error(abits, states, pi, cuts)
+    return tv, cut_err, group_t(abits, chain, states, pi, cuts)
+
+
+if __name__ == "__main__":
+    # What the pooled check passes (the exact chain) and what it catches
+    # (the exact chain of a base off by 1, 2, 5 and 10 %), at chip_smoke.py's
+    # sample size: python tests/_torch_enumeration.py
+    g, nbrmask = build_masks()
+    states = enumerate_states(nbrmask)
+    for base in (0.5, 1.0, 2.0):
+        P, cuts = build_transition(states, g, base)
+        pi = stationary_lazy(P)
+        rows = [pool_check(simulate(P, pi, seed=r), states, pi, cuts)
+                for r in range(8)]
+        print(f"base {base}: exact chain, 8 pools: TV "
+              f"{min(r[0] for r in rows):.4f}-{max(r[0] for r in rows):.4f},"
+              f" max |t| {max(np.abs(r[2]).max() for r in rows):.2f}")
+        for off in (1.01, 1.02, 1.05, 1.1):
+            Pw, _ = build_transition(states, g, base * off)
+            piw = stationary_lazy(Pw)
+            tv, cut_err, t = pool_check(simulate(Pw, piw, seed=99), states,
+                                        pi, cuts)
+            print(f"  base x {off}: TV(pi_off, pi) "
+                  f"{0.5 * np.abs(piw - pi).sum():.4f}; pooled TV {tv:.4f},"
+                  f" E|cut| error {cut_err:.4f}, |t| of E|cut| "
+                  f"{abs(t[0]):.2f}, max |t| {np.abs(t).max():.2f}")

@@ -1,0 +1,205 @@
+"""The port's bench entry point (``python -m flipcomplexityempirical_tpu_torch.
+bench``) on the CPU at a tiny size, its refusals, and the numpy-only copy
+of the exact enumeration that ``chip_smoke.py`` holds the card's chains
+to.
+
+The bench runs in-process through ``bench.main``, as ``python -m`` runs
+it: a ``--cpu`` run prints one headline on stdout that
+``tools/bench_compare.py::extract_metrics`` reads under ``bench.py``'s
+metric name; without a card and without ``--cpu`` it exits 1; every flag
+of ``bench.py`` it does not port exits 2 naming the ROADMAP.md item
+(``--block-chains``, the TPU kernel's block size, is left to argparse).
+The enumeration copy must give ``tests/test_enumeration.py``'s states,
+cut counts and stationary distribution exactly (float64, same order of
+operations); its lazy iteration must give the stationary distribution
+at every base, which the plain iteration misses at base 1.0 (a periodic
+chain). The pooled check of ``chip_smoke.py`` phase 9 (``group_t`` and the
+pool's TV bar) must pass the exact chain, drawn in numpy at the phase's
+sample size, and catch that chain with its base off by 5 %, which
+``test_enumeration.py``'s bar lets through.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import test_enumeration as ref
+from _torch_enumeration import (CUT_TOL, T_TOL, TV_POOL_TOL, TV_TOL,
+                                assert_matches_stationary, board_bits,
+                                build_masks, build_transition,
+                                enumerate_states, group_t, occupancy_error,
+                                pool_check, simulate, stationary,
+                                stationary_lazy)
+from flipcomplexityempirical_tpu_torch import bench
+from tools.bench_compare import extract_metrics
+
+TINY = ["--cpu", "--chains", "4", "--steps", "41", "--warmup", "11",
+        "--chunk", "10"]
+
+
+def _run(capsys, argv):
+    try:
+        code = bench.main(argv)
+    except SystemExit as exc:        # argparse's own refusals
+        code = exc.code
+    out, err = capsys.readouterr()
+    return code, out, err
+
+
+@pytest.mark.parametrize("argv,metric,kernel_path,kernel", [
+    (["--grid", "6"], "flips_per_sec_per_chip_64x64", "board",
+     "lowered_chunk"),
+    (["--grid", "6", "--pallas"], "flips_per_sec_per_chip_64x64", "pallas",
+     "board_chunk"),
+], ids=["board", "pallas"])
+def test_bench_cpu_headline(capsys, argv, metric, kernel_path, kernel):
+    code, out, err = _run(capsys, TINY + argv)
+    assert code == 0, err
+    lines = out.strip().splitlines()
+    assert len(lines) == 1
+    head = json.loads(lines[0])
+    assert extract_metrics(head) == {metric: head["value"]}
+    assert head["value"] > 0 and head["unit"] == "flips/s"
+    assert head["device"] == "cpu"
+    assert head["kernel_path"] == kernel_path and head["kernel"] == kernel
+    assert head["repeats"] == 2 and head["repeat_policy"] == "best"
+    assert "vs_baseline" not in head
+    meta = json.loads(err.strip().splitlines()[-1])
+    assert meta["chains"] == 4 and meta["steps"] == 41
+    assert meta["launches"] == 0          # the plain versions ran
+    assert 0.0 < meta["accept_rate"] <= 1.0
+    assert meta["mean_tries_per_step"] == 1.0
+
+
+def test_bench_without_a_card_exits_nonzero(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code, out, err = _run(capsys, ["--grid", "6"])
+    assert code == 1
+    assert out == "" and "--cpu" in err
+
+
+def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
+    code, out, err = _run(capsys, ["--cpu", "--grid", "65", "--chains", "2",
+                                   "--steps", "3", "--warmup", "3",
+                                   "--chunk", "2"])
+    assert code == 2 and out == "" and "B2" in err
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--graph", "hex"], "A6"), (["--general"], "A6"), (["--k", "3"], "A7"),
+    (["--ess"], "A5"), (["--ess-host"], "A5"), (["--devstats"], "A5"),
+    (["--record-every", "2"], "A5"), (["--mesh", "4"], "A10"),
+    (["--service"], "A11"), (["--adaptive"], "A11"),
+    (["--workload-matrix"], "A11"), (["--workloads", "frank"], "A11"),
+    (["--fleet"], "A11"), (["--events", "-"], "A11"),
+    (["--profile", "p"], "A11"), (["--tenants", "8"], "A11"),
+    (["--target-ess", "9"], "A11"), (["--target-rhat", "1.1"], "A11"),
+    (["--body", "int8"], "B7"), (["--k=3"], "A7"), (["--graph=hex"], "A6"),
+    (["--block-chains", "64"], "unrecognized arguments"),
+])
+def test_bench_refuses_unported_flags(capsys, extra, item):
+    code, out, err = _run(capsys, ["--cpu"] + extra)
+    assert code == 2 and out == ""
+    assert item in err
+
+
+def test_bench_refuses_what_bench_py_refuses(capsys):
+    for argv in (["--graph", "sec11", "--pallas"], ["--chunk", "7"],
+                 ["--pallas", "--body", "bits"]):
+        code, out, _ = _run(capsys, ["--cpu"] + argv)
+        assert code == 2 and out == "", argv
+
+
+def test_bench_takes_bench_py_defaults_it_ports():
+    """``--k 2`` and ``--body bits`` are bench.py values this program runs:
+    no refusal before parsing."""
+    for argv in (["--k", "2"], ["--k=2"], ["--body", "bits"]):
+        assert bench._not_ported(argv) is None, argv
+        bench._parser().parse_args(argv)
+
+
+def test_bench_metric_names_follow_bench_py():
+    assert bench._metric("square") == "flips_per_sec_per_chip_64x64"
+    assert bench._metric("sec11") == "flips_per_sec_per_chip_sec11"
+    assert bench._metric("frank") == "flips_per_sec_per_chip_frank"
+
+
+@pytest.mark.parametrize("base", [0.5, 1.0, 2.0])
+def test_enumeration_copy_equals_test_enumeration(base):
+    g, nbrmask = build_masks()
+    rg, rmask = ref.build_masks()
+    assert nbrmask == rmask
+    np.testing.assert_array_equal(g.edges, rg.edges)
+    states = enumerate_states(nbrmask)
+    assert states == ref.enumerate_states(rmask)
+    P, cuts = build_transition(states, g, base)
+    rP, rcuts = ref.build_transition(states, rg, base)
+    np.testing.assert_array_equal(P, rP)
+    np.testing.assert_array_equal(cuts, rcuts)
+    pi = stationary(P)
+    np.testing.assert_array_equal(pi, ref.stationary(rP))
+    # an occupancy drawn from pi itself clears the bar, a skewed one not
+    draws = np.random.default_rng(0).choice(len(states), 200_000, p=pi)
+    abits = np.asarray(states)[draws]
+    assert_matches_stationary(abits, states, pi, cuts)
+    ref.assert_matches_stationary(abits, states, pi, cuts)
+    tv, _ = occupancy_error(np.asarray(states)[:1].repeat(100), states, pi,
+                            cuts)
+    assert tv > 0.5
+
+
+@pytest.mark.parametrize("base", [0.5, 1.0, 2.0])
+def test_stationary_lazy_is_stationary(base):
+    """The lazy chain's fixed point is P's stationary distribution at
+    every base; the plain iteration's is too where P is aperiodic, and is
+    not at base 1.0, where P has period 2."""
+    g, nbrmask = build_masks()
+    states = enumerate_states(nbrmask)
+    P, _ = build_transition(states, g, base)
+    pi = stationary_lazy(P)
+    assert np.abs(pi @ P - pi).max() < 1e-12
+    plain = stationary(P)
+    if base == 1.0:
+        assert np.diag(P).max() == 0.0
+        assert 0.5 * np.abs(plain - pi).sum() > 0.04
+    else:
+        np.testing.assert_allclose(plain, pi, rtol=0, atol=1e-10)
+
+
+def test_board_bits_is_the_district_one_bitmask():
+    boards = np.array([[1, 0, 0, 1], [0, 1, 1, 0]], np.int8)
+    np.testing.assert_array_equal(board_bits(boards), [0b1001, 0b0110])
+
+
+@pytest.mark.parametrize("base", [0.5, 1.0, 2.0])
+def test_pooled_check_passes_the_exact_chain_and_catches_a_biased_one(base):
+    g, nbrmask = build_masks()
+    states = enumerate_states(nbrmask)
+    P, cuts = build_transition(states, g, base)
+    pi = stationary_lazy(P)
+    tv, cut_err, t = pool_check(simulate(P, pi, seed=1), states, pi, cuts)
+    assert tv < TV_POOL_TOL and cut_err < CUT_TOL
+    assert np.abs(t).max() < T_TOL, t
+    off, _ = build_transition(states, g, 1.05 * base)
+    pi_off = stationary_lazy(off)
+    tv, cut_err, t = pool_check(simulate(off, pi_off, seed=2), states, pi,
+                                cuts)
+    assert tv < TV_TOL and cut_err < CUT_TOL     # the reference's bar passes
+    assert abs(t[0]) > T_TOL, t                  # the pooled check does not
+
+
+def test_group_t_reads_groups_of_chains():
+    """group_t groups boards by chain, not by their order in the pool:
+    boards step by step of 8 chains, chains 0-3 always in one state and
+    4-7 in the other, make two groups of means 1 and 2 (E|cut|)."""
+    states = [0b0011, 0b0101]
+    cuts = np.array([1, 2])
+    chain = np.tile(np.arange(8), 10)
+    abits = np.where(chain < 4, states[0], states[1])
+    t = group_t(abits, chain, states, np.array([0.5, 0.5]), cuts, groups=2)
+    assert t[0] == 0.0
+    # mean 1.5 against 1.25, standard error 0.5
+    t = group_t(abits, chain, states, np.array([0.75, 0.25]), cuts, groups=2)
+    np.testing.assert_allclose(t[0], 0.5)

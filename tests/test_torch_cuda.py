@@ -182,3 +182,39 @@ def test_lowered_runner_goes_through_the_kernel(card):
     assert cl.run_lowered_chunk_cuda.launches == launches + 3
     assert (res.state.t_yield == 121).all()
     assert res.history["slope"].shape == (8, 121)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,chains,t_len,spec_kw", [
+    (64, 64, 32, 64, {}),
+    (40, 65, 16, 64, {}),                 # a width that straddles words
+    (3, 4, 64, 64, {}),                   # the enumeration grid
+    (12, 13, 16, 40, {"contiguity": "none"}),
+])
+def test_rook_route_matches_plain_version(card, h, w, chains, t_len,
+                                          spec_kw):
+    """Plain rook grids through the lowered kernel (the route of the JAX
+    package's ``_scan_bits``): every output bit-equal to the plain
+    version, the diagonal cut planes zero, and ``run_board`` launching
+    the kernel once a chunk with the state's diagonal planes left None."""
+    g = graphs.square_grid(h, w)
+    spec = Spec(**{"contiguity": "patch", **spec_kw})
+    bg, st, params = init_board(g, graphs.stripes_plan(g, 2),
+                                n_chains=chains, seed=0, spec=spec, base=1.4,
+                                pop_tol=0.2, device=card)
+    static = cl.make_static_inputs(bg, spec, params)
+    args = (bg, static, spec, t_len, st.board, *cl.pack_state(st, params))
+    got = cl.run_lowered_chunk_cuda(*args)
+    want = cl.lowered_chunk_reference(*args)
+    torch.cuda.synchronize()
+    for name, g_arr, w_arr in zip(cl.OUT_NAMES, got, want):
+        w_arr = w_arr.to(g_arr.dtype)
+        same = g_arr == w_arr
+        if g_arr.dtype.is_floating_point:
+            same |= torch.isnan(g_arr) & torch.isnan(w_arr)
+        assert bool(same.all()), name
+    assert not bool(got[13][1].any()) and not bool(got[13][3].any())
+    launches = cl.run_lowered_chunk_cuda.launches
+    res = run_board(bg, spec, params, st, n_steps=81, chunk=40, device=card)
+    assert cl.run_lowered_chunk_cuda.launches == launches + 2
+    assert res.state.cut_times_se is None and res.state.cut_times_sw is None

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``flipcomplexityempirical_tpu_torch``
-(nor ``chip_smoke.py``, nor ``tests/_parity.py``, which it imports) imports
+(nor ``chip_smoke.py``, nor ``tests/_parity.py`` and
+``tests/_torch_enumeration.py``, which it imports) imports
 jax, flax, the JAX package, matplotlib or networkx (the card's machine has
 neither plotting nor graph library), and importing the whole port with
 those made unimportable never loads the JAX package."""
@@ -29,8 +30,9 @@ def _imported_roots(path: pathlib.Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests" / "_parity.py"],
+    "path", sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_parity.py",
+        ROOT / "tests" / "_torch_enumeration.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

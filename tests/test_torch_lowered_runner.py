@@ -104,10 +104,19 @@ def test_run_board_invariants():
 
 
 def test_run_board_refuses_the_rook_body_and_the_rook_runner_the_lowered():
-    """A plain rook grid without record_interface runs on run_board_cuda;
-    a lowered workload is refused there."""
+    """run_board takes a plain rook grid on its stencil but refuses the
+    JAX package's int8 rook body (``bits=False``, ROADMAP B7) and a grid
+    too small to lower, which runs on run_board_cuda; a lowered workload
+    is refused by run_board_cuda."""
     from flipcomplexityempirical_tpu_torch import graphs, init_board, Spec
     g = graphs.square_grid(6, 8)
+    bg, st, params = init_board(g, graphs.stripes_plan(g, 2), n_chains=2,
+                                seed=0, spec=Spec(), base=2.0, pop_tol=0.2,
+                                device="cpu")
+    with pytest.raises(ValueError, match="B7"):
+        run_board(bg, Spec(), params, st, n_steps=5, bits=False,
+                  device="cpu")
+    g = graphs.square_grid(2, 8)
     bg, st, params = init_board(g, graphs.stripes_plan(g, 2), n_chains=2,
                                 seed=0, spec=Spec(), base=2.0, pop_tol=0.2,
                                 device="cpu")
