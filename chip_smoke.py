@@ -97,7 +97,44 @@ entry points a user calls, checks what comes out, and prints:
      E|cut| and each node's district-1 share within 6 standard errors of
      their exact values, the errors measured across 32 groups of chains
      (``group_t``), at bases 0.5, 1.0 and 2.0;
-  10. one JSON line per kernel table (``{"kernels": [...]}``), then as the
+  10. the general path's kernel, ``general_dense_chunk`` (the JAX
+     package's rejection-free dense step, ``kernel/dense.py:303``),
+     against its plain version, every state field and history row equal
+     (log ties counted) with one launch counted a call: hex 64x64 at
+     C=256 after a 501-step warm-up, T=500; hex 14x28 at C=8 and the
+     experiment path's 2439-step chunk; tri 14x28 with ``nobacktrack``;
+     ``lazy_uniform``; contiguity 'none'; no valid move; a random
+     population plane (the kernel's per-node population gate); the 1x2
+     hex of phase 13; then ``run_chains`` from the JAX package's own
+     general_dense run (``tests/fixtures/torch/general_dense_hex.npz``),
+     equal;
+  11. the general main path: ``run_chains`` on hex_lattice(64, 64) at
+     C=4096, chunk 500, 3001 steps after 501, the launch counts zeroed
+     just before and read just after (one ``general_dense_chunk`` a
+     chunk, no other kernel): flips/s, peak memory, the state against a
+     recount, 16 chains connected; the kernel's ms per chunk (CUDA
+     events) with the conn planes carried and filled, its plain
+     version's ms and output from the same state (every state field and
+     history row equal), its bound, the idle share of 1001 steps and the
+     SM clock; the legacy body's ms a step over 20 steps; then ``bench --graph hex`` in a subprocess: the dense body
+     raced against the legacy one, the dense body winning, its kernel
+     launched once a timed chunk;
+  12. the tri and hex families: one config of each at the paper's shape
+     (100,000 steps, 8 chains) through ``run_config``, seconds split into
+     run, render and set-up, the 7 artifacts, the counts zeroed before
+     and read after (tri on ``lowered_chunk``, hex on
+     ``general_dense_chunk``); the hex config stopped after 50,000 steps
+     and resumed, equal to the clean run; the JAX package's four family
+     runs and its hex checkpoint
+     (``tests/test_torch_general_families.py``), equal under the CPU
+     tests' rule; ``lowered_chunk`` at the tri config's own shape (14x28,
+     C=8, a 369-step chunk from the start and after 25,000 steps) against
+     its plain version, one launch counted a call, as phase 7 does;
+  13. the dense chain on hex_lattice(1, 2) against its exact stationary
+     distribution (``tests/_torch_enumeration.py``'s
+     ``build_dense_transition``), phase 9's bars, at bases 0.7, 1.0 and
+     1.4;
+  14. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
@@ -114,6 +151,7 @@ prints no result.
 
 import contextlib
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -286,6 +324,17 @@ def event_ms(fn, reps: int) -> float:
     ev[1].record()
     torch.cuda.synchronize()
     return ev[0].elapsed_time(ev[1]) / reps
+
+
+def event_ms_once(fn) -> tuple:
+    """(device ms, result) of one call of ``fn`` (CUDA events)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), out
 
 
 def compare_chunk(cb, args, label: str) -> float:
@@ -1320,22 +1369,26 @@ def experiment_resume(ex, drv, clean: dict, out: str, ck: str) -> None:
           "state field equal to the uninterrupted run")
 
 
-def experiment_exactness(ex, drv, runner, cl, tb) -> dict:
+def experiment_exactness(ex, drv, runner, cl, tb, runs=EXP_RUNS) -> dict:
     """The kernel against its plain version at the experiment path's own
-    shape: each EXP_RUNS config's chains from ``_init_run`` on the card
-    and again after one EXP_CKPT_EVERY-step segment, one chunk of
-    ``pick_chunk(EXP_STEPS, 512)`` steps, with the launch count read
-    around the kernel's call; then at the later state the kernel timed
-    with CUDA events beside the plain version and its bound."""
+    shape: each config's chains (``runs``, EXP_RUNS by default) from
+    ``_init_run`` on the card and again after one EXP_CKPT_EVERY-step
+    segment, one chunk of ``pick_chunk(EXP_STEPS, 512)`` steps, with the
+    launch count read around the kernel's call; then at the later state
+    the kernel timed with CUDA events beside the plain version and its
+    bound."""
     import torch
     t_len = runner.pick_chunk(EXP_STEPS, 512)
     rows = {}
-    for family, tag in EXP_RUNS:
+    for family, tag in runs:
         cfg = experiment_config(ex, family, tag,
                                 total_steps=EXP_STEPS, n_chains=EXP_CHAINS)
         g, plan, _ = drv.build_graph_and_plan(cfg)
         spec = drv.spec_for(cfg)
-        bg, st, params = drv._init_run(cfg, g, plan, spec, DEVICE)
+        use_board, (bg, st, params) = drv._init_run(cfg, g, plan, spec,
+                                                    DEVICE)
+        if not use_board:
+            fail(f"{tag}: not on the lowered kernel's path")
         static = cl.make_static_inputs(bg, spec, params)
         mid = drv.run_board_segment(bg, spec, params, st, EXP_CKPT_EVERY,
                                     device=DEVICE).state
@@ -1655,6 +1708,573 @@ def stationary_phase(port, cb, cl, runner) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The general path: the hex and tri families through run_chains, the
+# general-dense kernel against its plain version and the JAX fixture, the
+# bench's hex race, the families at the paper's shape, and the dense chain
+# against its exact stationary distribution
+# ---------------------------------------------------------------------------
+
+# (label, builder, (m, n), chains, pop_tol, base, chunk length, warm-up
+# steps, spec overrides, the seed of a random population plane or None)
+# of the kernel's exactness cases (phase 10)
+GEN_EXACT_CASES = (
+    ("hex 64x64 C=256 after a 501-step warm-up", "hex_lattice", (64, 64),
+     256, POP_TOL, BASE, CHUNK, WARMUP, {}, None),
+    ("hex 14x28 C=8 at the experiment path's chunk", "hex_lattice",
+     (14, 28), 8, 0.1, 1 / 0.3, 2439, 0, {}, None),
+    ("tri 14x28 nobacktrack", "triangular_lattice", (14, 28), 32, 0.1,
+     1 / 0.3, 200, 0, {"nobacktrack": True}, None),
+    ("hex 14x28 lazy_uniform", "hex_lattice", (14, 28), 32, 0.1, 1 / 0.3,
+     200, 0, {"lazy_uniform": True}, None),
+    ("hex 14x28 contiguity none", "hex_lattice", (14, 28), 32, 0.1,
+     1 / 0.3, 200, 0, {"contiguity": "none"}, None),
+    ("hex 14x28 no valid move (pop_tol 0)", "hex_lattice", (14, 28), 32,
+     0.0, 1 / 0.3, 50, 0, {}, None),
+    ("hex 14x28 random population 1..9 (pop_tol 0.02)", "hex_lattice",
+     (14, 28), 32, 0.02, 1 / 0.3, 200, 0, {}, 5),
+    ("hex 1x2 (the enumeration graph)", "hex_lattice", (1, 2), 4096, 0.5,
+     1.4, 64, 0, {}, None))
+GEN_FIXTURE = "tests/fixtures/torch/general_dense_hex.npz"
+# the legacy body's steps timed from the main path's state (phase 11)
+LEGACY_STEPS = 20
+# the tri family's main path on lowered_chunk (phase 12): its config at
+# the paper's shape, one chunk against the plain version
+GEN_TRI_RUNS = (("tri", "tri-0B333P10"),)
+ROOT = pathlib.Path(__file__).resolve().parent
+# the families (phase 12): the sweeps' tags run at the paper's shape, the
+# resume's segment, and the JAX package's 300-step runs and checkpoint
+# (tests/test_torch_general_families.py)
+GEN_EXP_RUNS = (("tri", "tri-0B333P10"), ("hex", "hex-0B333P10"))
+GEN_CKPT_EVERY = 50_000
+GEN_FAMILY_FIXTURES = ("tri", "hex", "hex_nobacktrack", "hex_exact")
+GEN_FAMILY_SHAPE = dict(alignment=0, base=1 / 0.3, pop_tol=0.1,
+                        total_steps=300, n_chains=3, lattice_m=6,
+                        lattice_n=10, seed=0)
+GEN_FAMILY_KW = {"tri": dict(family="tri"), "hex": dict(family="hex"),
+                 "hex_nobacktrack": dict(family="hex",
+                                         variant="nobacktrack"),
+                 "hex_exact": dict(family="hex", contiguity="exact")}
+GEN_CKPT_FIXTURE = "tests/fixtures/torch/experiment_hex_ckpt"
+# the stationary check (phase 13): hex_lattice(1, 2), 10 nodes
+GEN_ENUM_BASES = (0.7, 1.0, 1.4)
+GEN_ENUM_TOL = 0.5
+# Operations the general-dense function needs, counted on this run's data
+# (a floor):
+#   ops = C * T * (K_GWORD * ceil(N / 32) + K_GTAIL + 4 * K_BLOCK)
+#         + K_GMOVE * accepted moves
+# K_GWORD, every word and step: the boundary, conn and assignment loads'
+# ands with the population gate (4), a popcount and an add (2), the valid
+# word's store (1), the selection scan's popcount and add (2): 9.
+# K_GTAIL, per chain-step: the selection (in-word rank, ~30), the dcut of
+# the node's D edges and the accept test with its log (~40), the record
+# and the parity bookkeeping (~30): 100; four threefry blocks a step (the
+# split and the three uniforms).
+# K_GMOVE, per accepted move: the commit of cut, cut_deg and the boundary
+# bits and count over the node's edges (~40), the wait (K_WAIT), and the
+# 1 + P patch checks of the refresh, each P member tests (3 each) and a
+# worklist over at most P slots (3 each): 19 * 18 * 6 = 2052 on the hex
+# lattice.
+K_GWORD, K_GTAIL = 9, 100
+
+
+def general_inputs(port, sampling, builder, mn, chains, tol, base,
+                   seed=4, pop_seed=None, **spec_kw):
+    import dataclasses
+
+    import numpy as np
+    g = getattr(port.graphs, builder)(*mn)
+    if pop_seed is not None:
+        # a random population plane: the kernel's per-node gate
+        g = dataclasses.replace(g, pop=np.random.default_rng(
+            pop_seed).integers(1, 10, g.n_nodes).astype(np.int32))
+    spec = port.Spec(**spec_kw)
+    dg, st, params = sampling.init_batch(
+        g, port.graphs.stripes_plan(g, 2), n_chains=chains, seed=seed,
+        spec=spec, base=base, pop_tol=tol, device=DEVICE)
+    return g, spec, dg, st, params
+
+
+def compare_general(cd, got, rows, want, wrows, label: str) -> float:
+    """The kernel's chunk against the plain version's: every state field
+    and history row, through the CPU tests' rule (waits equal up to
+    counted log ties). Returns the largest |difference|."""
+    import numpy as np
+    import _parity
+    from flipcomplexityempirical_tpu_torch import convert
+    g_np, w_np = convert.to_numpy(got), convert.to_numpy(want)
+    try:
+        ties = _parity.assert_chain_run_matches(
+            g_np, {k: v.T.cpu().numpy() for k, v in rows.items()},
+            np.zeros(got.n_chains), w_np,
+            {k: v.T.cpu().numpy() for k, v in wrows.items()},
+            np.zeros(want.n_chains))
+    except AssertionError as exc:
+        fail(f"general_dense_chunk {label}: differs from the plain "
+             f"version: {exc}")
+    err = max(float(np.abs(g_np[k].astype(np.float64)
+                           - w_np[k].astype(np.float64)).max(initial=0))
+              for k in w_np)
+    err = max([err] + [float((rows[k].double() - wrows[k].double()).abs()
+                             .max()) for k in wrows])
+    print(f"general_dense_chunk {label}: "
+          + ("bit-equal to the plain version" if not ties else
+             f"equal to the plain version; waits off by a log tie {ties}")
+          + f" (every state field, conn planes included, and "
+          f"{len(rows)} history rows)")
+    return err
+
+
+def general_exactness(port, cd, sampling) -> float:
+    """Phase 10: the kernel against its plain version, one launch counted
+    a call, and against the JAX package's general_dense run. Returns the
+    largest difference and the kernel's timing at the experiment path's
+    shape."""
+    import numpy as np
+    import torch
+    import _parity
+    from flipcomplexityempirical_tpu_torch import convert
+    err = 0.0
+    for (label, builder, mn, chains, tol, base, t_len, warm, kw,
+         pop_seed) in GEN_EXACT_CASES:
+        g, spec, dg, st, params = general_inputs(
+            port, sampling, builder, mn, chains, tol, base,
+            pop_seed=pop_seed, **kw)
+        if warm:
+            st = sampling.run_chains(dg, spec, params, st, n_steps=warm,
+                                     chunk=CHUNK, record_history=False).state
+        static = cd.make_static_inputs(dg)
+        if (pop_seed is not None) != (static.unit_pop == 0):
+            fail(f"{label}: the kernel's population gate is not the "
+                 "case's (per node on a random plane, uniform otherwise)")
+        n0 = cd.run_general_dense_chunk_cuda.launches
+        got, rows = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                    st, t_len)
+        torch.cuda.synchronize()
+        if cd.run_general_dense_chunk_cuda.launches != n0 + 1:
+            fail(f"{label}: the wrapper did not count its launch")
+        t0 = time.perf_counter()
+        want, wrows = cd.general_dense_chunk_reference(dg, spec, params, st,
+                                                       t_len)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max(err, compare_general(
+            cd, got, rows, want, wrows,
+            f"{label} C={chains} T={t_len} (exhausted "
+            f"{int(got.exhausted_count.sum())}, accepted "
+            f"{int(got.accept_count.sum() - st.accept_count.sum())}; "
+            f"plain {plain_s:.3f} s)"))
+        if "no valid move" in label and not bool(
+                (got.exhausted_count == st.exhausted_count + t_len).all()):
+            fail(f"{label}: a chain moved")
+        if "experiment path" in label:
+            ms = event_ms(lambda: cd.run_general_dense_chunk_cuda(
+                dg, static, spec, params, got, t_len), 3)
+            bound_ms, bound_by, _, _ = general_bound(
+                dg, spec, got, t_len,
+                int((got.accept_count - st.accept_count).sum()))
+            timing = {"chains": chains, "chunk": t_len, "ms": ms,
+                      "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+            print(f"general_dense_chunk at the experiment path's shape "
+                  f"(C={chains}, T={t_len}): {ms:.3f} ms per chunk (CUDA "
+                  f"events, mean of 3, conn planes carried); plain version "
+                  f"{1e3 * plain_s:.3f} ms (host clock); bound "
+                  f"{bound_ms:.4e} ms ({bound_by})")
+    fx = dict(np.load(ROOT / GEN_FIXTURE))
+    g = port.graphs.hex_lattice(*fx["graph"])
+    dg, st, params = _parity.general_fixture_inputs(port, convert, g, fx,
+                                                    DEVICE)
+    n0 = cd.run_general_dense_chunk_cuda.launches
+    res = sampling.run_chains(dg, port.Spec(), params, st,
+                              n_steps=int(fx["steps"]),
+                              chunk=int(fx["chunk"]),
+                              kernel_path="general_dense")
+    try:
+        ties = _parity.assert_chain_run_matches(
+            convert.to_numpy(res.state), res.history, res.waits_total,
+            {k[6:]: v for k, v in fx.items() if k.startswith("state_")},
+            {k[5:]: v for k, v in fx.items() if k.startswith("hist_")},
+            fx["waits_total"])
+    except AssertionError as exc:
+        fail(f"general_dense_chunk against {GEN_FIXTURE}: {exc}")
+    print(f"general_dense_chunk fixture ({GEN_FIXTURE}: the JAX package's "
+          f"general_dense run, hex {tuple(fx['graph'])}, "
+          f"{fx['init_assignment'].shape[0]} chains, {int(fx['steps'])} "
+          f"steps): equal, waits off by a log tie {ties}; launches "
+          f"{cd.run_general_dense_chunk_cuda.launches - n0}")
+    return err, timing
+
+
+def zero_launch_counts(cb, cl, cd, probes) -> None:
+    cb.run_board_chunk_cuda.launches = 0
+    cl.run_lowered_chunk_cuda.launches = 0
+    cd.run_general_dense_chunk_cuda.launches = 0
+    probes.probe_a.launches = 0
+    probes.probe_b.launches = 0
+
+
+def general_bound(dg, spec, state, t_len: int, accepted: int):
+    """(bound ms, by, bytes, ops) of one general-dense chunk: the state
+    read and written once, the (T, C) rows written once, the graph tables
+    read once; the operations of this run's data (K_G* above)."""
+    c, n = state.assignment.shape
+    e, d, p = dg.n_edges, dg.max_deg, dg.max_patch
+    nw = (n + 31) // 32
+    per_chain = (2 * n + e + 4 * nw + 12 * n + 4 * e     # int8 and int32
+                 + 4 * (2 + 2 + 6 + 8))                  # scalars
+    rows = 4 + int(spec.lazy_uniform)
+    nbytes = (2 * c * per_chain - 4 * 4 * c + 4 * rows * t_len * c
+              + 4 * (2 * n * d + 2 * n + 2 * n * p + 2 * e))
+    k_move = 40 + K_WAIT + (1 + p) * p * 6
+    ops = (c * t_len * (K_GWORD * nw + K_GTAIL + 4 * K_BLOCK)
+           + k_move * accepted)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def general_bench(root) -> dict:
+    """``bench --graph hex`` as a user runs it: the dense body raced
+    against the legacy one at 64 x 64, C=4096; the dense body must win
+    and its kernel launch once a timed chunk."""
+    import torch
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "flipcomplexityempirical_tpu_torch.bench",
+                          "--graph", "hex"], cwd=root, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"bench --graph hex exited {out.returncode}:\n{out.stderr}")
+    lines = out.stdout.strip().splitlines()
+    head, meta = json.loads(lines[-1]), last_json(out.stderr)
+    want = {"metric": "flips_per_sec_per_chip_hex", "unit": "flips/s",
+            "device": card, "kernel_path": "general_dense",
+            "kernel": "general_dense_chunk", "repeat_policy": "best"}
+    got = {k: head.get(k) for k in want}
+    if len(lines) != 1 or got != want or not head["value"] > 0:
+        fail(f"bench --graph hex: headline {head}, expected {want}")
+    chunks = meta["repeats"] * ((STEPS - 1) // CHUNK)
+    if meta["launches"] != chunks or meta["chains"] != CHAINS:
+        fail(f"bench --graph hex: {meta['launches']} launches for {chunks} "
+             f"timed chunks at {meta['chains']} chains")
+    print(f"bench hex ({wall:.3f} s wall): {lines[-1]}")
+    print(f"bench hex meta: {json.dumps(meta)}")
+    return {**head, "chains": meta["chains"], "seconds": meta["seconds"],
+            "seconds_by_body": meta["seconds_by_body"],
+            "accept_rate": meta["accept_rate"], "launches": meta["launches"]}
+
+
+def general_main_path(port, cb, cl, cd, probes, sampling, dense,
+                      chain_state) -> dict:
+    """Phase 11: run_chains on hex_lattice(64, 64) at C=4096, chunk 500, a
+    501-step warm-up and 3001 timed steps, the launch counts zeroed just
+    before and read just after; checks, the kernel's time and bound, the
+    plain version's time and output (held against the kernel's from the
+    same state), the idle share, and the legacy body's ms a step."""
+    import torch
+
+    from flipcomplexityempirical_tpu_torch.kernel import step as kstep
+    g, spec, dg, st, params = general_inputs(
+        port, sampling, "hex_lattice", (GRID, GRID), CHAINS, POP_TOL, BASE,
+        seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(cb, cl, cd, probes)
+    warm = sampling.run_chains(dg, spec, params, st, n_steps=WARMUP,
+                               chunk=CHUNK)
+    state = warm.state.replace(
+        accept_count=torch.zeros_like(warm.state.accept_count),
+        tries_sum=torch.zeros_like(warm.state.tries_sum),
+        exhausted_count=torch.zeros_like(warm.state.exhausted_count))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    res = sampling.run_chains(dg, spec, params, state, n_steps=STEPS,
+                              record_history=False, chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = cd.run_general_dense_chunk_cuda.launches
+    others = (cb.run_board_chunk_cuda.launches
+              + cl.run_lowered_chunk_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-(WARMUP - 1) // CHUNK) + -(-(STEPS - 1) // CHUNK)
+    fps = CHAINS * (STEPS - 1) / wall
+    print(f"general main path (hex {GRID}x{GRID}, {g.n_nodes} nodes): "
+          f"{CHAINS} chains x {STEPS} steps after {WARMUP} in {wall:.3f} s, "
+          f"{fps:.6e} flips/s; peak memory {peak / 2 ** 20:.1f} MiB; "
+          f"general_dense_chunk launches {launches} for {chunks} chunks "
+          f"(other kernels {others})")
+    if launches != chunks or others:
+        fail(f"general_dense_chunk launched {launches} times for {chunks} "
+             f"chunks (other kernels {others})")
+    fs = res.state
+    cut, cut_deg, dist_pop, cut_count, b_count = chain_state.derive(
+        dg, fs.assignment, 2)
+    for name, a, b in (("cut", fs.cut, cut), ("cut_deg", fs.cut_deg,
+                                              cut_deg),
+                       ("dist_pop", fs.dist_pop, dist_pop),
+                       ("cut_count", fs.cut_count, cut_count),
+                       ("b_count", fs.b_count, b_count)):
+        if not torch.equal(a, b.to(a.dtype)):
+            fail(f"general main path: {name} disagrees with a recount")
+    if not bool((fs.t_yield == WARMUP + STEPS).all()):
+        fail(f"general main path: t_yield != {WARMUP + STEPS}")
+    nodes = fs.assignment[:16].cpu().numpy()
+    if not all(graph_connected(g, row) for row in nodes):
+        fail("general main path: a chain has a disconnected district")
+    hist_sum = warm.history["wait"].astype("float64").sum(axis=1)
+    if not (abs(warm.waits_total - hist_sum)
+            <= 1e-4 * abs(hist_sum).clip(min=1.0)).all():
+        fail("general main path: waits_total disagrees with the history")
+    rate = fs.accept_count.double().mean().item() / (STEPS - 1)
+    print(f"general main path: accept rate {rate:.6f}, mean cut "
+          f"{fs.cut_count.double().mean().item():.2f}, mean boundary "
+          f"{fs.b_count.double().mean().item():.2f}; cut, cut_deg, "
+          "dist_pop, cut_count and b_count equal a recount; 16 chains "
+          "connected")
+    # the kernel at the main path's shape: one chunk with the conn planes
+    # carried (the first chunk of a run also fills them)
+    static = cd.make_static_inputs(dg)
+    st1, _ = cd.run_general_dense_chunk_cuda(dg, static, spec, params, fs,
+                                             CHUNK)
+    if not torch.equal(st1.conn_bits,
+                       dense.init_conn_bits(dg, spec, st1.assignment)):
+        fail("general main path: the kernel's conn planes disagree with a "
+             "full recompute")
+    reps = 3
+    ms = event_ms(lambda: cd.run_general_dense_chunk_cuda(
+        dg, static, spec, params, st1, CHUNK), reps)
+    fill_ms = event_ms(lambda: cd.run_general_dense_chunk_cuda(
+        dg, static, spec, params, fs, CHUNK), 1)
+    out2, rows2 = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                  st1, CHUNK)
+    accepted = int((out2.accept_count - st1.accept_count).sum())
+    plain_ms, (want2, wrows2) = event_ms_once(
+        lambda: cd.general_dense_chunk_reference(dg, spec, params, st1,
+                                                 CHUNK))
+    err = compare_general(
+        cd, out2, rows2, want2, wrows2,
+        f"at the main path's shape C={CHAINS} T={CHUNK}, from the main "
+        f"path's final state (accepted {accepted})")
+    del want2, wrows2
+    bound_ms, bound_by, nbytes, ops = general_bound(dg, spec, st1, CHUNK,
+                                                    accepted)
+    print(f"general_dense_chunk: {ms:.3f} ms per {CHUNK}-step chunk at "
+          f"C={CHAINS} (CUDA events, mean of {reps}, conn planes carried); "
+          f"{fill_ms:.3f} ms for a run's first chunk (conn planes filled); "
+          f"plain version {plain_ms:.3f} ms")
+    print(f"general_dense_chunk bound: {nbytes:.4e} bytes -> "
+          f"{1e3 * nbytes / PEAK_BYTES_PER_S:.4f} ms, {ops:.4e} operations "
+          f"({accepted} accepted moves) -> {1e3 * ops / PEAK_OPS_PER_S:.4f}"
+          f" ms; bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"profile of {2 * CHUNK + 1} general main-path steps: "
+          + idle_share(lambda: sampling.run_chains(
+              dg, spec, params, fs, n_steps=2 * CHUNK + 1,
+              record_history=False, chunk=CHUNK)))
+    print("SM clock, power draw under the kernel's load: "
+          + clocks_under_load(lambda: cd.run_general_dense_chunk_cuda(
+              dg, static, spec, params, st1, CHUNK), 20))
+    legacy = legacy_steps(kstep, dg, spec, params, fs)
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "first_chunk_ms": fill_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flips_per_s": fps,
+            "peak_mib": peak / 2 ** 20, "legacy": legacy}
+
+
+def legacy_steps(kstep, dg, spec, params, state) -> dict:
+    """The legacy body (torch ops, the bench race's other body) for
+    LEGACY_STEPS steps from the main path's final state: ms a step on the
+    host's clock."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kstep.run_steps(kstep.transition, dg, spec, params, state, LEGACY_STEPS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / LEGACY_STEPS
+    print(f"legacy body, hex {GRID}x{GRID} C={CHAINS}, {LEGACY_STEPS} steps "
+          f"from the main path's state: {ms:.3f} ms a step (host clock)")
+    return {"steps": LEGACY_STEPS, "ms_per_step": ms}
+
+
+def general_families(port, cb, cl, cd, probes, drv_mod, out: str) -> dict:
+    """Phase 12: one tri and one hex config at the paper's shape through
+    run_config (counts zeroed just before, read just after), the hex
+    config stopped after one segment and resumed, and the JAX package's
+    family runs and hex checkpoint held under the CPU tests' rule."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    import _parity
+    ex = port.experiments
+    results = {}
+    for family, tag in GEN_EXP_RUNS:
+        cfg = experiment_config(ex, family, tag, total_steps=EXP_STEPS,
+                                n_chains=EXP_CHAINS)
+        torch.cuda.synchronize()
+        zero_launch_counts(cb, cl, cd, probes)
+        t0 = time.perf_counter()
+        data = ex.run_config(cfg, out, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dense_n = cd.run_general_dense_chunk_cuda.launches
+        low_n = cl.run_lowered_chunk_cuda.launches
+        run_s, render_s = data["seconds"], data["render_seconds"]
+        g, _, _ = drv_mod.build_graph_and_plan(cfg)
+        a = np.asarray(data["assignments"]).astype(np.int64)
+        recount = (a[:, g.edges[:, 0]] != a[:, g.edges[:, 1]]).sum(axis=1)
+        if not np.array_equal(recount, data["state"]["cut_count"]):
+            fail(f"{tag}: cut_count disagrees with a recount")
+        if not all(graph_connected(g, row) for row in a):
+            fail(f"{tag}: a chain has a disconnected district")
+        kinds = ex.artifacts.artifact_kinds(family)
+        if not ex.is_done(cfg, out) or len(kinds) != 7:
+            fail(f"{tag}: the 7 artifacts are not all there")
+        with open(os.path.join(out, cfg.tag + "wait.txt")) as f:
+            if f.read() != str(int(round(data["waits_all"][0]))):
+                fail(f"{tag}: wait.txt is not chain 0's wait total")
+        kernel, n = (("general_dense_chunk", dense_n) if family == "hex"
+                     else ("lowered_chunk", low_n))
+        if n == 0 or (dense_n and low_n):
+            fail(f"{tag}: general_dense_chunk {dense_n}, lowered_chunk "
+                 f"{low_n} launches")
+        fps = cfg.n_chains * (cfg.total_steps - 1) / run_s
+        print(f"family {family} {tag} ({cfg.n_chains} chains x "
+              f"{cfg.total_steps} steps, {g.n_nodes} nodes): {wall:.3f} s in "
+              f"all, run {run_s:.3f} s, render {render_s:.3f} s, set-up and "
+              f"scores {wall - run_s - render_s:.3f} s; {fps:.6e} flips/s; "
+              f"{kernel} launches {n}; cut_count equal to a recount, both "
+              f"districts connected on all chains; the 7 artifacts")
+        results[tag] = dict(wall_s=wall, run_s=run_s, render_s=render_s,
+                            launches=n, kernel=kernel, flips_per_s=fps)
+    # the hex config in checkpoint segments, uninterrupted, against the
+    # same config stopped after its first segment and resumed (the waits
+    # drain once a chunk in f32, so the two runs share their chunking)
+    cfg = experiment_config(ex, "hex", GEN_EXP_RUNS[1][1],
+                            total_steps=EXP_STEPS, n_chains=EXP_CHAINS,
+                            checkpoint_every=GEN_CKPT_EVERY)
+    clean = ex.run_config(cfg, os.path.join(out, "clean"),
+                          checkpoint_dir=os.path.join(out, "ck_clean"),
+                          device=DEVICE)
+    ck = os.path.join(out, "ck")
+    g, plan, _ = drv_mod.build_graph_and_plan(cfg)
+    try:
+        drv_mod._run_torch(cfg, g, plan, checkpoint_dir=ck,
+                           _stop_after_segments=1, device=DEVICE)
+        fail("the segment stop did not stop")
+    except drv_mod._SegmentStop:
+        pass
+    resumed = ex.run_config(cfg, os.path.join(out, "resumed"),
+                            checkpoint_dir=ck, device=DEVICE)
+    same_run(clean, resumed, "hex resume")
+    print(f"family hex resume: stopped after {GEN_CKPT_EVERY} steps, "
+          "resumed from its checkpoint: equal to the uninterrupted run in "
+          "every history key, state field and wait total")
+    # the JAX package's runs and checkpoint (300 steps, 3 chains)
+    for name in GEN_FAMILY_FIXTURES:
+        cfg = ex.ExperimentConfig(**GEN_FAMILY_KW[name], **GEN_FAMILY_SHAPE)
+        want = dict(np.load(
+            ROOT / f"tests/fixtures/torch/experiment_{name}.npz"))
+        names = sorted(want.pop("artifacts").tolist())
+        d = os.path.join(out, f"fx_{name}")
+        data = ex.run_config(cfg, d, device=DEVICE)
+        got = _parity.experiment_arrays(data, open(os.path.join(
+            d, cfg.tag + "wait.txt")).read())
+        try:
+            ties = _parity.assert_experiment_matches(got, want)
+        except AssertionError as exc:
+            fail(f"family fixture {name}: {exc}")
+        if sorted(os.listdir(d)) != names:
+            fail(f"family fixture {name}: artifacts {os.listdir(d)}")
+        print(f"family fixture {name} (the JAX package's run_config, "
+              f"300 steps, 3 chains): equal, waits off by a log tie {ties};"
+              f" artifact names equal")
+    ck = os.path.join(out, "fx_ck")
+    shutil.copytree(ROOT / GEN_CKPT_FIXTURE, ck)
+    cfg = ex.ExperimentConfig(**GEN_FAMILY_KW["hex"], **GEN_FAMILY_SHAPE,
+                              checkpoint_every=150)
+    d = os.path.join(out, "fx_ck_out")
+    data = ex.run_config(cfg, d, checkpoint_dir=ck, device=DEVICE)
+    got = _parity.experiment_arrays(data, open(os.path.join(
+        d, cfg.tag + "wait.txt")).read())
+    want = dict(np.load(ROOT / "tests/fixtures/torch/experiment_hex.npz"))
+    want.pop("artifacts")
+    try:
+        _parity.assert_experiment_matches(got, want)
+    except AssertionError as exc:
+        fail(f"the JAX hex checkpoint's resume: {exc}")
+    print(f"family fixture: the JAX package's hex checkpoint "
+          f"({GEN_CKPT_FIXTURE}) resumed here ends equal to its "
+          "uninterrupted run")
+    return results
+
+
+def general_stationary(port, sampling) -> dict:
+    """Phase 13: the kernel's chains on hex_lattice(1, 2) against the
+    dense chain's exact stationary distribution (``tests/_torch_
+    enumeration.py``'s ``build_dense_transition``, numpy): CHAINS chains
+    run ENUM_BURN steps, then en.SAMPLES one-step calls whose assignments
+    are pooled; phase 9's bars (TV and E|cut| error below
+    test_enumeration.py's, the pool's TV below en.TV_POOL_TOL, every
+    group_t statistic below en.T_TOL)."""
+    import os
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import _torch_enumeration as en
+    from flipcomplexityempirical_tpu_torch.sampling.runner import pop_bounds
+    g = port.graphs.hex_lattice(1, 2)
+    plan = port.graphs.stripes_plan(g, 2)
+    lo, hi = pop_bounds(g, 2, GEN_ENUM_TOL)
+    spec = port.Spec()
+    out = {}
+    for b, base in enumerate(GEN_ENUM_BASES):
+        states, P, cuts = en.build_dense_transition(g, plan, base, lo, hi)
+        pi = en.stationary_lazy(P)
+        dg, st, params = sampling.init_batch(
+            g, plan, n_chains=en.CHAINS, seed=200 + b, spec=spec, base=base,
+            pop_tol=GEN_ENUM_TOL, device=DEVICE)
+        t0 = time.perf_counter()
+        st = sampling.run_chains(dg, spec, params, st,
+                                 n_steps=ENUM_BURN + 1, chunk=CHUNK,
+                                 record_history=False).state
+        boards = []
+        for _ in range(en.SAMPLES):
+            st = sampling.run_chains(dg, spec, params, st, n_steps=1,
+                                     record_initial=False,
+                                     record_history=False).state
+            boards.append(st.assignment)
+        abits = en.board_bits(torch.cat(boards).cpu().numpy())
+        chain = np.tile(np.arange(en.CHAINS), len(boards))
+        try:
+            tv, cut_err = en.occupancy_error(abits, states, pi, cuts)
+            t = en.group_t(abits, chain, states, pi, cuts, n=g.n_nodes)
+        except KeyError as exc:
+            fail(f"dense base {base}: a chain left the closure ({exc})")
+        t_max = float(np.abs(t).max())
+        print(f"stationary general_dense hex 1x2 base {base}: TV {tv:.6f}, "
+              f"E|cut| relative error {cut_err:.6f}, t of E|cut| "
+              f"{t[0]:.3f}, max |t| {t_max:.3f} over E|cut| and the "
+              f"{g.n_nodes} nodes' shares ({abits.size} assignments of "
+              f"{len(states)} states, {en.CHAINS} chains x {en.SAMPLES} "
+              f"steps after {ENUM_BURN}; {time.perf_counter() - t0:.3f} s)")
+        if tv >= en.TV_TOL or cut_err >= en.CUT_TOL:
+            fail(f"dense base {base}: TV {tv:.4f} or E|cut| error "
+                 f"{cut_err:.4f} above test_enumeration.py's bar")
+        if tv >= en.TV_POOL_TOL or not t_max < en.T_TOL:
+            fail(f"dense base {base}: TV {tv:.4f} (bar {en.TV_POOL_TOL}) "
+                 f"or max |t| {t_max:.2f} (bar {en.T_TOL})")
+        out[base] = {"tv": tv, "cut_err": cut_err, "t_cut": float(t[0]),
+                     "t_max": t_max, "states": len(states)}
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1854,6 +2474,42 @@ def main() -> None:
     stationary = stationary_phase(port, cb, cl, board_runner)
     err = max(err, stationary["board_chunk_err"])
     lowered_err = max(lowered_err, stationary["lowered_chunk_err"])
+    # ---- 10-13: the general path ----------------------------------------
+    import tempfile
+
+    from flipcomplexityempirical_tpu_torch import sampling as gsampling
+    from flipcomplexityempirical_tpu_torch.experiments import driver as drv
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_dense as cd
+    from flipcomplexityempirical_tpu_torch.kernel import dense
+    from flipcomplexityempirical_tpu_torch.state import chain_state
+    sys.path.insert(0, str(ROOT / "tests"))
+    general_err, general_c8 = general_exactness(port, cd, gsampling)
+    general = general_main_path(port, cb, cl, cd, probes, gsampling, dense,
+                                chain_state)
+    general["bench"] = general_bench(str(ROOT))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        general["families"] = general_families(port, cb, cl, cd, probes,
+                                               drv, tmp)
+    tri = experiment_exactness(port.experiments, drv, gsampling.runner, cl,
+                               tb, GEN_TRI_RUNS)[GEN_TRI_RUNS[0][1]]
+    per_graph["tri"] = {
+        "launches": general["families"][GEN_TRI_RUNS[0][1]]["launches"],
+        "max_abs_err": tri["max_abs_err"], "kernel": tri}
+    general["stationary"] = general_stationary(port, gsampling)
+    general["experiment_shape"] = general_c8
+    kernels.insert(0, {
+        "name": "general_dense_chunk", "route": "cuda",
+        "source": "flipcomplexityempirical_tpu_torch/csrc/"
+                  "general_dense_chunk.cu",
+        "replaces": "flipcomplexityempirical_tpu/kernel/dense.py:303",
+        "launches": general.pop("launches"),
+        "max_abs_err": max(general_err, general.pop("max_abs_err")),
+        "ms": general.pop("ms"), "plain_ms": general.pop("plain_ms"),
+        "bound_ms": general.pop("bound_ms"),
+        "bound_by": general.pop("bound_by"), "library_ms": None,
+        **general,
+    })
     kernels.insert(0, {
         "name": "lowered_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/lowered_chunk.cu",

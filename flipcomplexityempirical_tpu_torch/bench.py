@@ -1,10 +1,10 @@
-"""The port's benchmark: aggregate flip throughput on ``bench.py``'s board
-path, on the card.
+"""The port's benchmark: aggregate flip throughput of ``bench.py``'s board
+and general paths, on the card.
 
     python -m flipcomplexityempirical_tpu_torch.bench
-        [--graph square|sec11|frank] [--pallas] [--cpu] [--grid N]
-        [--chains C] [--steps S] [--warmup W] [--chunk T] [--base B]
-        [--pop-tol P] [--repeats R] [--body bits]
+        [--graph square|sec11|frank|hex] [--pallas] [--general] [--cpu]
+        [--grid N] [--chains C] [--steps S] [--warmup W] [--chunk T]
+        [--base B] [--pop-tol P] [--repeats R] [--body bits]
 
 The port of the root ``bench.py``'s default measurement, with its defaults:
 2-district single-node-flip chains with the full reference semantics
@@ -12,8 +12,9 @@ The port of the root ``bench.py``'s default measurement, with its defaults:
 bounds, the literal ``base**(-dcut)`` accept, geometric waits, parity
 bookkeeping, no interface recording) on the 64 x 64 rook grid from a
 stripes start (``--graph square``), the sec11 grid from
-``sec11_plan(alignment=0)`` or the Frankengraph from
-``frank_plan(alignment=0)``.
+``sec11_plan(alignment=0)``, the Frankengraph from
+``frank_plan(alignment=0)`` or the ``--grid`` x ``--grid`` hexagonal
+lattice from a stripes start (``--graph hex``).
 
 - Default, the board path: ``run_board`` on the lowered-chunk kernel, at
   8192 chains. On square it equals the JAX package's ``bitboard`` body
@@ -21,16 +22,23 @@ stripes start (``--graph square``), the sec11 grid from
   body.
 - ``--pallas``: ``run_board_cuda`` on the board-chunk kernel (the Pallas
   kernel's twin, on the port's Philox stream), square only, at 4096 chains.
+- The general path, where the board path does not serve the graph (hex)
+  or ``--general`` asks for it: ``run_chains`` at 4096 chains, racing the
+  rejection-free dense body (the general-dense kernel) against the legacy
+  re-propose body (torch ops) and reporting the faster, as ``bench.py``
+  does; ``kernel_path`` names the body that won. ``--general`` alone runs
+  the legacy body.
 - ``--cpu``: the same path through the kernels' plain PyTorch versions on
   the host, at 4096 chains, tagged ``device`` "cpu". Without a card and
   without ``--cpu`` the program exits 1: it never measures the host in
   place of the card.
 
 It runs the warm-up (the first kernel build included), zeroes the accept,
-tries and exhausted counters, then times ``--repeats`` runs of ``--steps``
-steps from the warmed state, each ending in a synchronise, and keeps the
-best. It prints a meta line on stderr (``bench.py``'s fields, the port's
-kernel and its launches in the timed runs) and on stdout one headline,
+tries and exhausted counters, warms every other raced body, then times
+``--repeats`` runs of ``--steps`` steps of each body from the warmed
+state, each ending in a synchronise, and keeps the best. It prints a meta
+line on stderr (``bench.py``'s fields, the port's kernel, its launches in
+the timed runs and the best seconds of each raced body) and on stdout one headline,
 ``{"metric", "value", "unit", "device", "path", "kernel_path", "kernel",
 "repeats", "repeat_policy"}``, under ``bench.py``'s metric names, so that
 ``tools/bench_compare.py`` reads it. ``bench.py``'s other flags are refused
@@ -47,16 +55,18 @@ import time
 import torch
 
 from . import graphs
+from .kernel import board as kboard
 from .kernel import cuda_board as cboard
+from .kernel import cuda_dense as cdense
 from .kernel import cuda_lowered as clow
+from .kernel import dense as kdense
 from .kernel.step import Spec
-from .sampling import init_board, run_board, run_board_cuda
+from .sampling import (init_batch, init_board, run_board, run_board_cuda,
+                       run_chains)
 
 # bench.py's flags that this program does not port, by the ROADMAP.md item
 # that ports each; a "flag value" key refuses that value only
 _NOT_PORTED = {
-    "--graph hex": "A6 (the general and dense paths)",
-    "--general": "A6 (the general and dense paths)",
     "--k": "A7 (the k-district pair walk)",
     "--ess": "A5 (device analytics)",
     "--ess-host": "A5 (device analytics)",
@@ -97,11 +107,12 @@ def _parser() -> argparse.ArgumentParser:
         description="Aggregate flip throughput of bench.py's board path "
                     "on the card.")
     ap.add_argument("--grid", type=int, default=64)
-    ap.add_argument("--graph", choices=["square", "sec11", "frank"],
+    ap.add_argument("--graph", choices=["square", "sec11", "frank", "hex"],
                     default="square")
     ap.add_argument("--chains", type=int, default=None,
                     help="default 8192 on the board path, 4096 with "
-                         "--pallas or --cpu (bench.py's rule)")
+                         "--pallas, --cpu or the general path (bench.py's "
+                         "rule)")
     ap.add_argument("--steps", type=int, default=3001)
     ap.add_argument("--warmup", type=int, default=501)
     ap.add_argument("--chunk", type=int, default=500)
@@ -113,6 +124,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--pallas", action="store_true",
                     help="the board-chunk kernel (run_board_cuda), square "
                          "only")
+    ap.add_argument("--general", action="store_true",
+                    help="the general path's legacy body, even where the "
+                         "board path serves the graph")
     ap.add_argument("--body", choices=["bits"], default=None)
     ap.add_argument("--repeats", type=int, default=2,
                     help="timed runs; the best is reported")
@@ -121,8 +135,11 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refusal(args) -> str | None:
     """Why this program does not run ``args``, or None."""
-    if args.body is not None and args.pallas:
-        return "--body selects a board-path body; drop --pallas"
+    if args.body is not None and (args.pallas or args.general):
+        return ("--body selects a board-path body; it cannot be combined "
+                "with --pallas or --general")
+    if args.pallas and args.general:
+        return "--pallas runs the board path; drop --general"
     if args.pallas and args.graph != "square":
         return ("the board-chunk kernel runs the plain rook grid; sec11 and "
                 "frank run the board path (drop --pallas)")
@@ -144,6 +161,9 @@ def _workload(args):
     if args.graph == "frank":
         g = graphs.frankengraph()
         return g, graphs.frank_plan(g, alignment=0)
+    if args.graph == "hex":
+        g = graphs.hex_lattice(args.grid, args.grid)
+        return g, graphs.stripes_plan(g, 2)
     g = graphs.square_grid(args.grid, args.grid)
     return g, graphs.stripes_plan(g, 2)
 
@@ -169,61 +189,58 @@ def main(argv=None) -> int:
               "plain PyTorch versions on the host", file=sys.stderr)
         return 1
     dev = torch.device("cpu" if args.cpu else "cuda")
-    if args.chains is None:
-        args.chains = 4096 if (args.pallas or args.cpu) else 8192
     spec = Spec(n_districts=2, proposal="bi", contiguity="patch",
                 invalid="repropose", accept="cut", parity_metrics=True,
                 geom_waits=True, record_interface=False)
     g, plan = _workload(args)
-    bg, state, params = init_board(g, plan, n_chains=args.chains, seed=0,
-                                   spec=spec, base=args.base,
-                                   pop_tol=args.pop_tol, device=dev)
-    bits = True if args.body == "bits" else None
+    use_board = kboard.supports(g, spec) and not args.general
+    if args.chains is None:
+        args.chains = (8192 if use_board and not (args.pallas or args.cpu)
+                       else 4096)
     try:
-        if args.pallas:
-            cboard.check(spec, params)
-            kernel_path, wrapper = "pallas", cboard.run_board_chunk_cuda
-        else:
-            kernel_path = clow.body_for(bg, spec, bits)
-            clow.check(bg, spec, params)
-            wrapper = clow.run_lowered_chunk_cuda
+        bench = (_board_bench(args, g, plan, spec, dev) if use_board
+                 else _general_bench(args, g, plan, spec, dev))
     except ValueError as exc:
         print(f"bench: {exc}", file=sys.stderr)
         return 2
-
-    def run(st, n_steps: int, seed: int):
-        if args.pallas:
-            return run_board_cuda(bg, spec, params, st, n_steps=n_steps,
-                                  record_history=False, chunk=args.chunk,
-                                  seed=seed, device=dev)
-        return run_board(bg, spec, params, st, n_steps=n_steps,
-                         record_history=False, chunk=args.chunk, bits=bits,
-                         device=dev)
+    run, state, variants, wrapper = bench
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
     # the warm-up, outside the timed window: the kernel's first build and
-    # steady boundary sizes; then zero the counters the rates below read
-    state = run(state, args.warmup, seed=0).state
+    # steady boundary sizes; then zero the counters the rates below read,
+    # and warm every other raced body
+    state = run(state, args.warmup, variants[0], seed=0).state
     state = state.replace(
         accept_count=torch.zeros_like(state.accept_count),
         tries_sum=torch.zeros_like(state.tries_sum),
         exhausted_count=torch.zeros_like(state.exhausted_count))
+    for variant in variants[1:]:
+        run(state, args.warmup, variant, seed=0)
     sync()
-    launches0 = wrapper.launches
-    dt = float("inf")
-    for _ in range(args.repeats):
-        t0 = time.perf_counter()
-        res = run(state, args.steps, seed=1)
-        sync()
-        dt = min(dt, time.perf_counter() - t0)
+    launches0 = wrapper.launches if wrapper is not None else 0
+    dt, best, seconds = float("inf"), variants[0], {}
+    for variant in variants:
+        for _ in range(args.repeats):
+            t0 = time.perf_counter()
+            res = run(state, args.steps, variant, seed=1)
+            sync()
+            d = time.perf_counter() - t0
+            seconds[variant] = min(seconds.get(variant, d), d)
+            if d < dt:
+                dt, best = d, variant
     fps = args.chains * (args.steps - 1) / dt
     s = res.state
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    path = "pallas" if args.pallas else "board"
-    kernel = "board_chunk" if args.pallas else "lowered_chunk"
+    if use_board:
+        path = "pallas" if args.pallas else "board"
+        kernel = "board_chunk" if args.pallas else "lowered_chunk"
+        kernel_path = best
+    else:
+        path, kernel_path = "general", best
+        kernel = "general_dense_chunk" if best == "general_dense" else None
     meta = {
         "device": device, "path": path, "kernel_path": kernel_path,
         "kernel": kernel, "graph": args.graph, "chains": args.chains,
@@ -235,8 +252,11 @@ def main(argv=None) -> int:
         "accept_rate": float(s.accept_count.double().mean())
         / (args.steps - 1),
         # the kernel's launches in the timed runs (0 for the plain versions)
-        "launches": wrapper.launches - launches0,
+        "launches": (wrapper.launches - launches0 if wrapper is not None
+                     else 0),
     }
+    if len(variants) > 1:
+        meta["seconds_by_body"] = {k: round(v, 3) for k, v in seconds.items()}
     print(json.dumps(meta), file=sys.stderr)
     headline = {
         "metric": _metric(args.graph), "value": round(fps, 1),
@@ -250,6 +270,53 @@ def main(argv=None) -> int:
         headline["body"] = kernel_path
     print(json.dumps(headline))
     return 0
+
+
+def _board_bench(args, g, plan, spec, dev):
+    """(run, state, [body], wrapper) of the board path."""
+    bg, state, params = init_board(g, plan, n_chains=args.chains, seed=0,
+                                   spec=spec, base=args.base,
+                                   pop_tol=args.pop_tol, device=dev)
+    bits = True if args.body == "bits" else None
+    if args.pallas:
+        cboard.check(spec, params)
+        body, wrapper = "pallas", cboard.run_board_chunk_cuda
+    else:
+        body = clow.body_for(bg, spec, bits)
+        clow.check(bg, spec, params)
+        wrapper = clow.run_lowered_chunk_cuda
+
+    def run(st, n_steps: int, variant, seed: int):
+        if args.pallas:
+            return run_board_cuda(bg, spec, params, st, n_steps=n_steps,
+                                  record_history=False, chunk=args.chunk,
+                                  seed=seed, device=dev)
+        return run_board(bg, spec, params, st, n_steps=n_steps,
+                         record_history=False, chunk=args.chunk, bits=bits,
+                         device=dev)
+    return run, state, [body], wrapper
+
+
+def _general_bench(args, g, plan, spec, dev):
+    """(run, state, bodies, wrapper) of the general path: the dense body
+    raced against the legacy one where ``dense.supported`` holds, the
+    legacy body alone under ``--general``."""
+    dg, state, params = init_batch(g, plan, n_chains=args.chains, seed=0,
+                                   spec=spec, base=args.base,
+                                   pop_tol=args.pop_tol, device=dev)
+    if args.general or not kdense.supported(g, spec):
+        variants = ["general"]
+    else:
+        variants = ["general_dense", "general"]
+        if dev.type == "cuda":
+            cdense.check(dg, spec, params)
+
+    def run(st, n_steps: int, variant, seed: int):
+        return run_chains(dg, spec, params, st, n_steps=n_steps,
+                          record_history=False, chunk=args.chunk,
+                          kernel_path=variant)
+    return run, state, variants, (cdense.run_general_dense_chunk_cuda
+                                  if "general_dense" in variants else None)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""Carry the JAX package's board-path objects into this package's types.
+"""Carry the JAX package's objects into this package's types.
 
-The JAX package's ``BoardGraph``, ``BoardState`` and ``StepParams``,
-handed over as host arrays (``jax.tree.map(np.asarray, obj)``), become
-``kernel.board.BoardGraph`` / ``BoardState`` and ``kernel.step.StepParams``
-on a chosen device, field by field and dtype by dtype, for the rook body
-and the lowered body (stencil planes, the diagonal cut_times planes).
-Only attributes are read, so this module imports nothing of the JAX
-package; it is how a test hands both packages the same state.
+The JAX package's ``BoardGraph``, ``BoardState``, ``DeviceGraph``,
+``ChainState`` and ``StepParams``, handed over as host arrays
+(``jax.tree.map(np.asarray, obj)``), become ``kernel.board.BoardGraph`` /
+``BoardState``, ``graphs.DeviceGraph``, ``state.ChainState`` and
+``kernel.step.StepParams`` on a chosen device, field by field and dtype
+by dtype: the rook and lowered board bodies, and the general path (the
+legacy and dense bodies, the conn planes included). Only attributes are
+read, so this module imports nothing of the JAX package; it is how a test
+hands both packages the same state.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .graphs.lattice import DeviceGraph
 from .kernel.board import BoardGraph, BoardState
 from .kernel.step import StepParams
+from .state.chain_state import ChainState
 
 _STATE_DTYPES = {
     "key": torch.int64, "board": torch.int8, "dist_pop": torch.int32,
@@ -41,6 +45,29 @@ _GRAPH_PLANES = {
 _GRAPH_STATICS = ("h", "w", "uniform_pop", "surgical", "real_nodes",
                   "b2_offsets", "b2_disp", "b2_iters", "patch_exact",
                   "iface_ok", "iface_decode", "center")
+
+
+_DEVICE_GRAPH = {
+    "edges": torch.int64, "nbr": torch.int64, "nbr_mask": torch.bool,
+    "nbr_edge": torch.int64, "deg": torch.int64, "pop": torch.int32,
+    "coords": torch.float32, "frame_mask": torch.bool,
+    "frame_idx": torch.int64, "wall_id": torch.int8,
+    "edge_len": torch.float32, "patch_nodes": torch.int64,
+    "patch_adj": torch.int64, "patch_size": torch.int64,
+    "center": torch.float32,
+}
+_CHAIN_STATE = {
+    "key": torch.int64, "assignment": torch.int8, "cut": torch.int8,
+    "cut_deg": torch.int8, "dist_pop": torch.int32,
+    "cut_count": torch.int32, "b_count": torch.int32,
+    "cur_wait": torch.float32, "cur_flip_node": torch.int32,
+    "t_yield": torch.int32, "move_clock": torch.int32,
+    "part_sum": torch.int32, "last_flipped": torch.int32,
+    "num_flips": torch.int32, "cut_times": torch.int32,
+    "waits_sum": torch.float32, "accept_count": torch.int32,
+    "tries_sum": torch.int32, "exhausted_count": torch.int32,
+    "conn_bits": torch.int64,
+}
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
@@ -73,6 +100,27 @@ def board_state(state, device="cuda") -> BoardState:
         raise ValueError("BoardState.reject_count is not ported")
     return BoardState(**{name: _tensor(getattr(state, name), dtype, dev)
                          for name, dtype in _STATE_DTYPES.items()
+                         if getattr(state, name, None) is not None})
+
+
+def device_graph(dg, device="cuda", patch_ok: bool = True) -> DeviceGraph:
+    """A DeviceGraph (the JAX package's, as host arrays). The JAX view
+    carries no ``patch_ok``: pass the LatticeGraph's."""
+    dev = resolve_device(device)
+    return DeviceGraph(**{name: _tensor(getattr(dg, name), dtype, dev)
+                          for name, dtype in _DEVICE_GRAPH.items()},
+                       patch_ok=bool(patch_ok))
+
+
+def chain_state(state, device="cuda") -> ChainState:
+    """A batched ChainState (the JAX package's, as host arrays), with the
+    conn planes where the state carries them."""
+    dev = resolve_device(device)
+    if getattr(state, "reject_count", None) is not None:
+        raise ValueError("ChainState.reject_count is not ported: the reject "
+                         "taxonomy waits for ROADMAP.md A11")
+    return ChainState(**{name: _tensor(getattr(state, name), dtype, dev)
+                         for name, dtype in _CHAIN_STATE.items()
                          if getattr(state, name, None) is not None})
 
 

@@ -1,0 +1,113 @@
+// Device helpers shared by the chunk kernels that draw the JAX package's
+// threefry2x32 stream (lowered_chunk.cu, general_dense_chunk.cu): the
+// threefry block and the f32 uniform of jax.random (rng.py holds their
+// torch twins), the batched per-step draws of split(key, 4), and small
+// bit-plane helpers.
+
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+
+namespace fce {
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+// threefry2x32, 20 rounds, key (k0, k1), counter (x0, x1) in place: the
+// block of jax.random's threefry2x32_p (rng.py::threefry2x32)
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+#define FCE_ROUND(r) \
+  x0 += x1;          \
+  x1 = rotl(x1, r) ^ x0;
+  FCE_ROUND(13) FCE_ROUND(15) FCE_ROUND(26) FCE_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  FCE_ROUND(17) FCE_ROUND(29) FCE_ROUND(16) FCE_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  FCE_ROUND(13) FCE_ROUND(15) FCE_ROUND(26) FCE_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  FCE_ROUND(17) FCE_ROUND(29) FCE_ROUND(16) FCE_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  FCE_ROUND(13) FCE_ROUND(15) FCE_ROUND(26) FCE_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+#undef FCE_ROUND
+}
+
+// jax.random.uniform's f32 in [0, 1) from 32 random bits: 23 bits as the
+// mantissa of [1, 2), minus 1 (exact)
+__device__ __forceinline__ float uniform_of(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+__device__ __forceinline__ uint32_t bit_at(const uint32_t* words, int i) {
+  return (words[i >> 5] >> (i & 31)) & 1u;
+}
+
+// set or clear bit i of a shared plane; lanes may share a word
+__device__ __forceinline__ void put_bit(uint32_t* words, int i, bool v) {
+  const uint32_t m = 1u << (i & 31);
+  if (v)
+    atomicOr(words + (i >> 5), m);
+  else
+    atomicAnd(words + (i >> 5), ~m);
+}
+
+// position of the r-th (from 0) set bit of x, r < popc(x)
+__device__ __forceinline__ int nth_bit(uint32_t x, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int low = __popc(x & ((1u << s) - 1u));
+    if (r >= low) {
+      r -= low;
+      x >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// The threefry draws of up to 32 steps: the key chain (split counter 0 of
+// each step's key) runs serially; lane i keeps the key of the batch's step
+// i and then draws that step's subkeys (split counters 1, 2, 3: proposal,
+// accept, wait), the uniform of each, and the logs that the accept test
+// and the wait take of the last two, all lanes at once. The same blocks,
+// and so the same stream, as splitting four ways every step. Out of line:
+// it runs once every 32 steps.
+struct Draws {
+  uint32_t key0, key1, prop;
+  float log_acc, log_wait;
+};
+__device__ __noinline__ Draws draw_batch(uint32_t key0, uint32_t key1,
+                                         int steps) {
+  const int lane = threadIdx.x & 31;
+  uint32_t m0 = 0u, m1 = 0u;
+  for (int i = 0; i < steps; ++i) {
+    if (lane == i) {
+      m0 = key0;
+      m1 = key1;
+    }
+    uint32_t s0 = 0u, s1 = 0u;
+    threefry2x32(key0, key1, s0, s1);
+    key0 = s0;
+    key1 = s1;
+  }
+  uint32_t p0 = 0u, p1 = 1u, q0 = 0u, q1 = 2u, r0 = 0u, r1 = 3u;
+  threefry2x32(m0, m1, p0, p1);
+  threefry2x32(m0, m1, q0, q1);
+  threefry2x32(m0, m1, r0, r1);
+  uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 0u, c0 = 0u, c1 = 0u;
+  threefry2x32(p0, p1, a0, a1);
+  threefry2x32(q0, q1, b0, b1);
+  threefry2x32(r0, r1, c0, c1);
+  return Draws{key0, key1, a0 ^ a1,
+               logf(fmaxf(uniform_of(b0 ^ b1), 1e-12f)),
+               logf(fmaxf(uniform_of(c0 ^ c1), 1e-12f))};
+}
+
+}  // namespace fce

@@ -1,10 +1,12 @@
 """CLI: python -m flipcomplexityempirical_tpu_torch.experiments
-         --family sec11 --out plots/sec11 [--steps N] [--chains C]
-         [--only 2B30P10 ...] [--device cuda|cpu]
+         --family sec11|frank|tri|hex --out plots/sec11 [--steps N]
+         [--chains C] [--only 2B30P10 ...] [--variant nobacktrack|lazy]
+         [--contiguity patch|exact] [--device cuda|cpu]
 
-Runs the reference sweep grid of a family (150 sec11 configs, 24
-Frankengraph configs) on the card, with skip-if-done resume, writing the
-13 artifacts per config under the reference's file names. The bare
+Runs the sweep grid of a family (150 sec11 configs, 24 Frankengraph
+configs, 4 triangular- and 4 hexagonal-lattice configs) on the card, with
+skip-if-done resume, writing each config's artifacts under the
+reference's file names. The bare
 fail-fast loop: the first failure ends the process with a nonzero exit.
 ``--device cpu`` runs the plain PyTorch versions on the host, and only
 when asked; without a card the default ``cuda`` exits nonzero.
@@ -17,7 +19,7 @@ from ..device import resolve_device
 from .config import SWEEPS
 from .driver import run_sweep
 
-FAMILIES = ("sec11", "frank")
+FAMILIES = ("sec11", "frank", "tri", "hex")
 
 
 def main(argv=None) -> None:
@@ -34,9 +36,14 @@ def main(argv=None) -> None:
     ap.add_argument("--record-every", type=int, default=1,
                     help="history thinning (yields 0, k, 2k, ... recorded; "
                          "accumulators exact)")
-    ap.add_argument("--contiguity", choices=["patch"], default="patch",
-                    help="the radius-2 patch check; 'exact' waits for "
-                         "ROADMAP.md A6")
+    ap.add_argument("--contiguity", choices=["patch", "exact"],
+                    default="patch",
+                    help="the radius-r patch check, or the exact "
+                         "whole-graph check (the general path's legacy "
+                         "body; tri and hex only)")
+    ap.add_argument("--variant", choices=["none", "nobacktrack", "lazy"],
+                    default="none",
+                    help="proposal variant (tri and hex only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0,
@@ -55,7 +62,7 @@ def main(argv=None) -> None:
     configs = list(SWEEPS[args.family](
         total_steps=args.steps, n_chains=args.chains, seed=args.seed,
         record_every=args.record_every, contiguity=args.contiguity,
-        checkpoint_every=args.checkpoint_every))
+        checkpoint_every=args.checkpoint_every, variant=args.variant))
     if args.only:
         configs = [c for c in configs if c.tag in set(args.only)]
         if not configs:

@@ -1,10 +1,12 @@
-"""The 13-artifact-per-config pipeline, with the reference's file names.
+"""The per-config artifacts, with the reference's file names.
 
 Port of ``flipcomplexityempirical_tpu/experiments/artifacts.py`` for the
-sec11 and Frankengraph families: per config {tag}start / edges / end /
-end2 / wca / wca2 / slope / angle / flip / flip2 / logflip / logflip2
-.png and {tag}wait.txt (grid_chain_sec11.py:321-324,410-411,427-528;
-Frankenstein_chain.py:349-352,438-439,455-556).
+sec11, Frankengraph, triangular and hexagonal families: for sec11 and the
+Frankengraph, per config {tag}start / edges / end / end2 / wca / wca2 /
+slope / angle / flip / flip2 / logflip / logflip2 .png and {tag}wait.txt
+(grid_chain_sec11.py:321-324,410-411,427-528;
+Frankenstein_chain.py:349-352,438-439,455-556); for the tri and hex
+families the seven of ``FAMILY_ARTIFACTS`` (``render_generic``).
 
 The images are drawn with the package's own PNG writer (``png.py``), not
 matplotlib, so they show what the reference's show without its pixels:
@@ -182,8 +184,9 @@ ARTIFACT_KINDS = ["start.png", "edges.png", "end.png", "end2.png",
                   "wait.txt"]
 
 # Per-family artifact manifests, the JAX package's: sec11/frank keep the
-# reference's 13-artifact set; the other families (not ported here) emit
-# the subset their walk defines plus family-specific diagnostics.
+# reference's 13-artifact set; the other families emit the subset their
+# walk defines plus family-specific diagnostics (kpair, temper and dual
+# are not ported here).
 FAMILY_ARTIFACTS = {
     "sec11": ARTIFACT_KINDS,
     "frank": ARTIFACT_KINDS,
@@ -204,3 +207,30 @@ FAMILY_ARTIFACTS = {
 
 def artifact_kinds(family: str):
     return FAMILY_ARTIFACTS[family]
+
+
+def render_generic(graph: LatticeGraph, outdir: str, tag: str, *, kinds,
+                   end_signed, cut_times, num_flips, waits_sum,
+                   part_sum=None) -> None:
+    """The widened families' post-run artifacts: the node maps, the edge
+    map and wait.txt among ``kinds`` (start.png is rendered before the
+    run). The imshow kinds and the families' own diagnostics belong to
+    families not ported here, and are refused."""
+    os.makedirs(outdir, exist_ok=True)
+    j = lambda kind: os.path.join(outdir, tag + kind)
+    lognum = np.log(np.asarray(num_flips, np.float64) + 1.0)
+    maps = {"end.png": (end_signed, "tab20"), "wca.png": (part_sum, "jet"),
+            "flip.png": (num_flips, "jet"), "logflip.png": (lognum, "jet")}
+    for kind in kinds:
+        if kind == "start.png":
+            continue
+        if kind == "wait.txt":
+            with open(j(kind), "w") as f:
+                f.write(str(int(round(waits_sum))))
+        elif kind == "edges.png":
+            png.write_png(j(kind), edge_image(graph, cut_times))
+        elif kind in maps:
+            values, cmap = maps[kind]
+            png.write_png(j(kind), node_image(graph, values, cmap))
+        else:
+            raise ValueError(f"artifact {kind!r} is not ported here")

@@ -1,15 +1,23 @@
 """Per-config experiment driver: the reference's measurement loop and its
-artifacts, for the sec11 and Frankengraph families.
+artifacts, for the sec11, Frankengraph, triangular and hexagonal families.
 
-Port of ``flipcomplexityempirical_tpu/experiments/driver.py`` (the board
-branch of its JAX backend, the checkpoints and the bare sweep loop).
-``run_config`` runs a config's chains (chain 0 renders the reference's
-artifacts; every chain feeds the partisan scores) through
-``run_board_segment`` on the lowered-chunk kernel, in checkpoint segments
-when ``cfg.checkpoint_every > 0``, then ``finalize_board_run``.
+Port of ``flipcomplexityempirical_tpu/experiments/driver.py`` (its JAX
+backend's board and general branches, the checkpoints and the bare sweep
+loop). ``run_config`` runs a config's chains (chain 0 renders the
+reference's artifacts; every chain feeds the partisan scores), in
+checkpoint segments when ``cfg.checkpoint_every > 0``:
 
-Completion manifest: a config is done when all 13 artifacts exist;
-``run_sweep`` skips completed configs. A crash between segments loses at
+- where ``kernel.board.supports(graph, spec)`` holds (sec11, the
+  Frankengraph, the triangular lattice without a variant), through
+  ``run_board_segment`` on the lowered-chunk kernel, then
+  ``finalize_board_run``;
+- elsewhere (the hexagonal lattice, a proposal variant, contiguity
+  'exact') through the general runner ``run_chains``: the dense body on
+  the general-dense kernel where the JAX package would take it, else the
+  legacy body.
+
+Completion manifest: a config is done when all its artifacts exist
+(``artifacts.FAMILY_ARTIFACTS``); ``run_sweep`` skips completed configs. A crash between segments loses at
 most ``checkpoint_every`` steps: the next ``run_config`` resumes chain
 state, histories and wait totals from the per-config checkpoint, whose
 on-disk format is the JAX package's (file names, manifest, ``state_*`` /
@@ -37,23 +45,24 @@ import torch
 from ..convert import to_numpy
 from ..device import resolve_device
 from ..graphs import (PARITY_LABELS, frank_plan, frankengraph, grid_sec11,
-                      sec11_plan)
+                      hex_lattice, sec11_plan, stripes_plan,
+                      triangular_lattice)
 from ..graphs.votes import seed_votes, validate_votes
 from ..kernel import board as kboard
 from ..kernel import cuda_lowered as clow
 from ..kernel.step import Spec, finalize_host
 from ..sampling.board_runner import (finalize_board_run, init_board,
                                      run_board_segment)
+from ..sampling.runner import init_batch, run_chains
 from ..stats import partisan
-from .artifacts import artifact_kinds, render_all, render_start
+from .artifacts import (artifact_kinds, render_all, render_generic,
+                        render_start)
 from .config import ExperimentConfig
 
 # what each family not ported here waits for (ROADMAP.md section A)
 _UNPORTED_FAMILIES = {
     "kpair": "A7 (the k-district pair walk)",
-    "tri": "A6 (the general and dense paths)",
-    "hex": "A6 (the general and dense paths)",
-    "dual": "A6 and A7 (the dual graphs and the pair walk)",
+    "dual": "A7 (the dual graphs and the pair walk)",
     "temper": "A8 (tempering)",
 }
 
@@ -101,8 +110,9 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.family in _UNPORTED_FAMILIES:
         raise ValueError(
             f"family {cfg.family!r} is not ported: it waits for ROADMAP.md "
-            f"{_UNPORTED_FAMILIES[cfg.family]}; sec11 and frank run here")
-    if cfg.family not in ("sec11", "frank"):
+            f"{_UNPORTED_FAMILIES[cfg.family]}; sec11, frank, tri and hex "
+            "run here")
+    if cfg.family not in ("sec11", "frank", "tri", "hex"):
         raise ValueError(f"family {cfg.family!r}")
     if cfg.chain != "flip":
         raise ValueError(f"chain {cfg.chain!r} is not ported: it waits for "
@@ -110,10 +120,12 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.analytics != "history":
         raise ValueError(f"analytics {cfg.analytics!r} is not ported: it "
                          "waits for ROADMAP.md A5 (device analytics)")
-    if cfg.variant != "none":
-        raise ValueError(f"variant {cfg.variant!r} is not ported: the JAX "
-                         "package runs it on its general kernel, which "
-                         "waits for ROADMAP.md A6")
+    if cfg.family in ("sec11", "frank") and (cfg.variant != "none"
+                                             or cfg.contiguity == "exact"):
+        raise ValueError(
+            f"{cfg.family} with variant {cfg.variant!r} / contiguity "
+            f"{cfg.contiguity!r} runs the general path with the interface "
+            "metrics, which wait for ROADMAP.md A6b")
 
 
 def build_graph_and_plan(cfg: ExperimentConfig):
@@ -125,18 +137,34 @@ def build_graph_and_plan(cfg: ExperimentConfig):
     if cfg.family == "frank":
         g = frankengraph()
         return g, frank_plan(g, cfg.alignment), None
+    if cfg.family == "tri":
+        g = triangular_lattice(cfg.lattice_m, cfg.lattice_n)
+        return g, stripes_plan(g, 2, axis=cfg.alignment), None
+    if cfg.family == "hex":
+        g = hex_lattice(cfg.lattice_m, cfg.lattice_n)
+        return g, stripes_plan(g, 2, axis=cfg.alignment), None
     _check_ported(cfg)          # raises, naming the ROADMAP item
     raise ValueError(f"family {cfg.family!r}")
 
 
 def spec_for(cfg: ExperimentConfig) -> Spec:
-    """The kernel Spec of the reference families: the reference's full
-    metric set, the wall-interface slopes included."""
+    """The kernel Spec a family's walk runs under: sec11 and frank keep
+    the reference's full metric set, the wall-interface slopes included;
+    tri and hex record no interface. ``cfg.variant`` maps onto the
+    Spec's proposal-variant flags last."""
     _check_ported(cfg)
-    return Spec(n_districts=2, proposal="bi", accept=cfg.accept,
-                record_interface=True, contiguity=cfg.contiguity,
-                invalid="repropose", parity_metrics=True, geom_waits=True,
+    spec = Spec(n_districts=2, proposal="bi", accept=cfg.accept,
+                record_interface=cfg.family in ("sec11", "frank"),
+                contiguity=cfg.contiguity, invalid="repropose",
+                parity_metrics=True, geom_waits=True,
                 propose_parallel=cfg.propose_parallel)
+    if cfg.variant == "none":
+        return spec
+    if cfg.variant == "nobacktrack":
+        return dataclasses.replace(spec, nobacktrack=True)
+    if cfg.variant == "lazy":
+        return dataclasses.replace(spec, lazy_uniform=True)
+    raise ValueError(f"variant {cfg.variant!r}")
 
 
 def _labels_for(cfg: ExperimentConfig) -> np.ndarray:
@@ -156,13 +184,14 @@ def count_artifacts(cfg: ExperimentConfig, outdir: str) -> int:
 
 
 def _init_run(cfg: ExperimentConfig, g, plan, spec: Spec, device):
-    """(BoardGraph, BoardState, StepParams) on ``device``, or ValueError
-    when the lowered-chunk kernel does not serve (graph, spec)."""
+    """(use_board, (graph handle, state, StepParams)) on ``device``: the
+    board path on the lowered-chunk kernel where
+    ``kernel.board.supports`` holds (ValueError where that kernel does
+    not serve the spec), else the general runner's triple."""
     if not kboard.supports(g, spec):
-        raise ValueError(
-            f"{cfg.tag}: the board path does not serve {spec}; the JAX "
-            "package runs it on its general kernel, which waits for "
-            "ROADMAP.md A6")
+        return False, init_batch(g, plan, n_chains=cfg.n_chains,
+                                 seed=cfg.seed, spec=spec, base=cfg.base,
+                                 pop_tol=cfg.pop_tol, device=device)
     bg, state, params = init_board(g, plan, n_chains=cfg.n_chains,
                                    seed=cfg.seed, spec=spec, base=cfg.base,
                                    pop_tol=cfg.pop_tol, device=device)
@@ -170,13 +199,13 @@ def _init_run(cfg: ExperimentConfig, g, plan, spec: Spec, device):
         raise ValueError(
             f"{cfg.tag}: the lowered-chunk kernel does not serve {spec}; "
             "its accept rules and annealing wait for ROADMAP.md B4")
-    return bg, state, params
+    return True, (bg, state, params)
 
 
 def run_config(cfg: ExperimentConfig, outdir: str,
                checkpoint_dir: Optional[str] = None,
                device="cuda") -> dict:
-    """Run one config on ``device`` and write its 13 artifacts to
+    """Run one config on ``device`` and write its artifacts to
     ``outdir``. Returns the run's data: the JAX package's keys, plus
     ``seconds`` (the chains, from the first segment to the assembled
     result) and ``render_seconds`` (the artifacts)."""
@@ -194,11 +223,19 @@ def run_config(cfg: ExperimentConfig, outdir: str,
     data["seconds"] = time.monotonic() - t0
     data["partisan"] = _partisan_summary(cfg, g, data)
     t_r = time.monotonic()
-    render_all(g, cfg.family, outdir, cfg.tag,
-               end_signed=data["end_signed"], cut_times=data["cut_times"],
-               part_sum=data["part_sum"], num_flips=data["num_flips"],
-               slopes=data["slopes"], angles=data["angles"],
-               waits_sum=data["waits_sum"])
+    if cfg.family in ("sec11", "frank"):
+        render_all(g, cfg.family, outdir, cfg.tag,
+                   end_signed=data["end_signed"],
+                   cut_times=data["cut_times"], part_sum=data["part_sum"],
+                   num_flips=data["num_flips"], slopes=data["slopes"],
+                   angles=data["angles"], waits_sum=data["waits_sum"])
+    else:
+        render_generic(g, outdir, cfg.tag, kinds=artifact_kinds(cfg.family),
+                       end_signed=data["end_signed"],
+                       cut_times=data["cut_times"],
+                       num_flips=data["num_flips"],
+                       part_sum=data["part_sum"],
+                       waits_sum=data["waits_sum"])
     data["render_seconds"] = render_s + time.monotonic() - t_r
     return data
 
@@ -207,18 +244,19 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
                _stop_after_segments: Optional[int] = None, device="cuda",
                run=None) -> dict:
     """The batched run, in checkpoint segments when cfg.checkpoint_every
-    > 0: ``run_board_segment`` per segment (its history kept on the
-    device and copied to the host once a segment), a checkpoint after
-    each, then the final record. The segmented run equals an
-    uninterrupted one bit for bit: the PRNG keys live in the chain state,
-    and segments record no trailing yield. ``_stop_after_segments``
-    simulates an interruption for tests; ``run`` is ``_init_run``'s
-    triple when the caller made it already."""
+    > 0, a checkpoint after each. The board path runs
+    ``run_board_segment`` per segment (its history kept on the device and
+    copied to the host once a segment), then the final record; the
+    general path runs ``run_chains`` per segment, the first recording the
+    initial state. The segmented run equals an uninterrupted one bit for
+    bit: the PRNG keys live in the chain state. ``_stop_after_segments``
+    simulates an interruption for tests; ``run`` is ``_init_run``'s pair
+    when the caller made it already."""
     dev = resolve_device(device)
     spec = spec_for(cfg)
-    bg, states, params = (run if run is not None
-                          else _init_run(cfg, g, plan, spec, dev))
-    done = 0   # transitions advanced
+    use_board, (handle, states, params) = (
+        run if run is not None else _init_run(cfg, g, plan, spec, dev))
+    done = 0   # transitions advanced (board) / yields recorded (general)
     n_parts = 0
     hist_parts: dict = {}
     waits_total = np.zeros(cfg.n_chains, np.float64)
@@ -234,15 +272,19 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
             f"multiple of record_every ({cfg.record_every}): each segment "
             f"thins relative to its own start, so off-grid segment "
             f"boundaries would silently skew the recorded time grid")
-    total = cfg.total_steps - 1
+    total = cfg.total_steps - (1 if use_board else 0)
     segments = 0
     while done < total:
         n = min(every, total - done)
-        # the segment's history stays on the device and comes to the host
-        # in one copy a key
-        res = run_board_segment(bg, spec, params, states, n,
-                                record_every=cfg.record_every,
-                                history_device=True, device=dev)
+        if use_board:
+            res = run_board_segment(handle, spec, params, states, n,
+                                    record_every=cfg.record_every,
+                                    history_device=True, device=dev)
+        else:
+            res = run_chains(handle, spec, params, states, n_steps=n,
+                             record_initial=(done == 0),
+                             record_every=cfg.record_every,
+                             history_device=True)
         states = res.state
         seg_hist = {k: v.cpu().numpy() for k, v in res.history.items()}
         for k, v in seg_hist.items():
@@ -257,34 +299,50 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
         if _stop_after_segments and segments >= _stop_after_segments:
             raise _SegmentStop(done)
 
+    if not use_board:
+        history = {k: np.concatenate(v, axis=1)
+                   for k, v in hist_parts.items()}
+        return assemble_run_data(cfg, g, handle, states, history,
+                                 waits_total, use_board=False)
     # the final yield (no trailing transition) and its wait bookkeeping
-    res = finalize_board_run(bg, spec, params, states, hist_parts,
+    res = finalize_board_run(handle, spec, params, states, hist_parts,
                              waits_total, [], True, cfg.total_steps,
                              cfg.record_every)
-    return assemble_run_data(cfg, g, bg, res.state, res.history,
+    return assemble_run_data(cfg, g, handle, res.state, res.history,
                              res.waits_total)
 
 
 def assemble_run_data(cfg: ExperimentConfig, g, handle, states,
-                      history: dict, waits_total) -> dict:
-    """The run epilogue: host readback, canvas -> node order (lowered
-    canvases carry hole cells that must not reach the artifacts), and
-    the reference's final-accumulator bookkeeping (finalize_host, with
-    the reference's t after the loop, grid_chain_sec11.py:402).
-    ``state`` in the result holds the final state's fields as numpy
-    arrays."""
+                      history: dict, waits_total,
+                      use_board: bool = True) -> dict:
+    """The run epilogue: host readback, canvas -> node order on the board
+    path (lowered canvases carry hole cells that must not reach the
+    artifacts), and the reference's final-accumulator bookkeeping
+    (finalize_host, with the reference's t after the loop,
+    grid_chain_sec11.py:402). ``state`` in the result holds the final
+    state's fields as numpy arrays."""
     labels = _labels_for(cfg)
     s = to_numpy(states)
-    assign0 = kboard.node_view(handle, s["board"][0]).astype(np.int64)
-    c0 = SimpleNamespace(
-        part_sum=kboard.node_view(handle, s["part_sum"][0]),
-        last_flipped=kboard.node_view(handle, s["last_flipped"][0]),
-        num_flips=kboard.node_view(handle, s["num_flips"][0]))
+    if use_board:
+        assign0 = kboard.node_view(handle, s["board"][0]).astype(np.int64)
+        c0 = SimpleNamespace(
+            part_sum=kboard.node_view(handle, s["part_sum"][0]),
+            last_flipped=kboard.node_view(handle, s["last_flipped"][0]),
+            num_flips=kboard.node_view(handle, s["num_flips"][0]))
+        cut_times = kboard.edge_cut_times(g, states)[0]
+        assignments = kboard.node_view(handle, s["board"])
+    else:
+        assign0 = s["assignment"][0].astype(np.int64)
+        c0 = SimpleNamespace(part_sum=s["part_sum"][0],
+                             last_flipped=s["last_flipped"][0],
+                             num_flips=s["num_flips"][0])
+        cut_times = s["cut_times"][0]
+        assignments = s["assignment"]
     part_sum, _ = finalize_host(c0, labels, cfg.total_steps,
                                 assignment=assign0)
     return {
         "end_signed": labels[assign0],
-        "cut_times": kboard.edge_cut_times(g, states)[0],
+        "cut_times": cut_times,
         "part_sum": part_sum,
         "num_flips": np.asarray(c0.num_flips),
         "slopes": history["slope"][0] if "slope" in history else None,
@@ -293,7 +351,7 @@ def assemble_run_data(cfg: ExperimentConfig, g, handle, states,
         "history": history,
         "waits_all": waits_total,
         "state": s,
-        "assignments": kboard.node_view(handle, s["board"]),
+        "assignments": assignments,
     }
 
 
@@ -315,7 +373,7 @@ def _partisan_summary(cfg: ExperimentConfig, g, data) -> dict:
 def run_sweep(configs, outdir: str, checkpoint_dir: Optional[str] = None,
               verbose: bool = True, device="cuda") -> list:
     """The bare fail-fast sweep with skip-if-done resume: a config whose
-    13 artifacts exist is skipped; the first failure propagates. Returns
+    artifacts all exist is skipped; the first failure propagates. Returns
     [(cfg, data)] of the configs run. A config this package has not
     ported is refused before any config runs."""
     configs = list(configs)

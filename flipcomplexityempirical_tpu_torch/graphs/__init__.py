@@ -1,7 +1,9 @@
-from .lattice import LatticeGraph, build_lattice
+from .lattice import DeviceGraph, LatticeGraph, build_lattice
 from .builders import (PARITY_LABELS, frank_plan, frankengraph, grid_sec11,
-                       sec11_plan, square_grid, stripes_plan)
+                       hex_lattice, sec11_plan, square_grid, stripes_plan,
+                       triangular_lattice)
 
-__all__ = ["LatticeGraph", "build_lattice", "square_grid", "stripes_plan",
-           "grid_sec11", "frankengraph", "sec11_plan", "frank_plan",
+__all__ = ["DeviceGraph", "LatticeGraph", "build_lattice", "square_grid",
+           "stripes_plan", "grid_sec11", "frankengraph",
+           "triangular_lattice", "hex_lattice", "sec11_plan", "frank_plan",
            "PARITY_LABELS"]

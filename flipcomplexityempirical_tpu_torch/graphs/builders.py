@@ -2,14 +2,16 @@
 
 The port's copies of ``square_grid`` (with edge and node surgery, queen
 diagonals, walls, frame and center), ``grid_sec11``, ``frankengraph``,
-``sec11_plan``, ``frank_plan``, ``stripes_plan`` and ``PARITY_LABELS``
-from ``flipcomplexityempirical_tpu/graphs/builders.py``.
+``triangular_lattice``, ``hex_lattice``, ``sec11_plan``, ``frank_plan``,
+``stripes_plan`` and ``PARITY_LABELS`` from
+``flipcomplexityempirical_tpu/graphs/builders.py``.
 
-The JAX package builds the Frankengraph's two halves with networkx's
-``grid_graph`` and ``triangular_lattice_graph``. This package draws the
-same node labels and edges by hand (``_triangular_lattice``), so it does
-not need networkx; ``build_lattice`` canonicalises the order, so the
-result equals the JAX package's graph field for field.
+The JAX package builds the triangular and hexagonal lattices (and the
+Frankengraph's two halves) with networkx's generators. This package draws
+the same node labels and edges by hand (``_triangular_lattice``,
+``_hexagonal_lattice``), so it does not need networkx; ``build_lattice``
+canonicalises the order, so the result equals the JAX package's graph
+field for field.
 """
 
 from __future__ import annotations
@@ -105,6 +107,55 @@ def _triangular_lattice(m: int, n: int) -> list:
         gone = {(big_n, j) for j in rows[1::2]}
         edges = [e for e in edges if e[0] not in gone and e[1] not in gone]
     return edges
+
+
+def _hexagonal_lattice(m: int, n: int) -> list:
+    """Edge list of networkx's ``hexagonal_lattice_graph(m, n)``
+    (non-periodic): nodes (i, j) with i in [0, n] and j in [0, 2m + 1];
+    column edges (i, j)-(i, j + 1), row edges (i, j)-(i + 1, j) where i
+    and j have the same parity; the corner nodes (0, 2m + 1) and
+    (n, (2m + 1) * (n % 2)) are removed with their edges."""
+    big_m = 2 * m
+    rows, cols = range(big_m + 2), range(n + 1)
+    edges = [((i, j), (i, j + 1)) for i in cols for j in rows[:big_m + 1]]
+    edges += [((i, j), (i + 1, j)) for i in cols[:n] for j in rows
+              if i % 2 == j % 2]
+    gone = {(0, big_m + 1), (n, (big_m + 1) * (n % 2))}
+    return [e for e in edges if e[0] not in gone and e[1] not in gone]
+
+
+def _label_center(labels) -> tuple:
+    xs = [x for (x, _) in labels]
+    ys = [y for (_, y) in labels]
+    return ((min(xs) + max(xs)) / 2.0, (min(ys) + max(ys)) / 2.0)
+
+
+def _from_edges(edges, **kwargs) -> LatticeGraph:
+    adjacency: dict = {}
+    for u, v in edges:
+        adjacency.setdefault(u, []).append(v)
+        adjacency.setdefault(v, []).append(u)
+    center = kwargs.pop("center", None) or _label_center(adjacency)
+    return build_lattice(adjacency, center=center, **kwargs)
+
+
+def triangular_lattice(m: int, n: int, *, name: str | None = None,
+                       frame=None, wall=None, center=None) -> LatticeGraph:
+    """networkx's ``triangular_lattice_graph(m, n)`` (the reference's
+    generator, Frankenstein_chain.py:188), coordinates = labels, center
+    the labels' bounding-box middle."""
+    return _from_edges(_triangular_lattice(m, n), name=name or f"tri{m}x{n}",
+                       frame=frame, wall=wall, center=center)
+
+
+def hex_lattice(m: int, n: int, *, name: str | None = None,
+                frame=None, wall=None, center=None) -> LatticeGraph:
+    """networkx's ``hexagonal_lattice_graph(m, n)`` (degree <= 3), with
+    radius-3 patches: neighbours of a flipped node reconnect around a
+    hexagonal face through distance-3 nodes."""
+    return _from_edges(_hexagonal_lattice(m, n), name=name or f"hex{m}x{n}",
+                       frame=frame, wall=wall, center=center,
+                       patch_radius=3)
 
 
 def frankengraph(m: int = 20) -> LatticeGraph:

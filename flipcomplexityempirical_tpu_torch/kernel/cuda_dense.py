@@ -1,0 +1,253 @@
+"""The general-dense chunk kernel: its wrapper, its plain version, its
+contract.
+
+``run_general_dense_chunk_cuda`` runs ``t_inner`` steps of the JAX
+package's ``general_dense`` body (``kernel/dense.py::transition``, then
+``kernel/step.py::record``) for every chain of a ``ChainState``. On CUDA
+tensors it launches the hand-written kernel of
+``csrc/general_dense_chunk.cu`` (built on first use by ``_build``; one
+warp per chain, the assignment, boundary, contiguity, valid and flipped
+sets bit-packed in shared memory); on CPU tensors it runs
+``general_dense_chunk_reference``, the step-by-step PyTorch replay of
+``kernel/dense.py`` and ``kernel/step.py::record``. Both draw the JAX
+package's threefry stream from the state's keys, so they agree with the
+JAX package draw for draw.
+
+The kernel's scope (``supports``): the 2-district 'bi' proposal under
+re-propose semantics, accept 'cut', no annealing, contiguity 'patch' or
+'none' on a graph whose patches fit 32 slots, ``nobacktrack``,
+``lazy_uniform``, ``parity_metrics``, ``geom_waits``. ``check`` refuses
+the rest, naming the ROADMAP.md item that ports it; the runner never
+runs the plain version in the kernel's place on the card.
+
+    kernel inputs:  the static tables of ``make_static_inputs``; per chain
+        key (2, C), assignment (C, N) int8, cut (C, E) int8, cut_deg
+        (C, N) int8, dist_pop (2, C), conn_bits (C, W) int32 bit patterns
+        (or none: the kernel then fills the plane from the assignment, as
+        ``dense.ensure_conn_bits`` does),
+        scal (6, C) f32 [log_base, beta, pop_lo, pop_hi, cur_wait,
+        waits_sum], ints (8, C) [cut_count, b_count, cur_flip_node,
+        t_yield, move_clock, accept_count, tries_sum, exhausted_count],
+        part_sum, last_flipped, num_flips (C, N) and cut_times (C, E);
+    kernel outputs: the same per-chain fields after the chunk (scal as
+        [cur_wait, waits_sum]), and the (T, C) rows cut_count, b_count,
+        wait, accepts and, under ``lazy_uniform``, weight.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from .. import rng
+from . import dense
+from . import step as kstep
+from .step import Spec, StepParams, geom_denom_finite
+
+# shared memory holds five planes of ceil(N / 32) words for each of a
+# block's four chains
+MAX_NODES = 1 << 16
+
+ROW_NAMES = ("cut_count", "b_count", "wait", "accepts", "weight")
+
+
+@dataclasses.dataclass
+class DenseStatic:
+    """The kernel's graph tables as contiguous int32 tensors on the run's
+    device, made once a run."""
+
+    nbr: torch.Tensor          # (N, D)
+    nbr_edge: torch.Tensor     # (N, D)
+    deg: torch.Tensor          # (N,)
+    pop: torch.Tensor          # (N,)
+    patch_nodes: torch.Tensor  # (N, P)
+    patch_adj: torch.Tensor    # (N, P) uint32 bit patterns
+    edges: torch.Tensor        # (E, 2)
+    unit_pop: int              # every node's population, or 0 if it varies
+
+
+def _refusal(dg, spec: Spec):
+    """Why the kernel does not run (dg, spec), or None."""
+    if spec.proposal == "pair":
+        return ("proposal 'pair' waits for ROADMAP.md A7 (the pair walk "
+                "and its dense kernel)")
+    if spec.record_interface:
+        return "record_interface on the general path waits for ROADMAP.md A6b"
+    if spec.weighted_cut:
+        return ("weighted_cut (the dual graphs' boundary length) waits for "
+                "ROADMAP.md A7")
+    if spec.accept != "cut" or spec.anneal != "none":
+        return (f"accept {spec.accept!r} / anneal {spec.anneal!r} in the "
+                "dense kernel waits for ROADMAP.md B4 (the step tail's "
+                "accept rules)")
+    if spec.record_assignment_bits:
+        return ("record_assignment_bits in the dense kernel waits for "
+                "ROADMAP.md B9 (the general path's kernels)")
+    if not dense.supported(dg, spec) or spec.n_districts != 2:
+        return ("kernel.dense.supported rejects this (graph, spec); the "
+                "legacy body runs it (kernel_path='general')")
+    if dg.max_patch > 32:
+        return "patches above 32 slots do not fit the kernel's bitsets"
+    if dg.n_nodes > MAX_NODES or dg.max_deg > 32:
+        return (f"the kernel holds at most {MAX_NODES} nodes of degree at "
+                "most 32")
+    if spec.geom_waits and not geom_denom_finite(dg.n_nodes, 2):
+        return "geom_waits: n**2 - 1 overflows float32"
+    return None
+
+
+def supports(dg, spec: Spec) -> bool:
+    """True iff the kernel reproduces (dg, spec) (module docstring)."""
+    return _refusal(dg, spec) is None
+
+
+def check(dg, spec: Spec, params: StepParams) -> None:
+    """Raise unless the kernel reproduces the requested semantics."""
+    why = _refusal(dg, spec)
+    if why is not None:
+        raise ValueError(f"the general-dense kernel does not run {spec}: "
+                         f"{why}")
+    if params.label_values.numel() != 2:
+        raise ValueError("label_values must hold the two district labels")
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 uint32 values -> int32 bit patterns, contiguous."""
+    x = x.to(torch.int64) & rng.MASK32
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(
+        torch.int32).contiguous()
+
+
+def make_static_inputs(dg) -> DenseStatic:
+    pop = dg.pop
+    unit = int(pop[0]) if bool((pop == pop[0]).all()) and int(pop[0]) > 0 \
+        else 0
+    return DenseStatic(
+        nbr=_i32(dg.nbr), nbr_edge=_i32(dg.nbr_edge), deg=_i32(dg.deg),
+        pop=_i32(pop), patch_nodes=_i32(dg.patch_nodes),
+        patch_adj=_i32(dg.patch_adj), edges=_i32(dg.edges), unit_pop=unit)
+
+
+def general_dense_chunk_reference(dg, spec: Spec, params: StepParams, state,
+                                  t_inner: int):
+    """The plain version: the conn planes attached if absent, then
+    ``t_inner`` rounds of ``dense.transition`` and ``step.record``.
+    Returns (state, rows), rows {name: (T, C)}."""
+    state = dense.ensure_conn_bits(dg, spec, state)
+    return kstep.run_steps(dense.transition, dg, spec, params, state,
+                           t_inner)
+
+
+def _entry(lib):
+    """``lib``'s ``fce_general_dense_chunk`` with its C signature: 37
+    pointers, 15 ints and the stream."""
+    fn = lib.fce_general_dense_chunk
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 37 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
+            state, t_inner: int):
+    c, n = state.assignment.shape
+    e = dg.n_edges
+    dev = state.assignment.device
+    i32, f32 = torch.int32, torch.float32
+    nw = dense.n_words(n)
+    key = _i32(state.key).T.contiguous()
+    dist_pop = state.dist_pop.to(i32).T.contiguous()
+    fill = state.conn_bits is None
+    conn = (torch.empty((c, 0), dtype=i32, device=dev) if fill
+            else _i32(state.conn_bits))
+    scal = torch.stack([x.expand(c) for x in (
+        params.log_base, params.beta, params.pop_lo, params.pop_hi,
+        state.cur_wait, state.waits_sum)]).to(f32).contiguous()
+    ints = torch.stack([state.cut_count, state.b_count, state.cur_flip_node,
+                        state.t_yield, state.move_clock, state.accept_count,
+                        state.tries_sum,
+                        state.exhausted_count]).to(i32).contiguous()
+    ins = [state.assignment.contiguous(), state.cut.contiguous(),
+           state.cut_deg.contiguous(), dist_pop, conn, scal, ints,
+           state.part_sum.contiguous(), state.last_flipped.contiguous(),
+           state.num_flips.contiguous(), state.cut_times.contiguous()]
+    for x, dtype in zip(ins[:3], (torch.int8,) * 3):
+        if x.dtype != dtype:
+            raise ValueError(f"expected {dtype}, got {x.dtype}")
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    outs = dict(
+        key=empty((2, c), i32), assignment=empty((c, n), torch.int8),
+        cut=empty((c, e), torch.int8), cut_deg=empty((c, n), torch.int8),
+        dist_pop=empty((2, c), i32), conn=empty((c, nw), i32),
+        scal=empty((2, c), f32), ints=empty((8, c), i32),
+        part_sum=empty((c, n), i32), last_flipped=empty((c, n), i32),
+        num_flips=empty((c, n), i32), cut_times=empty((c, e), i32))
+    rows = dict(cut_count=empty((t_inner, c), i32),
+                b_count=empty((t_inner, c), i32),
+                wait=empty((t_inner, c), f32),
+                accepts=empty((t_inner, c), i32))
+    rows["weight"] = (empty((t_inner, c), f32) if spec.lazy_uniform
+                      else None)
+    scratch = empty((c, n), i32)
+    ptrs = [static.nbr, static.nbr_edge, static.deg, static.pop,
+            static.patch_nodes, static.patch_adj, static.edges, key, *ins,
+            *outs.values(), *(rows[k] for k in ROW_NAMES[:4])]
+    ptrs = [x.data_ptr() for x in ptrs]
+    ptrs.append(rows["weight"].data_ptr() if spec.lazy_uniform else None)
+    ptrs.append(scratch.data_ptr())
+    labels = [int(x) for x in params.label_values.cpu()]
+    with torch.cuda.device(dev):
+        err = _entry(lib)(
+            *ptrs, c, n, e, dg.max_deg, dg.max_patch, t_inner,
+            int(spec.contiguity == "patch"), int(spec.geom_waits),
+            int(spec.nobacktrack), int(spec.lazy_uniform),
+            int(spec.parity_metrics), int(fill), static.unit_pop, labels[0],
+            labels[1],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"general_dense_chunk launch failed: CUDA error "
+                           f"{err}")
+    ints_o, scal_o = outs["ints"], outs["scal"]
+    new = state.replace(
+        key=outs["key"].T.to(torch.int64) & rng.MASK32,
+        assignment=outs["assignment"], cut=outs["cut"],
+        cut_deg=outs["cut_deg"], dist_pop=outs["dist_pop"].T.contiguous(),
+        cut_count=ints_o[0], b_count=ints_o[1], cur_wait=scal_o[0],
+        cur_flip_node=ints_o[2], t_yield=ints_o[3], move_clock=ints_o[4],
+        part_sum=outs["part_sum"], last_flipped=outs["last_flipped"],
+        num_flips=outs["num_flips"], cut_times=outs["cut_times"],
+        waits_sum=scal_o[1], accept_count=ints_o[5], tries_sum=ints_o[6],
+        exhausted_count=ints_o[7],
+        conn_bits=outs["conn"].to(torch.int64) & rng.MASK32)
+    return new, {k: v for k, v in rows.items() if v is not None}
+
+
+def run_general_dense_chunk_cuda(dg, static: DenseStatic, spec: Spec,
+                                 params: StepParams, state, t_inner: int):
+    """One chunk for every chain: (state, rows {name: (T, C)}), the state
+    carrying its conn planes (filled first where it came without). CUDA
+    tensors launch the kernel; CPU tensors run the plain version.
+    ``run_general_dense_chunk_cuda.launches`` counts kernel launches."""
+    check(dg, spec, params)
+    if t_inner < 1:
+        raise ValueError(f"t_inner {t_inner} < 1")
+    dev = state.assignment.device
+    if dev.type == "cuda":
+        from . import _build
+        out = _launch(_build.load("general_dense_chunk"), dg, static, spec,
+                      params, state, t_inner)
+        run_general_dense_chunk_cuda.launches += 1
+        return out
+    if dev.type == "cpu":
+        return general_dense_chunk_reference(dg, spec, params, state,
+                                             t_inner)
+    raise ValueError(f"no general-dense chunk path for device {dev}")
+
+
+run_general_dense_chunk_cuda.launches = 0

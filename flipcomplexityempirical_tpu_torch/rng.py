@@ -81,27 +81,42 @@ def split(keys: torch.Tensor, num: int) -> torch.Tensor:
     """``jax.random.split`` over a batch of raw keys: (..., 2) ->
     (..., num, 2). Partitionable threefry: key i is the block of counter
     (0, i)."""
-    keys = _u32(keys)
-    ctr = torch.arange(num, dtype=torch.int64, device=keys.device)
-    b0, b1 = threefry2x32(keys[..., 0:1], keys[..., 1:2],
-                          torch.zeros_like(ctr), ctr)
+    b0, b1 = blocks(keys[..., None, :], range(num))
     return torch.stack([b0, b1], dim=-1)
+
+
+def _blocks(keys: torch.Tensor, ctr: torch.Tensor) -> tuple:
+    keys = _u32(keys)
+    ctr = _u32(ctr, keys)
+    return threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(ctr),
+                        ctr)
+
+
+def blocks(keys: torch.Tensor, ctr) -> tuple:
+    """The two words of each key's threefry block at counter (0, ctr):
+    (..., 2) keys against broadcastable counters. ``split`` takes the
+    blocks at 0 .. num - 1, ``random_bits32`` the XOR of the block at 0;
+    stacking keys and counters draws several of them in one pass."""
+    return _blocks(keys, torch.as_tensor(ctr, device=keys.device))
+
+
+def uniform_of(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform``'s f32 from 32 random bits (int64 values)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
 
 
 def random_bits32(keys: torch.Tensor) -> torch.Tensor:
     """One 32-bit word per key, as ``jax.random.bits(key, (), uint32)``:
     the XOR of the two words of the block at counter (0, 0)."""
-    keys = _u32(keys)
-    zero = torch.zeros_like(keys[..., 0])
-    b0, b1 = threefry2x32(keys[..., 0], keys[..., 1], zero, zero)
+    b0, b1 = blocks(keys, 0)
     return b0 ^ b1
 
 
 def uniform(keys: torch.Tensor) -> torch.Tensor:
     """``jax.random.uniform(key)`` (f32 scalar in [0, 1)) per key: the top
     23 bits as the mantissa of a float in [1, 2), minus 1 — exact."""
-    bits = (random_bits32(keys) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    return uniform_of(random_bits32(keys))
 
 
 def _mulhilo(a: torch.Tensor, m: int):

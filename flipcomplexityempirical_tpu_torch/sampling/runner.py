@@ -1,8 +1,11 @@
-"""Run results and the helpers shared by the runners.
+"""Run results, the helpers shared by the runners, and the general runner.
 
-Port of ``RunResult``, ``pick_chunk``, ``snap_chunk_to``, ``pop_bounds``,
-``default_label_values``, ``maybe_host`` and ``assemble_history`` from
-``flipcomplexityempirical_tpu/sampling/runner.py``. Long-horizon wait sums
+Port of ``flipcomplexityempirical_tpu/sampling/runner.py``: ``RunResult``,
+``pick_chunk``, ``snap_chunk_to``, ``pop_bounds``,
+``default_label_values``, ``maybe_host``, ``assemble_history``,
+``thin_outs``, and the general path's ``init_batch`` and ``run_chains``
+(without the obs recorder, the device analytics and the degradation
+ladder, which this package has not ported). Long-horizon wait sums
 accumulate on the host in float64 from per-chunk float32 partial sums.
 """
 
@@ -13,8 +16,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import rng
 from ..convert import to_numpy
+from ..device import resolve_device
 from ..graphs.lattice import LatticeGraph
+from ..kernel import cuda_dense, dense
+from ..kernel import step as kstep
+from ..state.chain_state import init_state
 
 
 @dataclasses.dataclass
@@ -80,3 +88,154 @@ def assemble_history(hist_parts: dict, record_history: bool,
     if history_device:
         return {k: torch.cat(v, dim=1) for k, v in hist_parts.items()}
     return {k: np.concatenate(v, axis=1) for k, v in hist_parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# The general runner: ChainState batches on the legacy or the dense body
+# ---------------------------------------------------------------------------
+
+def init_batch(graph: LatticeGraph, assignment: np.ndarray, n_chains: int,
+               seed: int, spec, base: float, pop_tol: float,
+               label_values=None, beta=1.0, device="cuda") -> tuple:
+    """(DeviceGraph, batched ChainState, StepParams) on ``device``: the
+    chains' keys are ``split(PRNGKey(seed), n_chains)`` and each chain
+    starts as ``init_state`` does, its initial wait drawn."""
+    dev = resolve_device(device)
+    dg = graph.device(dev)
+    k = spec.n_districts
+    if label_values is None:
+        label_values = default_label_values(k)
+    lo, hi = pop_bounds(graph, k, pop_tol)
+    params = kstep.make_params(base, lo, hi, label_values, beta=beta,
+                               n_chains=n_chains, device=dev)
+    keys = rng.split(rng.prng_key(seed, device=dev), n_chains)
+    siw = None
+    if spec.geom_waits:
+        def siw(kw, b):
+            return kstep.sample_geom_minus1(kw, b, graph.n_nodes, k)
+    a0 = torch.as_tensor(np.asarray(assignment, np.int8), device=dev)
+    states = init_state(dg, a0, k, keys, params.label_values,
+                        sample_initial_wait=siw, proposal=spec.proposal)
+    return dg, states, params
+
+
+def thin_outs(outs: dict, every: int, offset=None) -> dict:
+    """Stride a chunk's (T, C) history block before it leaves the device:
+    rows offset, offset + every, ... (offset ``every - 1`` by default, so
+    record-after-transition chunks land on the grid 0, every, 2 every ...
+    shared with the initial record)."""
+    if every == 1:
+        return outs
+    if offset is None:
+        offset = every - 1
+    return {k: v[offset::every] for k, v in outs.items()}
+
+
+def _run_chunk(dg, spec, params, states, chunk: int, path: str,
+               static=None):
+    """``chunk`` rounds of transition and record: (states, {name: (T, C)}).
+    ``general_dense`` on the card is the kernel (``static`` its tables);
+    elsewhere the bodies run as torch ops (``kernel/dense.py``,
+    ``kernel/step.py``)."""
+    if static is not None:
+        return cuda_dense.run_general_dense_chunk_cuda(
+            dg, static, spec, params, states, chunk)
+    trans = dense.transition if path == "general_dense" else kstep.transition
+    return kstep.run_steps(trans, dg, spec, params, states, chunk)
+
+
+def resolve_kernel_path(dg, spec, kernel_path=None) -> str:
+    """'general_dense' or 'general', as the JAX package's ``run_chains``
+    resolves it: None takes the dense body where ``dense.supported``
+    holds, a demanded 'general_dense' that it rejects raises."""
+    if kernel_path is None:
+        return "general_dense" if dense.supported(dg, spec) else "general"
+    if kernel_path == "general_dense":
+        if not dense.supported(dg, spec):
+            raise ValueError("kernel_path='general_dense' demanded but "
+                             "kernel.dense.supported rejects this (graph, "
+                             "spec)")
+        return kernel_path
+    if kernel_path == "general":
+        return kernel_path
+    raise ValueError(f"kernel_path {kernel_path!r}: the general runner takes "
+                     "'general_dense' | 'general' | None")
+
+
+def run_chains(dg, spec, params, states, n_steps: int,
+               record_history: bool = True, chunk=None,
+               record_initial: bool = True, record_every: int = 1,
+               history_device: bool = False, kernel_path=None,
+               recorder=None, analytics=None) -> RunResult:
+    """Run the batch for ``n_steps`` yields, the first the initial state
+    (as the reference's ``for part in exp_chain`` sees it); the JAX
+    package's ``run_chains``. ``record_initial=False`` continues an
+    earlier run whose last yield recorded the current state, so every
+    yield here is a fresh transition. ``record_every=k`` keeps yields 0,
+    k, 2k, ... of the history (the accumulators advance every step).
+    ``history_device`` keeps the history as tensors on the run's device.
+    Wait sums are drained into a host float64 total once a chunk.
+
+    ``kernel_path``: None resolves as the JAX package does
+    (``resolve_kernel_path``). On the card the ``general_dense`` chunk is
+    the kernel of ``kernel/cuda_dense.py``, launched once a chunk; a spec
+    beyond its scope raises, naming the ROADMAP.md item, and the plain
+    dense version never runs in its place. The legacy body ('general')
+    runs as torch ops on the run's device. The conn planes are attached
+    on entry (by the kernel itself on its first chunk) and stripped on
+    exit. ``recorder`` (obs events) and
+    ``analytics`` (device summaries) wait for ROADMAP.md A11 and A5."""
+    if recorder is not None:
+        raise ValueError("run_chains(recorder=...): obs events wait for "
+                         "ROADMAP.md A11")
+    if analytics is not None:
+        raise ValueError("run_chains(analytics=...): device analytics wait "
+                         "for ROADMAP.md A5")
+    kstep.check_general(spec)
+    if states.reject_count is not None:
+        raise ValueError("reject_count is not ported: the reject taxonomy "
+                         "waits for ROADMAP.md A11")
+    path = resolve_kernel_path(dg, spec, kernel_path)
+    dev = states.assignment.device
+    static = None
+    if path == "general_dense" and dev.type == "cuda":
+        cuda_dense.check(dg, spec, params)
+        static = cuda_dense.make_static_inputs(dg)
+    had_conn = states.conn_bits is not None
+    if path == "general_dense" and static is None:
+        states = dense.ensure_conn_bits(dg, spec, states)
+    elif path != "general_dense" and not had_conn:
+        states = dense.strip_conn_bits(states)
+    if record_every < 1:
+        raise ValueError(f"record_every must be >= 1, got {record_every}")
+    if chunk is None:
+        chunk = pick_chunk(n_steps + (0 if record_initial else 1), 4096)
+    if record_every > 1:
+        chunk = snap_chunk_to(chunk, record_every)
+
+    hist_parts = {} if record_history else None
+    done = 0
+    if record_initial:
+        states, out0 = kstep.record(dg, spec, params, states)
+        if record_history:
+            out0 = maybe_host(out0, history_device)
+            hist_parts = {k: [v[:, None]] for k, v in out0.items()}
+        done = 1
+    waits_total = states.waits_sum.cpu().numpy().astype(np.float64)
+    states = states.replace(waits_sum=torch.zeros_like(states.waits_sum))
+    while done < n_steps:
+        this = min(chunk, n_steps - done)
+        states, outs = _run_chunk(dg, spec, params, states, this, path,
+                                  static)
+        if record_history:
+            outs = maybe_host(thin_outs(outs, record_every), history_device)
+            for k, v in outs.items():
+                hist_parts.setdefault(k, []).append(v.T)
+        waits_total += states.waits_sum.cpu().numpy().astype(np.float64)
+        states = states.replace(waits_sum=torch.zeros_like(states.waits_sum))
+        done += this
+    history = assemble_history(hist_parts, record_history, history_device)
+    if not had_conn:
+        states = dense.strip_conn_bits(states)
+    return RunResult(state=states, history=history, waits_total=waits_total,
+                     n_yields=n_steps)

@@ -61,10 +61,12 @@ def assert_ulps_close(got, want, ulps=4, name="value"):
 
 def experiment_arrays(data: dict, wait_txt: str) -> dict:
     """A ``run_config`` data dict (either package's) as the fixture's
-    arrays; the state's key words as uint32, the JAX package's dtype."""
+    arrays; the state's key words as uint32, the JAX package's dtype.
+    Keys a family does not make (slopes and angles without interface
+    metrics) are left out."""
     out = {k: np.asarray(data[k]) for k in
            ("end_signed", "cut_times", "part_sum", "num_flips", "slopes",
-            "angles", "waits_all", "assignments")}
+            "angles", "waits_all", "assignments") if data[k] is not None}
     out["end_signed"] = out["end_signed"].astype(np.int8)
     out["assignments"] = out["assignments"].astype(np.int8)
     out.update({f"hist_{k}": np.asarray(v)
@@ -89,15 +91,19 @@ def assert_experiment_matches(got: dict, want: dict) -> int:
     assert sorted(got) == sorted(want)
     bad = assert_waits_close(got["hist_wait"], want["hist_wait"])
     n_bad = bad.sum(axis=1)
+    if "hist_weight" in want:                  # 1 + wait, lazy_uniform
+        np.testing.assert_array_equal(assert_waits_close(
+            got["hist_weight"], want["hist_weight"], "weight"), bad)
     assert_wait_sums_close(got["waits_all"], want["waits_all"], n_bad)
     for k in ("slopes", "angles", "hist_slope", "hist_angle"):
-        assert_ulps_close(got[k], want[k], name=k)
+        if k in want:
+            assert_ulps_close(got[k], want[k], name=k)
     for k in FLOAT_STATE:
         assert_wait_sums_close(got[k], want[k], n_bad, name=k)
     if n_bad[0] == 0:
         assert str(got["wait_txt"]) == str(want["wait_txt"])
-    skip = {"hist_wait", "waits_all", "slopes", "angles", "hist_slope",
-            "hist_angle", "wait_txt", *FLOAT_STATE}
+    skip = {"hist_wait", "hist_weight", "waits_all", "slopes", "angles",
+            "hist_slope", "hist_angle", "wait_txt", *FLOAT_STATE}
     for k in sorted(set(want) - skip):
         g, w = np.asarray(got[k]), np.asarray(want[k])
         assert g.shape == w.shape, k
@@ -107,3 +113,60 @@ def assert_experiment_matches(got: dict, want: dict) -> int:
             np.testing.assert_array_equal(g, w, err_msg=k)
             assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
     return int(n_bad.sum())
+
+
+def state_dict(state) -> dict:
+    """A chain state's fields (either package's, or a dict) as numpy
+    arrays, None fields left out."""
+    if isinstance(state, dict):
+        items = state.items()
+    else:
+        items = ((f, getattr(state, f)) for f in state.__dataclass_fields__)
+    return {k: np.asarray(v) for k, v in items if v is not None}
+
+
+def assert_chain_run_matches(got_state, got_hist: dict, got_waits,
+                             want_state, want_hist: dict, want_waits) -> int:
+    """Hold a general-path run (final state, (C, T) history, f64 wait
+    totals) against another under the module's rules: the waits (and the
+    lazy weights, 1 + wait) per the log-tie rule, the wait totals and the
+    float state fields within the number of differing waits of their
+    chain, every other field and history key equal in value. Returns the
+    differing waits."""
+    got_state, want_state = state_dict(got_state), state_dict(want_state)
+    assert sorted(got_hist) == sorted(want_hist)
+    assert sorted(got_state) == sorted(want_state)
+    n_bad = np.zeros(np.asarray(got_waits).shape[0], np.int64)
+    if "wait" in want_hist:
+        bad = assert_waits_close(got_hist["wait"], want_hist["wait"])
+        n_bad = bad.sum(axis=1)
+        if "weight" in want_hist:
+            wbad = assert_waits_close(got_hist["weight"],
+                                      want_hist["weight"], "weight")
+            np.testing.assert_array_equal(wbad, bad)
+    assert_wait_sums_close(got_waits, want_waits, n_bad)
+    for k in ("cur_wait", "waits_sum"):
+        assert_wait_sums_close(got_state[k], want_state[k], n_bad, name=k)
+    for k in sorted(set(want_hist) - {"wait", "weight"}):
+        np.testing.assert_array_equal(np.asarray(got_hist[k]),
+                                      np.asarray(want_hist[k]), err_msg=k)
+    for k in sorted(set(want_state) - {"cur_wait", "waits_sum"}):
+        g, w = got_state[k], want_state[k]
+        assert g.shape == w.shape, k
+        np.testing.assert_array_equal(g.astype(np.int64),
+                                      w.astype(np.int64), err_msg=k)
+    return int(n_bad.sum())
+
+
+def general_fixture_inputs(port, convert, graph, fx: dict, device):
+    """(DeviceGraph, ChainState, StepParams) on ``device`` from a general
+    fixture's ``init_*`` arrays and bounds (``test_torch_general_
+    fixture.py``), through the port's own converters."""
+    from types import SimpleNamespace
+    from flipcomplexityempirical_tpu_torch.kernel.step import make_params
+    state = convert.chain_state(SimpleNamespace(**{
+        k[5:]: v for k, v in fx.items() if k.startswith("init_")}),
+        device=device)
+    params = make_params(float(fx["base"]), fx["pop_lo"], fx["pop_hi"],
+                         [1, -1], n_chains=len(fx["pop_lo"]), device=device)
+    return graph.device(device), state, params

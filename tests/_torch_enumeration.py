@@ -173,15 +173,16 @@ def assert_matches_stationary(abits, states, pi, cuts, tv_tol=TV_TOL,
     assert cut_err < cut_tol, f"E|cut| relative error {cut_err:.4f}"
 
 
-def node_bits(states) -> np.ndarray:
-    """(K, N) float: node i's district (0/1) in each state."""
+def node_bits(states, n=N) -> np.ndarray:
+    """(K, n) float: node i's district (0/1) in each state."""
     m = np.asarray(states, np.int64)[:, None]
-    return ((m >> np.arange(N)) & 1).astype(float)
+    return ((m >> np.arange(n)) & 1).astype(float)
 
 
-def group_t(abits, chain, states, pi, cuts, groups=GROUPS) -> np.ndarray:
+def group_t(abits, chain, states, pi, cuts, groups=GROUPS,
+            n=N) -> np.ndarray:
     """Student t statistics of the pooled occupancy's E|cut| (entry 0)
-    and of each node's district-1 share (entries 1..N) against their
+    and of each node's district-1 share (entries 1..n) against their
     exact values under ``pi``. ``chain`` holds each board's chain (each
     chain contributes as many boards). The chains are independent, so the
     occupancies of ``groups`` disjoint sets of chains are independent
@@ -198,10 +199,84 @@ def group_t(abits, chain, states, pi, cuts, groups=GROUPS) -> np.ndarray:
     np.add.at(counts, (grp, idx), 1.0)
     emp = counts / counts.sum(axis=1, keepdims=True)
     obs = np.concatenate([np.asarray(cuts, float)[:, None],
-                          node_bits(states)], axis=1)
+                          node_bits(states, n)], axis=1)
     means = emp @ obs
     se = means.std(axis=0, ddof=1) / np.sqrt(groups)
     return (means.mean(axis=0) - pi @ obs) / se
+
+
+def patch_ok(graph, a, u) -> bool:
+    """The radius-r patch check of flipping node u of plan ``a`` (numpy,
+    from the graph's patch tables): u's same-district neighbours stay
+    connected inside u's patch without u."""
+    pn = graph.patch_nodes[u][:graph.patch_size[u]]
+    member = {s for s, x in enumerate(pn) if a[x] == a[u]}
+    seeds = [s for s in member if s < graph.deg[u]]
+    if len(seeds) <= 1:
+        return True
+    reach, todo = {seeds[0]}, [seeds[0]]
+    while todo:
+        s = todo.pop()
+        for t in member:
+            if (int(graph.patch_adj[u][s]) >> t) & 1 and t not in reach:
+                reach.add(t)
+                todo.append(t)
+    return all(s in reach for s in seeds)
+
+
+def build_dense_transition(graph, a0, base, pop_lo, pop_hi):
+    """The states reachable from plan ``a0`` and the exact transition
+    matrix of the rejection-free dense chain on ``graph`` (uniform over
+    the valid moves: boundary nodes whose flip keeps both population
+    bounds and passes the patch check; then the literal ``base**(-dcut)``
+    accept), as ``tests/test_dense.py``'s enumeration builds it. Returns
+    (states as bitmasks of the district-1 nodes, P, cut counts)."""
+    n = graph.n_nodes
+    edges = np.asarray(graph.edges)
+    pop = np.asarray(graph.pop, np.float64)
+
+    def arr(m):
+        return np.array([(m >> v) & 1 for v in range(n)], np.int64)
+
+    def valid(a):
+        dp = np.array([pop[a == 0].sum(), pop[a == 1].sum()])
+        out = []
+        for v in range(n):
+            nb = graph.nbr[v][graph.nbr_mask[v]]
+            if not (a[nb] != a[v]).any():
+                continue
+            if dp[a[v]] - pop[v] < pop_lo or dp[1 - a[v]] + pop[v] > pop_hi:
+                continue
+            if patch_ok(graph, a, v):
+                out.append(v)
+        return out
+
+    m0 = int((np.asarray(a0, np.int64) << np.arange(n)).sum())
+    index, order, moves, todo = {m0: 0}, [m0], {}, [m0]
+    while todo:
+        m = todo.pop()
+        moves[m] = valid(arr(m))
+        for v in moves[m]:
+            m2 = m ^ (1 << v)
+            if m2 not in index:
+                index[m2] = len(order)
+                order.append(m2)
+                todo.append(m2)
+    cuts = np.array([int((arr(m)[edges[:, 0]] != arr(m)[edges[:, 1]]).sum())
+                     for m in order])
+    P = np.zeros((len(order), len(order)))
+    for i, m in enumerate(order):
+        vs = moves[m]
+        if not vs:
+            raise ValueError("an absorbing state in the closure")
+        for v in vs:
+            j = index[m ^ (1 << v)]
+            acc = min(1.0, base ** float(cuts[i] - cuts[j]))
+            P[i, j] += acc / len(vs)
+            P[i, i] += (1.0 - acc) / len(vs)
+    if not np.allclose(P.sum(axis=1), 1.0):
+        raise ValueError("transition rows do not sum to 1")
+    return order, P, cuts
 
 
 def simulate(P, start, chains=CHAINS, steps=SAMPLES, seed=0):
@@ -218,13 +293,14 @@ def simulate(P, start, chains=CHAINS, steps=SAMPLES, seed=0):
     return out
 
 
-def pool_check(idx, states, pi, cuts):
+def pool_check(idx, states, pi, cuts, n=N):
     """(TV, relative E|cut| error, t statistics) of a (steps, chains) pool
-    of state indices, as ``chip_smoke.py`` reads the card's boards."""
+    of state indices, as ``chip_smoke.py`` reads the card's boards (of n
+    nodes)."""
     abits = np.asarray(states, np.int64)[idx.ravel()]
     chain = np.tile(np.arange(idx.shape[1]), idx.shape[0])
     tv, cut_err = occupancy_error(abits, states, pi, cuts)
-    return tv, cut_err, group_t(abits, chain, states, pi, cuts)
+    return tv, cut_err, group_t(abits, chain, states, pi, cuts, n=n)
 
 
 if __name__ == "__main__":

@@ -10,16 +10,25 @@ Tolerance: every output bit-equal (kernel and plain version share CUDA's
 NaN interface metrics compare equal).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from flipcomplexityempirical_tpu_torch import graphs, init_board, Spec
+from _parity import assert_chain_run_matches, general_fixture_inputs
+
+import flipcomplexityempirical_tpu_torch as port
+from flipcomplexityempirical_tpu_torch import (convert, graphs, init_board,
+                                               Spec)
 from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+from flipcomplexityempirical_tpu_torch.kernel import cuda_dense as cd
 from flipcomplexityempirical_tpu_torch.kernel import cuda_lowered as cl
 from flipcomplexityempirical_tpu_torch.kernel import probes
-from flipcomplexityempirical_tpu_torch.sampling import (run_board,
-                                                        run_board_cuda)
+from flipcomplexityempirical_tpu_torch.sampling import (init_batch,
+                                                        run_board,
+                                                        run_board_cuda,
+                                                        run_chains)
 
 
 @pytest.fixture
@@ -218,3 +227,86 @@ def test_rook_route_matches_plain_version(card, h, w, chains, t_len,
     res = run_board(bg, spec, params, st, n_steps=81, chunk=40, device=card)
     assert cl.run_lowered_chunk_cuda.launches == launches + 2
     assert res.state.cut_times_se is None and res.state.cut_times_sw is None
+
+
+def _dense_inputs(name, m, n, chains, tol, dev, pop_seed=None, **spec_kw):
+    g = getattr(graphs, name)(m, n)
+    if pop_seed is not None:
+        # a random population plane: the kernel's per-node gate
+        g = dataclasses.replace(g, pop=np.random.default_rng(
+            pop_seed).integers(1, 10, g.n_nodes).astype(np.int32))
+    spec = Spec(**spec_kw)
+    dg, st, params = init_batch(g, graphs.stripes_plan(g, 2),
+                                n_chains=chains, seed=4, spec=spec,
+                                base=1 / 0.3, pop_tol=tol, device=dev)
+    return spec, dg, st, params
+
+
+def _same_states(got, want):
+    for f in got.__dataclass_fields__:
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a, b.to(a.dtype)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,m,n,chains,tol,t_len,spec_kw,pop_seed", [
+    ("hex_lattice", 14, 28, 8, 0.1, 369, {}, None),
+    ("hex_lattice", 64, 64, 32, 0.1, 100, {}, None),
+    ("triangular_lattice", 14, 28, 16, 0.1, 100, {"nobacktrack": True},
+     None),
+    ("hex_lattice", 14, 28, 16, 0.1, 100, {"lazy_uniform": True}, None),
+    ("hex_lattice", 14, 28, 16, 0.1, 100, {"contiguity": "none"}, None),
+    ("hex_lattice", 14, 28, 16, 0.0, 50, {}, None),     # no valid move
+    ("hex_lattice", 14, 28, 16, 0.02, 200, {}, 5),      # random population
+])
+def test_general_dense_kernel_matches_plain_version(card, name, m, n, chains,
+                                                    tol, t_len, spec_kw,
+                                                    pop_seed):
+    """Every state field (the conn planes filled by the kernel on entry
+    included) and every history row bit-equal, in two chunks."""
+    spec, dg, st, params = _dense_inputs(name, m, n, chains, tol, card,
+                                         pop_seed, **spec_kw)
+    static = cd.make_static_inputs(dg)
+    for _ in range(2):
+        launches = cd.run_general_dense_chunk_cuda.launches
+        got, rows = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                    st, t_len)
+        assert cd.run_general_dense_chunk_cuda.launches == launches + 1
+        want, wrows = cd.general_dense_chunk_reference(dg, spec, params, st,
+                                                       t_len)
+        torch.cuda.synchronize()
+        _same_states(got, want)
+        assert sorted(rows) == sorted(wrows)
+        for k in rows:
+            assert torch.equal(rows[k], wrows[k]), k
+        st = got
+
+
+@pytest.mark.cuda
+def test_general_runner_goes_through_the_kernel(card):
+    spec, dg, st, params = _dense_inputs("hex_lattice", 6, 10, 8, 0.1, card)
+    launches = cd.run_general_dense_chunk_cuda.launches
+    res = run_chains(dg, spec, params, st, n_steps=121, chunk=40)
+    assert cd.run_general_dense_chunk_cuda.launches == launches + 3
+    assert res.state.conn_bits is None and (res.state.t_yield == 121).all()
+    with pytest.raises(ValueError, match="B4"):
+        run_chains(dg, Spec(accept="corrected"), params, st, n_steps=3)
+
+
+@pytest.mark.cuda
+def test_general_dense_kernel_matches_jax_fixture(card):
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parent / "fixtures" / "torch"
+            / "general_dense_hex.npz")
+    want = dict(np.load(path))
+    g = port.graphs.hex_lattice(*want["graph"])
+    dg, state, params = general_fixture_inputs(port, convert, g, want, card)
+    res = run_chains(dg, Spec(), params, state, n_steps=int(want["steps"]),
+                     chunk=int(want["chunk"]), kernel_path="general_dense")
+    assert_chain_run_matches(
+        convert.to_numpy(res.state), res.history, res.waits_total,
+        {k[6:]: v for k, v in want.items() if k.startswith("state_")},
+        {k[5:]: v for k, v in want.items() if k.startswith("hist_")},
+        want["waits_total"])

@@ -51,15 +51,16 @@ def test_sweep_sizes_and_constants():
 
 @pytest.mark.parametrize("kw, missing", [
     (dict(family="kpair", n_districts=4), "A7"),
-    (dict(family="tri"), "A6"),
-    (dict(family="hex"), "A6"),
-    (dict(family="dual", n_districts=4), "A6"),
+    (dict(family="tri", chain="recom"), "A9"),
+    (dict(family="hex", analytics="summary"), "A5"),
+    (dict(family="dual", n_districts=4), "A7"),
     (dict(family="temper", betas=(1.0, 0.9), swap_every=10), "A8"),
-    (dict(family="frank", contiguity="exact"), "A6"),
+    (dict(family="frank", contiguity="exact"), "A6b"),
     (dict(family="frank", accept="corrected"), "B4"),
     (dict(family="sec11", chain="recom"), "A9"),
     (dict(family="sec11", analytics="summary"), "A5"),
-    (dict(family="frank", variant="lazy"), "A6"),
+    (dict(family="frank", variant="lazy"), "A6b"),
+    (dict(family="sec11", variant="nobacktrack"), "A6b"),
 ], ids=lambda x: x if isinstance(x, str) else "-".join(
     f"{k}={v}" for k, v in x.items()))
 def test_unported_configs_are_refused(kw, missing, tmp_path):
@@ -116,12 +117,17 @@ def test_cli_refuses_unknown_tag(tmp_path):
 
 
 def test_cli_contiguity_is_patch_only(tmp_path, capsys):
-    """'exact' contiguity runs on the JAX package's general kernel, which
-    the port lacks: the CLI offers only 'patch'."""
+    """'exact' contiguity runs on the general path's legacy body: the CLI
+    offers it (tri and hex run it), but on the Frankengraph that path
+    would need the interface metrics, which wait for ROADMAP.md A6b, so
+    the sweep is refused before any config runs."""
     from flipcomplexityempirical_tpu_torch.experiments.__main__ import main
-    with pytest.raises(SystemExit) as exc:
+    with pytest.raises(ValueError, match="A6b"):
         main(["--family", "frank", "--contiguity", "exact", "--out",
               str(tmp_path), "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "invalid choice: 'exact'" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+    with pytest.raises(SystemExit) as exc:
+        main(["--family", "frank", "--contiguity", "ring", "--out",
+              str(tmp_path), "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'ring'" in capsys.readouterr().err
