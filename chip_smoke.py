@@ -134,7 +134,25 @@ entry points a user calls, checks what comes out, and prints:
      distribution (``tests/_torch_enumeration.py``'s
      ``build_dense_transition``), phase 9's bars, at bases 0.7, 1.0 and
      1.4;
-  14. one JSON line per kernel table (``{"kernels": [...]}``), then as the
+  14. the sweep service (``service/``), every line beside the card's name
+     and power limit: the CLI as a user calls it (``python -m
+     flipcomplexityempirical_tpu_torch.service --family frank --chains 8
+     --steps 100000``) in a subprocess, exit 0, 24 ``[done]`` lines, one
+     batch of 192 chains whose lowered_chunk launches equal its chunks;
+     ``SweepService`` in-process on the sec11, frank, tri and hex sweeps
+     at the paper's shape (seed 0), the counts zeroed just before and read
+     just after: one batch a sweep, seconds split into prepare, run and
+     slice/assemble, flips/s, peak memory, launches equal to the chunks,
+     and the tenants 0B263P10, 2B333P90, tri-0B333P10 and hex-0B333P10
+     equal field for field, in every history key, to phases 7 and 12's
+     solo runs of the same configs; the idle share of each sweep's batch
+     over 10,001 steps; lowered_chunk at the frank batch's shape (C=192,
+     the 24 tenants' parameters, its 369-step chunk) and
+     general_dense_chunk at the hex batch's (C=32, its 2439-step chunk),
+     each against its plain version with one launch counted and timed
+     beside its bound; ``bench --service --steps 400`` in a subprocess,
+     its tenant_efficiency record;
+  15. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
@@ -1511,9 +1529,10 @@ def experiment_split(drv, cl, tb, cfg) -> dict:
             "host_ms": rest_ms}
 
 
-def experiment_phase(cl, tb) -> dict:
+def experiment_phase(cl, tb, keep: dict) -> dict:
     """Phase 7: the paper's experiment driver on the card; returns its
-    numbers for the kernel row."""
+    numbers for the kernel row, and keeps each config's data in ``keep``
+    by tag (phase 14 holds the service's tenants to them)."""
     import dataclasses
     import os
     import pathlib
@@ -1530,6 +1549,7 @@ def experiment_phase(cl, tb) -> dict:
         experiment_cli(root, os.path.join(tmp, "cli"))
         runs = experiment_runs(ex, drv, runner, cl, tb,
                                os.path.join(tmp, "run"))
+        keep.update({tag: r["data"] for tag, r in runs.items()})
         sec11 = runs[EXP_RUNS[0][1]]
         experiment_resume(ex, drv, sec11, os.path.join(tmp, "resume"),
                           os.path.join(tmp, "ck"))
@@ -2099,11 +2119,13 @@ def legacy_steps(kstep, dg, spec, params, state) -> dict:
     return {"steps": LEGACY_STEPS, "ms_per_step": ms}
 
 
-def general_families(port, cb, cl, cd, probes, drv_mod, out: str) -> dict:
+def general_families(port, cb, cl, cd, probes, drv_mod, out: str,
+                     keep: dict) -> dict:
     """Phase 12: one tri and one hex config at the paper's shape through
-    run_config (counts zeroed just before, read just after), the hex
-    config stopped after one segment and resumed, and the JAX package's
-    family runs and hex checkpoint held under the CPU tests' rule."""
+    run_config (counts zeroed just before, read just after; each config's
+    data kept in ``keep`` by tag for phase 14), the hex config stopped
+    after one segment and resumed, and the JAX package's family runs and
+    hex checkpoint held under the CPU tests' rule."""
     import os
     import shutil
 
@@ -2151,6 +2173,7 @@ def general_families(port, cb, cl, cd, probes, drv_mod, out: str) -> dict:
               f"districts connected on all chains; the 7 artifacts")
         results[tag] = dict(wall_s=wall, run_s=run_s, render_s=render_s,
                             launches=n, kernel=kernel, flips_per_s=fps)
+        keep[tag] = data
     # the hex config in checkpoint segments, uninterrupted, against the
     # same config stopped after its first segment and resumed (the waits
     # drain once a chunk in f32, so the two runs share their chunking)
@@ -2273,6 +2296,305 @@ def general_stationary(port, sampling) -> dict:
         out[base] = {"tv": tv, "cut_err": cut_err, "t_cut": float(t[0]),
                      "t_max": t_max, "states": len(states)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# The sweep service (phase 14)
+# ---------------------------------------------------------------------------
+
+# the paper's four sweeps at the paper's shape (seed 0), each as one batch,
+# and the tenant of each that phases 7 and 12 ran solo through run_config
+SVC_SWEEPS = (("sec11", "0B263P10"), ("frank", "2B333P90"),
+              ("tri", "tri-0B333P10"), ("hex", "hex-0B333P10"))
+# the service CLI as a user calls it (its other defaults: seed 3)
+SVC_CLI = ["--family", "frank", "--chains", str(EXP_CHAINS), "--steps",
+           str(EXP_STEPS)]
+# the idle share of each sweep's batch, over a run this long
+SVC_PROFILE_STEPS = 10_001
+# bench --service at the JAX package's defaults: frank, 4 tenants of 2
+# chains, 400 steps
+SVC_BENCH = ["--service", "--steps", "400"]
+
+
+def service_chunks(runner, use_board: bool, steps: int) -> int:
+    """The chunks one batch of ``steps`` steps runs: the board path's
+    segment of steps - 1 transitions, or the general path's yields after
+    the initial record."""
+    if use_board:
+        return -(-(steps - 1) // runner.pick_chunk(steps, 512))
+    return -(-(steps - 1) // runner.pick_chunk(steps, 4096))
+
+
+def same_result(a: dict, b: dict, label: str) -> None:
+    """Two runs' data equal in every history key and state field (the
+    dtypes too), the wait totals and every final accumulator."""
+    import numpy as np
+    same_run(a, b, label)
+    for k in ("end_signed", "cut_times", "part_sum", "num_flips", "slopes",
+              "angles", "waits_sum", "assignments"):
+        if (a[k] is None) != (b[k] is None):
+            fail(f"{label}: {k} is None in one run only")
+        if a[k] is None:
+            continue
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or not np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f"):
+            fail(f"{label}: {k} differs")
+
+
+def service_cli(root, out: str, runner, card: str) -> dict:
+    """The service CLI as a user calls it on the Frankengraph sweep: exit
+    0, 24 [done] lines, one batch of 192 chains whose lowered_chunk
+    launches equal its chunks (the CLI's [batch] line reads the
+    wrapper's count in its process)."""
+    import re
+    cmd = [sys.executable, "-m", "flipcomplexityempirical_tpu_torch.service",
+           *SVC_CLI, "--out", out]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=900)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"the service CLI exited {run.returncode}:\n{run.stdout[-3000:]}"
+             f"{run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    done = [x for x in lines if x.startswith("[done]")]
+    batch = [x for x in lines if x.startswith("[batch]")]
+    want = service_chunks(runner, True, EXP_STEPS)
+    m = re.match(r"\[batch\] b0000 24 jobs (\d+) chains \d+ steps "
+                 r"lowered_bits: prepare ([\d.]+) s, run ([\d.]+) s, "
+                 r"assemble ([\d.]+) s, launches (\d+)$",
+                 batch[0] if len(batch) == 1 else "")
+    if len(done) != 24 or m is None or int(m[1]) != 24 * EXP_CHAINS:
+        fail(f"the service CLI did not run 24 jobs as one batch of "
+             f"{24 * EXP_CHAINS} chains:\n{run.stdout[-3000:]}")
+    if int(m[5]) != want:
+        fail(f"the service CLI's batch launched lowered_chunk {m[5]} times "
+             f"for {want} chunks")
+    print(f"[{card}] service CLI {' '.join(SVC_CLI)}: exit 0 in {wall:.3f} s "
+          f"wall; {len(done)} [done] lines; one batch of {m[1]} chains "
+          f"(prepare {m[2]} s, run {m[3]} s, assemble {m[4]} s); "
+          f"lowered_chunk launches {m[5]} for {want} chunks")
+    return {"wall_s": wall, "chains": int(m[1]), "prepare_s": float(m[2]),
+            "run_s": float(m[3]), "assemble_s": float(m[4]),
+            "launches": int(m[5]), "chunks": want}
+
+
+def service_sweeps(ex, runner, cl, cd, solo: dict, out: str,
+                   card: str) -> dict:
+    """SweepService in-process on the four sweeps at the paper's shape:
+    one batch a sweep, the counts zeroed just before and read just after,
+    seconds split into prepare, run and slice/assemble, flips/s, peak
+    memory, and the named tenant against phase 7's or 12's solo run;
+    then the idle share of a SVC_PROFILE_STEPS-step batch of each
+    sweep's configs."""
+    import os
+    import resource
+
+    import torch
+    from flipcomplexityempirical_tpu_torch.service import SweepService
+    results = {}
+    for family, tag in SVC_SWEEPS:
+        cfgs = list(ex.SWEEPS[family](total_steps=EXP_STEPS,
+                                      n_chains=EXP_CHAINS))
+        svc = SweepService(os.path.join(out, family), device=DEVICE)
+        jobs = [svc.submit(c) for c in cfgs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()    # earlier phases' tensors
+        cl.run_lowered_chunk_cuda.launches = 0
+        cd.run_general_dense_chunk_cuda.launches = 0
+        t0 = time.perf_counter()
+        svc.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        low = cl.run_lowered_chunk_cuda.launches
+        dense = cd.run_general_dense_chunk_cuda.launches
+        peak = torch.cuda.max_memory_allocated() - held
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 10
+        bad = [(j.tag, j.error) for j in jobs if j.status != "done"]
+        if bad or svc.exit_code != 0:
+            fail(f"service {family}: jobs failed: {bad[:3]}")
+        if len(svc.batch_stats) != 1:
+            fail(f"service {family}: {len(svc.batch_stats)} batches, not 1")
+        st = svc.batch_stats[0]
+        use_board = family != "hex"
+        kernel, n, other = (("lowered_chunk", low, dense) if use_board
+                            else ("general_dense_chunk", dense, low))
+        want = service_chunks(runner, use_board, EXP_STEPS)
+        if (st.chains != EXP_CHAINS * len(cfgs) or n != want or other
+                or st.launches != n):
+            fail(f"service {family}: {st.chains} chains, {kernel} launches "
+                 f"{n} for {want} chunks, other kernel {other}")
+        job = next(j for j in jobs if j.tag == tag)
+        same_result(job.result, solo[tag], f"service {family} tenant {tag}")
+        fps = st.chains * (EXP_STEPS - 1) / st.wall_s
+        print(f"[{card}] service {family}: {len(cfgs)} configs as one batch "
+              f"of {st.chains} chains x {EXP_STEPS} steps "
+              f"({st.kernel_path}): {wall:.3f} s in all, prepare "
+              f"{st.prepare_s:.3f} s, run {st.wall_s:.3f} s, slice/assemble "
+              f"{st.assemble_s:.3f} s; {fps:.6e} flips/s; {kernel} launches "
+              f"{n} for {want} chunks; peak device memory "
+              f"{peak / 2 ** 20:.1f} MiB above the {held / 2 ** 20:.1f} MiB "
+              f"held before the run, host max RSS so far {rss:.1f} MiB; "
+              f"tenant {tag} equal to its solo run in every state field, "
+              "history key and result")
+        results[family] = {
+            "configs": len(cfgs), "chains": st.chains, "wall_s": wall,
+            "prepare_s": st.prepare_s, "run_s": st.wall_s,
+            "assemble_s": st.assemble_s, "flips_per_s": fps,
+            "kernel": kernel, "launches": n, "chunks": want,
+            "peak_mib": peak / 2 ** 20, "host_max_rss_mib": rss}
+        del svc, jobs
+    for family, _ in SVC_SWEEPS:
+        cfgs = list(ex.SWEEPS[family](total_steps=SVC_PROFILE_STEPS,
+                                      n_chains=EXP_CHAINS))
+        svc = SweepService(os.path.join(out, f"profile_{family}"),
+                           device=DEVICE)
+        for c in cfgs:
+            svc.submit(c)
+        run_batch, line = svc._run_batch, []
+
+        def profiled(*args, run_batch=run_batch, line=line):
+            box = []
+            line.append(idle_share(lambda: box.append(run_batch(*args))))
+            return box[0]
+        svc._run_batch = profiled
+        svc.run_until_idle()
+        if svc.exit_code != 0 or len(line) != 1:
+            fail(f"service {family}: the profiled batch did not run")
+        print(f"[{card}] profile of the service's {family} batch "
+              f"({len(cfgs)} configs, {EXP_CHAINS * len(cfgs)} chains x "
+              f"{SVC_PROFILE_STEPS} steps, set-up excluded): {line[0]}")
+        results[family]["profile"] = line[0]
+    return results
+
+
+def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
+    """The two chunk kernels at the batched shapes, each held against its
+    plain version with its launch counted and timed with CUDA events
+    beside its bound: lowered_chunk at the Frankengraph sweep's batch
+    (C=192, the 24 tenants' parameters, its 369-step chunk from the
+    batch's start) and general_dense_chunk at the hex sweep's (C=32, its
+    2439-step chunk)."""
+    import torch
+    from flipcomplexityempirical_tpu_torch.service import (
+        SweepService, concat_params, concat_states)
+    rows = {}
+    for family in ("frank", "hex"):
+        svc = SweepService(ROOT / "build", device=DEVICE)
+        prepared = [svc._prepare(svc.submit(c)) for c in ex.SWEEPS[family](
+            total_steps=EXP_STEPS, n_chains=EXP_CHAINS)]
+        states = concat_states([p.states for p in prepared])
+        params = concat_params([p.params for p in prepared])
+        spec, handle = prepared[0].spec, prepared[0].handle
+        c = states.key.shape[0]
+        n_lo = len(set(params.pop_lo.tolist()))
+        n_base = len(set(params.log_base.tolist()))
+        if family == "frank":
+            t_len = runner.pick_chunk(EXP_STEPS, 512)
+            static = cl.make_static_inputs(handle, spec, params)
+            ins = cl.pack_state(states, params)
+            args = (handle, static, spec, t_len, states.board, *ins)
+            torch.cuda.synchronize()
+            n0 = cl.run_lowered_chunk_cuda.launches
+            got = cl.run_lowered_chunk_cuda(*args)
+            torch.cuda.synchronize()
+            if cl.run_lowered_chunk_cuda.launches != n0 + 1:
+                fail("lowered_chunk at the batched shape: the wrapper did "
+                     "not count its launch")
+            t0 = time.perf_counter()
+            want = cl.lowered_chunk_reference(*args)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            err = compare_lowered(cl, got, want, f"[{card}] lowered_chunk "
+                                  f"at the frank sweep's batch C={c} "
+                                  f"T={t_len}")
+            ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*args), 20)
+            bound_ms, bound_by = lowered_bound(
+                tb, cl, handle, spec, static, states.board, ins, got,
+                "frank sweep batch")
+            name = "lowered_chunk"
+        else:
+            t_len = runner.pick_chunk(EXP_STEPS, 4096)
+            static = cd.make_static_inputs(handle)
+            torch.cuda.synchronize()
+            n0 = cd.run_general_dense_chunk_cuda.launches
+            got, grows = cd.run_general_dense_chunk_cuda(
+                handle, static, spec, params, states, t_len)
+            torch.cuda.synchronize()
+            if cd.run_general_dense_chunk_cuda.launches != n0 + 1:
+                fail("general_dense_chunk at the batched shape: the wrapper "
+                     "did not count its launch")
+            t0 = time.perf_counter()
+            want, wrows = cd.general_dense_chunk_reference(
+                handle, spec, params, states, t_len)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            err = compare_general(cd, got, grows, want, wrows,
+                                  f"[{card}] at the hex sweep's batch C={c} "
+                                  f"T={t_len}")
+            ms = event_ms(lambda: cd.run_general_dense_chunk_cuda(
+                handle, static, spec, params, got, t_len), 3)
+            bound_ms, bound_by, _, _ = general_bound(
+                handle, spec, got, t_len,
+                int((got.accept_count - states.accept_count).sum()))
+            name = "general_dense_chunk"
+        # the frank sweep's tenants differ in base and pop_tol, the hex
+        # sweep's in base (its pop_tol is 0.1 throughout)
+        if n_base < 2 or (family == "frank" and n_lo < 2):
+            fail(f"{name} at the {family} batch: the tenants' parameters do "
+                 f"not differ ({n_lo} pop_lo, {n_base} log_base values)")
+        print(f"[{card}] {name} at the {family} sweep's batch (C={c}, "
+              f"{len(prepared)} tenants: {n_lo} pop_lo and {n_base} "
+              f"log_base values, T={t_len}): {ms:.4f} ms per chunk (CUDA "
+              f"events); plain version {plain_ms:.3f} ms (host clock); "
+              f"bound {bound_ms:.4e} ms ({bound_by})")
+        rows[family] = {"chains": c, "chunk": t_len, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": err,
+                        "launches": 1}
+    return rows
+
+
+def service_bench(root, card: str) -> dict:
+    """``bench --service`` as a user runs it, in a subprocess: its meta
+    line names this card, its record is the tenant-efficiency ratio of
+    one coalesced batch on the lowered kernel."""
+    cmd = [sys.executable, "-m", "flipcomplexityempirical_tpu_torch.bench",
+           *SVC_BENCH]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"bench --service exited {run.returncode}: {run.stderr[-3000:]}")
+    rec = last_json(run.stdout)
+    meta = last_json(run.stderr)
+    import torch
+    if (rec.get("metric") != "tenant_efficiency" or rec["tenants"] != 4
+            or rec["chains_per_tenant"] != 2 or rec["family"] != "frank"
+            or rec["kernel_path"] != "lowered_bits" or rec["device"] != "gpu"
+            or not rec["value"] > 0 or "cpu_fallback" in rec
+            or meta.get("device") != torch.cuda.get_device_name(0)):
+        fail(f"bench --service: {rec} / {meta}")
+    print(f"[{card}] bench {' '.join(SVC_BENCH)} ({wall:.3f} s wall): "
+          f"meta {json.dumps(meta)}; record {json.dumps(rec)}")
+    return {"wall_s": wall, **rec}
+
+
+def service_phase(ex, runner, tb, cl, cd, solo: dict, card: str) -> dict:
+    """Phase 14: the sweep service on the card."""
+    import os
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cli = service_cli(str(ROOT), os.path.join(tmp, "cli"), runner, card)
+        sweeps = service_sweeps(ex, runner, cl, cd, solo,
+                                os.path.join(tmp, "svc"), card)
+    kernels = service_kernels(ex, runner, tb, cl, cd, card)
+    return {"cli": cli, "sweeps": sweeps, "kernels": kernels,
+            "bench": service_bench(str(ROOT), card)}
 
 
 def main() -> None:
@@ -2465,7 +2787,8 @@ def main() -> None:
                  for which in [x[0] for x in LOWERED] + ["square"]}
     main_row = per_graph["sec11"]
     # ---- 7: the experiment driver ---------------------------------------
-    per_graph["experiment"] = experiment_phase(cl, tb)
+    solo = {}
+    per_graph["experiment"] = experiment_phase(cl, tb, solo)
     # ---- 8: the bench entry point; 9: the stationary distribution -------
     import pathlib
 
@@ -2490,7 +2813,7 @@ def main() -> None:
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         general["families"] = general_families(port, cb, cl, cd, probes,
-                                               drv, tmp)
+                                               drv, tmp, solo)
     tri = experiment_exactness(port.experiments, drv, gsampling.runner, cl,
                                tb, GEN_TRI_RUNS)[GEN_TRI_RUNS[0][1]]
     per_graph["tri"] = {
@@ -2498,6 +2821,23 @@ def main() -> None:
         "max_abs_err": tri["max_abs_err"], "kernel": tri}
     general["stationary"] = general_stationary(port, gsampling)
     general["experiment_shape"] = general_c8
+    # ---- 14: the sweep service ------------------------------------------
+    service = service_phase(port.experiments, gsampling.runner, tb, cl, cd,
+                            solo, card)
+    del solo
+    sweeps = service["sweeps"]
+    per_graph["service"] = {
+        "launches": sum(sweeps[f]["launches"] for f in ("sec11", "frank",
+                                                        "tri")),
+        "max_abs_err": service["kernels"]["frank"]["max_abs_err"],
+        "kernel": service["kernels"]["frank"],
+        "sweeps": {f: sweeps[f] for f in ("sec11", "frank", "tri")},
+        "cli": service["cli"], "bench": service["bench"]}
+    general["launches"] += sweeps["hex"]["launches"]
+    general["max_abs_err"] = max(general["max_abs_err"],
+                                 service["kernels"]["hex"]["max_abs_err"])
+    general["service"] = {"kernel": service["kernels"]["hex"],
+                          "sweep": sweeps["hex"]}
     kernels.insert(0, {
         "name": "general_dense_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/"

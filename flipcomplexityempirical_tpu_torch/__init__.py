@@ -17,9 +17,11 @@ sparse graph (the hexagonal lattice; ``kernel/dense.py``,
 re-propose body of ``kernel/step.py`` as torch ops), draw for draw as the
 JAX package's ``run_chains``. The paper's sweeps run end to end
 through ``experiments`` (``run_config``, ``run_sweep`` and the CLI
-``python -m flipcomplexityempirical_tpu_torch.experiments``), and
-``python -m flipcomplexityempirical_tpu_torch.bench`` is the port of the
-root ``bench.py``'s board and general paths.
+``python -m flipcomplexityempirical_tpu_torch.experiments``), the sweep
+service (``service``, ``python -m flipcomplexityempirical_tpu_torch.
+service``) runs a sweep's fingerprint-equal configs as one batch of
+chains, and ``python -m flipcomplexityempirical_tpu_torch.bench`` is the
+port of the root ``bench.py``'s board and general paths.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where every kernel runs its plain PyTorch version.
 """
@@ -31,5 +33,6 @@ from . import lower  # noqa: F401
 from . import kernel  # noqa: F401
 from . import sampling  # noqa: F401
 from . import experiments  # noqa: F401
+from . import service  # noqa: F401
 from .kernel import Spec  # noqa: F401
 from .sampling import init_board, run_board, run_board_cuda  # noqa: F401

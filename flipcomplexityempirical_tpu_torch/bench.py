@@ -5,6 +5,8 @@ and general paths, on the card.
         [--graph square|sec11|frank|hex] [--pallas] [--general] [--cpu]
         [--grid N] [--chains C] [--steps S] [--warmup W] [--chunk T]
         [--base B] [--pop-tol P] [--repeats R] [--body bits]
+    or: ... --service [--tenants N] [--chains C] [--steps S]
+        [--graph sec11|frank] [--cpu]
 
 The port of the root ``bench.py``'s default measurement, with its defaults:
 2-district single-node-flip chains with the full reference semantics
@@ -32,6 +34,13 @@ lattice from a stripes start (``--graph hex``).
   the host, at 4096 chains, tagged ``device`` "cpu". Without a card and
   without ``--cpu`` the program exits 1: it never measures the host in
   place of the card.
+- ``--service``: the sweep service's tenant-efficiency record instead of
+  a kernel's throughput (``bench.py``'s ``_service_bench``): the service
+  CLI's ``run_simulation`` with ``--tenants`` tenants of ``--chains``
+  chains (default 2) each, ``--steps`` steps, on ``--graph``'s family
+  (sec11 or frank; square maps to frank). It prints a meta line on stderr
+  with the card's name, then the record on stdout, which carries
+  ``cpu_fallback`` under ``--cpu``.
 
 It runs the warm-up (the first kernel build included), zeroes the accept,
 tries and exhausted counters, warms every other raced body, then times
@@ -73,8 +82,6 @@ _NOT_PORTED = {
     "--devstats": "A5 (device analytics)",
     "--record-every": "A5 (device analytics)",
     "--mesh": "A10 (multiple GPUs)",
-    "--service": "A11 (the host layers: the sweep service)",
-    "--tenants": "A11 (the host layers: the sweep service)",
     "--adaptive": "A11 (the host layers: the control plane)",
     "--target-rhat": "A11 (the host layers: the control plane)",
     "--target-ess": "A11 (the host layers: the control plane)",
@@ -130,11 +137,28 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--body", choices=["bits"], default=None)
     ap.add_argument("--repeats", type=int, default=2,
                     help="timed runs; the best is reported")
+    ap.add_argument("--service", action="store_true",
+                    help="the sweep service's tenant_efficiency record: "
+                         "--tenants coalescible jobs drained as one batch "
+                         "against a solo tenant; --chains means chains per "
+                         "tenant (default 2), --graph the family "
+                         "(sec11/frank; square maps to frank)")
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="--service: coalescible tenants sharing the card")
     return ap
 
 
 def _refusal(args) -> str | None:
     """Why this program does not run ``args``, or None."""
+    if args.service:
+        for flag, name in ((args.pallas, "--pallas"),
+                           (args.general, "--general"),
+                           (args.body is not None, "--body")):
+            if flag:
+                return (f"{name} is incompatible with --service (the "
+                        "service benchmark drives whole sweep jobs, not "
+                        "one kernel path)")
+        return None
     if args.body is not None and (args.pallas or args.general):
         return ("--body selects a board-path body; it cannot be combined "
                 "with --pallas or --general")
@@ -188,6 +212,8 @@ def main(argv=None) -> int:
         print("bench: no CUDA device is available; pass --cpu to run the "
               "plain PyTorch versions on the host", file=sys.stderr)
         return 1
+    if args.service:
+        return _service_bench(args)
     dev = torch.device("cpu" if args.cpu else "cuda")
     spec = Spec(n_districts=2, proposal="bi", contiguity="patch",
                 invalid="repropose", accept="cut", parity_metrics=True,
@@ -269,6 +295,31 @@ def main(argv=None) -> int:
     if args.body is not None:
         headline["body"] = kernel_path
     print(json.dumps(headline))
+    return 0
+
+
+def _service_bench(args) -> int:
+    """--service: the sweep service's tenant-efficiency record, through
+    the service CLI's ``run_simulation`` (the coalesced round first, then
+    a solo tenant, each through a fresh service)."""
+    import tempfile
+
+    from .service.__main__ import run_simulation
+    family = args.graph if args.graph in ("sec11", "frank") else "frank"
+    device = "cpu" if args.cpu else "cuda"
+    with tempfile.TemporaryDirectory(prefix="bench_service_") as outdir:
+        record = run_simulation(tenants=args.tenants,
+                                chains=args.chains or 2, steps=args.steps,
+                                family=family, outdir=outdir, device=device)
+    meta = {"mode": "service",
+            "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                       else "cpu"),
+            "n_devices": torch.cuda.device_count() if device == "cuda"
+            else 1}
+    print(json.dumps(meta), file=sys.stderr)
+    if record["device"] == "cpu":
+        record["cpu_fallback"] = True
+    print(json.dumps(record))
     return 0
 
 

@@ -9,15 +9,18 @@ mu -> "263".
 
 The port's copy of ``flipcomplexityempirical_tpu/experiments/config.py``:
 the same fields, tags, node sizes and sweeps, so a tag names the same
-config in both packages. ``backend`` has one value, ``"torch"``; the
-service's ``fingerprint`` is not copied (the sweep service is not
-ported).
+config in both packages. ``backend`` has one value, ``"torch"``.
+``fingerprint`` hashes the JAX package's payload, so a config's
+fingerprint here equals the JAX package's for the same fields; the sweep
+service (``service/scheduler.py``) coalesces the configs that share one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
+import json
 from typing import Iterator
 
 MU = 2.63815853  # Z^2 SAW connective constant (grid_chain_sec11.py:33)
@@ -99,6 +102,51 @@ class ExperimentConfig:
         if self.variant != "none":
             t = f"{t}-{self.variant[:4].upper()}"
         return t
+
+    def fingerprint(self) -> str:
+        """Content hash over the KERNEL-RELEVANT statics: two configs
+        with equal fingerprints build the same graph, the same Spec, and
+        the same run shape (steps, thinning), so the service scheduler
+        may coalesce them into one batch of chains.
+
+        Deliberately EXCLUDED — everything that varies per tenant
+        without changing the kernel's inputs beyond per-chain rows:
+        ``alignment`` (initial plan only), ``base``/``pop_tol``
+        (per-chain StepParams leaves), ``seed`` (per-chain PRNG state;
+        except the dual family, whose geometry generation consumes it),
+        ``n_chains`` (the batch axis being coalesced),
+        ``checkpoint_every`` (host-side segmenting). Hashed as sorted
+        canonical JSON — independent of field ordering; the payload and
+        its conditional keys are the JAX package's, so equal fields
+        give equal fingerprints in both packages."""
+        payload = {
+            "family": self.family,
+            "backend": self.backend,
+            "contiguity": self.contiguity,
+            "accept": self.accept,
+            "propose_parallel": self.propose_parallel,
+            "n_districts": self.n_districts,
+            "grid": self.grid,
+            "lattice": [self.lattice_m, self.lattice_n],
+            "betas": [float(b) for b in self.betas],
+            "swap_every": self.swap_every,
+            "dual": [self.dual_nx, self.dual_ny, self.dual_source],
+            "total_steps": self.total_steps,
+            "record_every": self.record_every,
+        }
+        if self.family == "dual":
+            payload["seed"] = self.seed
+        # appended conditionally, as in the JAX package, so configs that
+        # leave these at their defaults keep the same hash there and here
+        if self.chain != "flip":
+            payload["chain"] = self.chain
+        if self.variant != "none":
+            payload["variant"] = self.variant
+        if self.analytics != "history":
+            payload["analytics"] = self.analytics
+        blob = json.dumps(payload, sort_keys=True,
+                          separators=(",", ":"))
+        return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:16]
 
     @property
     def plot_node_size(self) -> int:

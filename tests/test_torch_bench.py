@@ -107,10 +107,11 @@ def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
     (["--k", "3"], "A7"),
     (["--ess"], "A5"), (["--ess-host"], "A5"), (["--devstats"], "A5"),
     (["--record-every", "2"], "A5"), (["--mesh", "4"], "A10"),
-    (["--service"], "A11"), (["--adaptive"], "A11"),
+    (["--service", "--events", "-"], "A11"), (["--adaptive"], "A11"),
     (["--workload-matrix"], "A11"), (["--workloads", "frank"], "A11"),
     (["--fleet"], "A11"), (["--events", "-"], "A11"),
-    (["--profile", "p"], "A11"), (["--tenants", "8"], "A11"),
+    (["--profile", "p"], "A11"),
+    (["--service", "--tenants", "8", "--profile", "p"], "A11"),
     (["--target-ess", "9"], "A11"), (["--target-rhat", "1.1"], "A11"),
     (["--body", "int8"], "B7"), (["--k=3"], "A7"),
     (["--block-chains", "64"], "unrecognized arguments"),
