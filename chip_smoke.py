@@ -105,9 +105,13 @@ entry points a user calls, checks what comes out, and prints:
      experiment path's 2439-step chunk; tri 14x28 with ``nobacktrack``;
      ``lazy_uniform``; contiguity 'none'; no valid move; a random
      population plane (the kernel's per-node population gate); the 1x2
-     hex of phase 13; then ``run_chains`` from the JAX package's own
-     general_dense run (``tests/fixtures/torch/general_dense_hex.npz``),
-     equal;
+     hex of phase 13; each case's launch shape (tables staged in shared
+     memory or read through L1, which must be the 14x28 and 64x64
+     lattices' paths respectively; shared memory a block; chains a block;
+     resident blocks an SM) and its cycles a step (one timed launch x the
+     SM clock read under the experiment path's load / T); then
+     ``run_chains`` from the JAX package's own general_dense run
+     (``tests/fixtures/torch/general_dense_hex.npz``), equal;
   11. the general main path: ``run_chains`` on hex_lattice(64, 64) at
      C=4096, chunk 500, 3001 steps after 501, the launch counts zeroed
      just before and read just after (one ``general_dense_chunk`` a
@@ -116,7 +120,8 @@ entry points a user calls, checks what comes out, and prints:
      events) with the conn planes carried and filled, its plain
      version's ms and output from the same state (every state field and
      history row equal), its bound, the idle share of 1001 steps and the
-     SM clock; the legacy body's ms a step over 20 steps; then ``bench --graph hex`` in a subprocess: the dense body
+     SM clock, its launch shape and cycles a step; the legacy body's ms a
+     step over 20 steps; then ``bench --graph hex`` in a subprocess: the dense body
      raced against the legacy one, the dense body winning, its kernel
      launched once a timed chunk;
   12. the tri and hex families: one config of each at the paper's shape
@@ -150,7 +155,7 @@ entry points a user calls, checks what comes out, and prints:
      the 24 tenants' parameters, its 369-step chunk) and
      general_dense_chunk at the hex batch's (C=32, its 2439-step chunk),
      each against its plain version with one launch counted and timed
-     beside its bound; ``bench --service --steps 400`` in a subprocess,
+     beside its bound, the dense kernel's launch shape and cycles a step; ``bench --service --steps 400`` in a subprocess,
      its tenant_efficiency record;
   15. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
@@ -1781,21 +1786,20 @@ GEN_ENUM_BASES = (0.7, 1.0, 1.4)
 GEN_ENUM_TOL = 0.5
 # Operations the general-dense function needs, counted on this run's data
 # (a floor):
-#   ops = C * T * (K_GWORD * ceil(N / 32) + K_GTAIL + 4 * K_BLOCK)
-#         + K_GMOVE * accepted moves
-# K_GWORD, every word and step: the boundary, conn and assignment loads'
-# ands with the population gate (4), a popcount and an add (2), the valid
-# word's store (1), the selection scan's popcount and add (2): 9.
-# K_GTAIL, per chain-step: the selection (in-word rank, ~30), the dcut of
-# the node's D edges and the accept test with its log (~40), the record
-# and the parity bookkeeping (~30): 100; four threefry blocks a step (the
-# split and the three uniforms).
+#   ops = C * T * (K_GSTEP + 4 * K_BLOCK) + K_GMOVE * accepted moves
+# K_GSTEP, per chain-step: the selection of the m-th valid node from
+# counts kept up to date (the rank and its word, ~30), the dcut of the
+# node's D edges and the accept test with its log (~40), the record (~10):
+# 80; four threefry blocks a step (the split and the three uniforms).
+# No per-word term: a step does not have to visit the ceil(N / 32) words
+# of the valid set (PR 10's kernel keeps its counts), and the parity
+# record changes only at accepted moves (closed forms a run).
 # K_GMOVE, per accepted move: the commit of cut, cut_deg and the boundary
-# bits and count over the node's edges (~40), the wait (K_WAIT), and the
-# 1 + P patch checks of the refresh, each P member tests (3 each) and a
-# worklist over at most P slots (3 each): 19 * 18 * 6 = 2052 on the hex
-# lattice.
-K_GWORD, K_GTAIL = 9, 100
+# bits and count over the node's edges (~40), the wait (K_WAIT), the
+# parity run and the candidate counts (~20), and the 1 + P patch checks of
+# the refresh, each P member tests (3 each) and a growth over at most P
+# slots (3 each): 19 * 18 * 6 = 2052 on the hex lattice.
+K_GSTEP = 80
 
 
 def general_inputs(port, sampling, builder, mn, chains, tol, base,
@@ -1855,6 +1859,7 @@ def general_exactness(port, cd, sampling) -> float:
     import _parity
     from flipcomplexityempirical_tpu_torch import convert
     err = 0.0
+    shapes = []
     for (label, builder, mn, chains, tol, base, t_len, warm, kw,
          pop_seed) in GEN_EXACT_CASES:
         g, spec, dg, st, params = general_inputs(
@@ -1887,9 +1892,12 @@ def general_exactness(port, cd, sampling) -> float:
         if "no valid move" in label and not bool(
                 (got.exhausted_count == st.exhausted_count + t_len).all()):
             fail(f"{label}: a chain moved")
+        run = (lambda dg=dg, static=static, spec=spec, params=params,
+               got=got, t_len=t_len: cd.run_general_dense_chunk_cuda(
+                   dg, static, spec, params, got, t_len))
+        ms = event_ms(run, 3 if "experiment path" in label else 1)
+        shapes.append((label, dg, chains, ms, t_len, run))
         if "experiment path" in label:
-            ms = event_ms(lambda: cd.run_general_dense_chunk_cuda(
-                dg, static, spec, params, got, t_len), 3)
             bound_ms, bound_by, _, _ = general_bound(
                 dg, spec, got, t_len,
                 int((got.accept_count - st.accept_count).sum()))
@@ -1901,6 +1909,18 @@ def general_exactness(port, cd, sampling) -> float:
                   f"events, mean of 3, conn planes carried); plain version "
                   f"{1e3 * plain_s:.3f} ms (host clock); bound "
                   f"{bound_ms:.4e} ms ({bound_by})")
+    # the launch shape of each case, cycles a step at the SM clock read
+    # under the experiment path's load
+    clocks = clocks_under_load(next(r for lb, *_, r in shapes
+                                    if "experiment path" in lb), 100)
+    mhz = sm_mhz(clocks)
+    print(f"SM clock, power draw under the experiment path's load: {clocks}")
+    for label, dg, chains, ms, t_len, _ in shapes:
+        shape, line = dense_shape(cd, dg, chains, ms, t_len, mhz)
+        check_table_path(shape, label)
+        print(f"general_dense_chunk {label} C={chains} T={t_len}: {line}")
+        if "experiment path" in label:
+            timing["shape"] = shape
     fx = dict(np.load(ROOT / GEN_FIXTURE))
     g = port.graphs.hex_lattice(*fx["graph"])
     dg, st, params = _parity.general_fixture_inputs(port, convert, g, fx,
@@ -1946,13 +1966,47 @@ def general_bound(dg, spec, state, t_len: int, accepted: int):
     rows = 4 + int(spec.lazy_uniform)
     nbytes = (2 * c * per_chain - 4 * 4 * c + 4 * rows * t_len * c
               + 4 * (2 * n * d + 2 * n + 2 * n * p + 2 * e))
-    k_move = 40 + K_WAIT + (1 + p) * p * 6
-    ops = (c * t_len * (K_GWORD * nw + K_GTAIL + 4 * K_BLOCK)
-           + k_move * accepted)
+    k_move = 60 + K_WAIT + (1 + p) * p * 6
+    ops = c * t_len * (K_GSTEP + 4 * K_BLOCK) + k_move * accepted
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     t_ops = 1e3 * ops / PEAK_OPS_PER_S
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
+
+
+def sm_mhz(clocks: str):
+    """The SM clock in MHz of a ``clocks_under_load`` reading, or None."""
+    try:
+        return float(clocks.split(",")[0].split()[0])
+    except (ValueError, IndexError):
+        return None
+
+
+def dense_shape(cd, dg, chains: int, ms: float, t_len: int, mhz) -> tuple:
+    """(the kernel's launch shape at ``chains`` chains of ``dg``, its line:
+    the table path, shared memory a block, chains a block, resident blocks
+    an SM, and cycles a step = ms x the SM clock / T)."""
+    shape = cd.launch_shape(dg, chains)
+    cyc = (f"{ms * 1e3 * mhz / t_len:.1f} cycles a step at {mhz:.0f} MHz"
+           if mhz else "cycles a step not measured (no SM clock read)")
+    path = ("staged in shared memory" if shape["staged"]
+            else "read through L1")
+    line = (f"tables {path}, {shape['smem_bytes']} B of shared memory "
+            f"a block, {shape['chains_per_block']} chain(s) a block"
+            f"{' with a draws warp' if shape['producer'] else ''}, "
+            f"{shape['blocks_per_sm']} block(s) an SM; {ms:.4f} ms, {cyc}")
+    shape["cycles_per_step"] = (ms * 1e3 * mhz / t_len) if mhz else None
+    return shape, line
+
+
+def check_table_path(shape: dict, label: str) -> None:
+    """The 64x64 hex lattice reads its tables through L1, the smaller
+    lattices stage theirs (both paths are on the main paths)."""
+    want = "64x64" not in label
+    if shape["staged"] != want:
+        fail(f"general_dense_chunk {label}: tables "
+             f"{'staged' if shape['staged'] else 'read through L1'}, "
+             f"expected {'staged' if want else 'read through L1'}")
 
 
 def general_bench(root) -> dict:
@@ -2094,11 +2148,16 @@ def general_main_path(port, cb, cl, cd, probes, sampling, dense,
           + idle_share(lambda: sampling.run_chains(
               dg, spec, params, fs, n_steps=2 * CHUNK + 1,
               record_history=False, chunk=CHUNK)))
-    print("SM clock, power draw under the kernel's load: "
-          + clocks_under_load(lambda: cd.run_general_dense_chunk_cuda(
-              dg, static, spec, params, st1, CHUNK), 20))
+    clocks = clocks_under_load(lambda: cd.run_general_dense_chunk_cuda(
+        dg, static, spec, params, st1, CHUNK), 20)
+    print(f"SM clock, power draw under the kernel's load: {clocks}")
+    label = f"at the main path's shape hex {GRID}x{GRID}"
+    shape, line = dense_shape(cd, dg, CHAINS, ms, CHUNK, sm_mhz(clocks))
+    check_table_path(shape, label)
+    print(f"general_dense_chunk {label} C={CHAINS} T={CHUNK}: {line}")
     legacy = legacy_steps(kstep, dg, spec, params, fs)
     return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "shape": shape,
             "first_chunk_ms": fill_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "flips_per_s": fps,
             "peak_mib": peak / 2 ** 20, "legacy": legacy}
@@ -2470,6 +2529,19 @@ def service_sweeps(ex, runner, cl, cd, solo: dict, out: str,
     return results
 
 
+def sweep_batch(ex, family: str) -> tuple:
+    """(the tenants, their states, their params) of ``family``'s sweep at
+    the paper's shape, prepared by ``SweepService`` and coalesced into one
+    batch as the service runs it."""
+    from flipcomplexityempirical_tpu_torch.service import (
+        SweepService, concat_params, concat_states)
+    svc = SweepService(ROOT / "build", device=DEVICE)
+    prepared = [svc._prepare(svc.submit(c)) for c in ex.SWEEPS[family](
+        total_steps=EXP_STEPS, n_chains=EXP_CHAINS)]
+    return (prepared, concat_states([p.states for p in prepared]),
+            concat_params([p.params for p in prepared]))
+
+
 def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
     """The two chunk kernels at the batched shapes, each held against its
     plain version with its launch counted and timed with CUDA events
@@ -2478,15 +2550,9 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
     batch's start) and general_dense_chunk at the hex sweep's (C=32, its
     2439-step chunk)."""
     import torch
-    from flipcomplexityempirical_tpu_torch.service import (
-        SweepService, concat_params, concat_states)
     rows = {}
     for family in ("frank", "hex"):
-        svc = SweepService(ROOT / "build", device=DEVICE)
-        prepared = [svc._prepare(svc.submit(c)) for c in ex.SWEEPS[family](
-            total_steps=EXP_STEPS, n_chains=EXP_CHAINS)]
-        states = concat_states([p.states for p in prepared])
-        params = concat_params([p.params for p in prepared])
+        prepared, states, params = sweep_batch(ex, family)
         spec, handle = prepared[0].spec, prepared[0].handle
         c = states.key.shape[0]
         n_lo = len(set(params.pop_lo.tolist()))
@@ -2534,12 +2600,23 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
             err = compare_general(cd, got, grows, want, wrows,
                                   f"[{card}] at the hex sweep's batch C={c} "
                                   f"T={t_len}")
-            ms = event_ms(lambda: cd.run_general_dense_chunk_cuda(
-                handle, static, spec, params, got, t_len), 3)
+            def run():
+                return cd.run_general_dense_chunk_cuda(
+                    handle, static, spec, params, got, t_len)
+            ms = event_ms(run, 3)
             bound_ms, bound_by, _, _ = general_bound(
                 handle, spec, got, t_len,
                 int((got.accept_count - states.accept_count).sum()))
             name = "general_dense_chunk"
+            clocks = clocks_under_load(run, 100)
+            label = "at the hex sweep's batch (hex 14x28)"
+            shape, line = dense_shape(cd, handle, c, ms, t_len,
+                                      sm_mhz(clocks))
+            check_table_path(shape, label)
+            print(f"[{card}] SM clock, power draw under the hex batch's "
+                  f"load: {clocks}")
+            print(f"[{card}] general_dense_chunk {label} C={c} T={t_len}: "
+                  f"{line}")
         # the frank sweep's tenants differ in base and pop_tol, the hex
         # sweep's in base (its pop_tol is 0.1 throughout)
         if n_base < 2 or (family == "frank" and n_lo < 2):
@@ -2554,6 +2631,8 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "max_abs_err": err,
                         "launches": 1}
+        if family == "hex":
+            rows[family]["shape"] = shape
     return rows
 
 

@@ -1,0 +1,111 @@
+"""Time ``general_dense_chunk`` against an earlier version of itself, in
+turns, on one card.
+
+    git archive <commit> flipcomplexityempirical_tpu_torch | tar -x -C build/old
+    python3 dense_turns.py --old build/old
+
+The earlier package is copied to ``build/turns/fce_old_torch`` and its
+kernel built from its own sources. At the kernel's three main-path shapes
+(``chip_smoke.py``'s: a hex config's chunk, hex 14x28, C=8, T=2439; the
+hex sweep's batch; the general main path's, hex 64x64, C=4096, T=500
+after a warm-up), both kernels run the same chunk from the same state and
+must give equal outputs; then each is timed with CUDA events, old, new,
+new, old, ``--rounds`` times. Prints the card's name and power limit, each
+round's ms a chunk, and the SM clock under the new kernel with its cycles
+a step. Needs a CUDA card; exits 1 without one.
+"""
+
+import argparse
+import pathlib
+import shutil
+import sys
+
+import chip_smoke as cs
+
+FIELDS = ("key", "assignment", "cut", "cut_deg", "dist_pop", "cut_count",
+          "b_count", "cur_wait", "cur_flip_node", "t_yield", "part_sum",
+          "last_flipped", "num_flips", "cut_times", "waits_sum",
+          "accept_count", "conn_bits")
+
+
+def shapes(port, sampling, ex):
+    """(label, graph handle, spec, params, state, T) of the three shapes."""
+    out = []
+    for label, mn, chains, tol, base, t_len, warm in (
+            ("hex 14x28 C=8", (14, 28), 8, 0.1, 1 / 0.3, 2439, 0),
+            ("hex 64x64 C=4096", (cs.GRID, cs.GRID), cs.CHAINS, cs.POP_TOL,
+             cs.BASE, cs.CHUNK, cs.WARMUP)):
+        _, spec, dg, st, params = cs.general_inputs(
+            port, sampling, "hex_lattice", mn, chains, tol, base)
+        if warm:
+            st = sampling.run_chains(dg, spec, params, st, n_steps=warm,
+                                     chunk=t_len, record_history=False).state
+        out.append((label, dg, spec, params, st, t_len))
+    prepared, states, params = cs.sweep_batch(ex, "hex")
+    out.insert(1, (f"the hex sweep's batch C={states.key.shape[0]}",
+                   prepared[0].handle, prepared[0].spec, params, states,
+                   2439))
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", required=True, help="a directory holding an "
+                    "earlier flipcomplexityempirical_tpu_torch/")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=10)
+    opts = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("dense_turns.py: no CUDA card", file=sys.stderr)
+        sys.exit(1)
+    import flipcomplexityempirical_tpu_torch as port
+    from flipcomplexityempirical_tpu_torch import experiments as ex
+    from flipcomplexityempirical_tpu_torch import sampling
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_dense as cd
+    dst = cs.ROOT / "build" / "turns" / "fce_old_torch"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(
+        pathlib.Path(opts.old) / "flipcomplexityempirical_tpu_torch", dst)
+    sys.path.insert(0, str(dst.parent))
+    from fce_old_torch.kernel import cuda_dense as old_cd
+    print(cs.card_line())
+    for label, dg, spec, params, st, t_len in shapes(port, sampling, ex):
+        static, old_static = (cd.make_static_inputs(dg),
+                              old_cd.make_static_inputs(dg))
+        st, _ = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                st, t_len)
+
+        def new():
+            return cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                   st, t_len)
+
+        def old():
+            return old_cd.run_general_dense_chunk_cuda(
+                dg, old_static, spec, params, st, t_len)
+
+        (got, rows), (want, wrows) = new(), old()
+        if not (all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in FIELDS)
+                and all(torch.equal(rows[k], wrows[k]) for k in wrows)):
+            cs.fail(f"{label}: the two kernels' outputs differ")
+        times = {"old": [], "new": []}
+        for _ in range(opts.rounds):
+            for name, fn in (("old", old), ("new", new), ("new", new),
+                             ("old", old)):
+                fn()
+                times[name].append(cs.event_ms(fn, opts.reps))
+        ms = sorted(times["new"])[len(times["new"]) // 2]
+        clocks = cs.clocks_under_load(new, max(20, int(400 / ms)))
+        _, line = cs.dense_shape(cd, dg, st.key.shape[0], ms, t_len,
+                                 cs.sm_mhz(clocks))
+        print(f"{label} T={t_len}: outputs equal; old "
+              + ", ".join(f"{x:.4f}" for x in times["old"]) + " ms; new "
+              + ", ".join(f"{x:.4f}" for x in times["new"])
+              + f" ms (CUDA events, {opts.reps} launches each, in turns "
+              f"old, new, new, old); SM clock, power under the new "
+              f"kernel: {clocks}; new {line}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,44 +14,88 @@
 // on every output, and draws the JAX package's threefry stream: split(key,
 // 4) per step into (key, proposal, accept, wait), as dense.py:313 does.
 //
-// Per chain, in shared memory, five bit planes of ceil(N / 32) words: the
-// assignment A (district 1), the boundary Bd (cut_deg > 0), the
-// contiguity plane Cn (the state's conn_bits), the step's valid set V and
-// the nodes flipped in this chunk F. A state that carries no conn_bits
-// (a run's first chunk) has Cn filled at the start by one patch check a
-// node, the JAX package's init_conn_bits (dense.py:137), which its runner
-// runs on entry (ensure_conn_bits). Per step and chain:
-//   1. the draws, 32 steps a batch (chain_common.cuh::draw_batch);
-//   2. the valid words V = Bd & Cn & population gate (& not the excluded
-//      last flip under nobacktrack), lane l owning words l, l + 32, ...;
-//      the gate is one test per district for a uniform population and a
-//      per-candidate test of pop[i] otherwise, in f32 as dense.py:210 does;
-//      the total by a warp reduction;
-//   3. the m-th valid node, m = min(int(u * total), max(total - 1, 0)): a
-//      warp scan of word popcounts, round by round of 32 words, then the
-//      bit inside the word; with no valid node the selection is node 0 and
-//      nothing is committed (the JAX body's self-loop);
-//   4. accept by the literal bound -beta * dcut * log_base against
+// What bounds it on the H100. A chain's steps are serial, and the hex
+// paths run few chains (8 a config, 32 a sweep batch): at C <= 132 a chunk
+// takes T times one warp's latency through a step, a chain of dependent
+// shared-memory loads, warp votes and shuffles; neither bytes (the state
+// is read and written once) nor operations come near their bounds. At
+// C=4096 (the bench) ~32 warps share an SM, and issue slots, the tables'
+// L1 misses and the chunk's start (the (C, N) and (C, E) fields copied in)
+// set the pace. So a step reads only shared memory and registers, and what
+// it does not read back leaves its serial path:
+//   - per chain in shared memory, five bit planes of ceil(N / 32) words:
+//     the assignment A (district 1), the boundary Bd (a neighbour in the
+//     other district), the contiguity plane Cn (the state's conn_bits), Y
+//     (conn bits left stale: see 3) and R (the nodes that closed a parity
+//     run in this chunk), and per group of 32 words the count of each
+//     district's candidates Bd & Cn & ~A and Bd & Cn & A, kept up to date:
+//     a flip changes them only at v, its neighbours and its patch;
+//   - the graph's tables (patch slots and adjacency bitsets in rows of 8k
+//     slots, neighbour slots and edges, degrees, node ids as uint16) are
+//     staged into shared memory once a block by bulk asynchronous copies
+//     (cp.async.bulk on an mbarrier) where they fit beside the block's
+//     chains (hex 14x28: 166 KB), and read through L1 otherwise (64x64
+//     hex: 1.6 MB); the C entry chooses by size;
+//   - at C <= the SM count and patch rows of at most 24 slots (hex and
+//     tri: P = 18), one chain a block with a second warp that runs
+//     the threefry key chain and the step's uniforms 32 steps a batch,
+//     ahead of the chain, into a ring in shared memory handed over on
+//     mbarriers, and the chain's member masks (below); at larger C up to 8
+//     chains a block, 64 registers a thread, each warp drawing its own
+//     batches (chain_common.cuh::draw_batch).
+// Per step and chain:
+//   1. the step's draws from the batch (lane i holds step 32 q + i's);
+//   2. the selection, m = min(int(u * total), max(total - 1, 0)), under
+//      the population gate, one f32 test per district for a uniform
+//      population (dense.py:210): the group of the m-th valid node from a
+//      warp prefix of the gated group counts, the word from a prefix of the
+//      group's gated word popcounts (one independent ballot a bit of the
+//      counts), the bit by a ballot; under nobacktrack the excluded last
+//      flip is taken out of its group and word. All of it but m depends on
+//      the state only, so a rejected step reuses it. A population that
+//      varies by node is gated per candidate: that case rebuilds the valid
+//      words each step, as the kernel always did. With no valid node the
+//      selection is node 0 and nothing is committed (the JAX body's
+//      self-loop);
+//   3. accept by the literal bound -beta * dcut * log_base against
 //      log(max(u, 1e-12)), lanes s < D holding v's neighbour slot s; on an
-//      accepted move: cut, cut_deg, the boundary plane and its count, the
-//      population tallies, the wait from the new boundary count, then the
-//      conn bits of v and its patch (1 + P lanes, each the patch check of
-//      kernel/contiguity.py::patch_connected by a worklist over the
-//      patch_adj bitsets; the JAX refresh recomputes them on a rejected
-//      step too, where they do not change);
-//   5. the record: lanes 0..4 write the (T, C) rows cut_count, b_count,
-//      wait, accepts and weight (1 + wait, under lazy_uniform); the wait
-//      sum; the parity quirk at cur_flip_node (its part_sum, last_flipped
-//      and num_flips advance on every yield once a first move was accepted,
-//      rejected steps included, step.py:538-551).
-// The reference adds the cut plane to cut_times every yield, O(E) a step.
-// Here an edge's cut state changes only when one of its ends flips, so an
-// accepted flip at step t adds cut_old * (t - last) to each of v's edges
-// (last: the later of its ends' last flip steps in this chunk, else 0)
-// and the chunk's end adds cut_now * (T - last) to every edge, plus the
-// incoming cut_times. A (C, N) int32 scratch holds the last flip steps,
-// read only where F is set. b_count is kept up to date from the cut_deg
-// changes of v and its neighbours, the reference's (cut_deg > 0).sum().
+//      accepted move, lane i holding v (i = 0) or its patch slot i - 1 (the
+//      first deg(v) of which are its neighbours): each node's boundary bit
+//      after the flip (a neighbour's from A and its own neighbour slots),
+//      its conn bit by a kernel/contiguity.py::patch_connected check where
+//      it is on the boundary, all against A with v flipped, before
+//      anything is written; then the commit of A, Bd, Cn and the group
+//      counts. A conn bit counts only on the boundary, so off it a node is
+//      marked stale (Y) instead of checked: it is checked when it joins
+//      the boundary (always as a neighbour of a flipped node, so a touched
+//      one) or at the chunk's end. A check gathers its P member slots with
+//      the loads issued together (narrow form) or reads the node's member
+//      mask, kept up to date at every flip through the reverse-slot table
+//      (wide form), then grows the reach over the slots' adjacency words
+//      (a worklist, or every slot at once in registers);
+//   4. the (T, C) rows cut_count, b_count, wait, accepts and weight (1 +
+//      wait, under lazy_uniform), plain stores.
+// The records nothing in the step reads back are fire-and-forget global
+// reductions (the second of the two ways the redesign allows; no flip log):
+//   - cut_times: the reference adds the cut plane every yield. An edge's
+//     cut state changes only when one of its ends flips, by +-1, and the
+//     change at step t is seen by the T - t yields t..T-1, so the chunk
+//     starts from cut_times + cut * T and each accepted flip adds
+//     delta * (T - t) to each of v's edges;
+//   - the parity quirk (step.py:538-551: part_sum, last_flipped and
+//     num_flips of cur_flip_node advance on every yield once a first move
+//     was accepted). Between two accepted moves cur_flip_node is one node
+//     x in one district b, so the run of k yields ending at yield e adds
+//     -s * (e - lf) to part_sum[x], with lf x's last_flipped before it, and
+//     sets last_flipped[x] = e, num_flips[x] += k. The run after it at x
+//     starts with a flip of x, so its sign is label[1 - b]: closing a run
+//     adds (label[1 - b] - s) * e and k, stores e, and marks x in R; the
+//     chunk end adds, for each x in R, s1 * lf_in[x] - label[1 - b_end] *
+//     e_last with s1 the sign of x's first run in the chunk. Nothing is
+//     read back inside the step; the chunk-end pass reads last_flipped
+//     once per node of R (tests/test_torch_dense_bookkeeping.py holds a
+//     numpy model of this arithmetic to the plain version).
+// cut and cut_deg are written at the chunk's end from A.
 //
 // Traps the code keeps:
 //   - the wait denominator is N**2 - 1 over the graph's nodes, in f32
@@ -66,6 +110,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 //        -shared -Xcompiler -fPIC (kernel/_build.py).
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,21 +122,65 @@ namespace {
 using namespace fce;
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kChainsPerBlock = 4;
-constexpr int kThreads = 32 * kChainsPerBlock;
-constexpr int kPlanes = 5;  // A, Bd, Cn, V, F
+constexpr int kMaxChainsPerBlock = 8;
+constexpr int kPlanes = 5;        // A, Bd, Cn, Y, R
+constexpr int kGroupShift = 10;   // 32 words, 1024 nodes, a count group
+constexpr int kRing = 4;          // draw batches in flight (producer mode)
+constexpr int kWidePp = 24;       // patch row slots the wide form holds
+constexpr size_t kSmemLimit = 227 * 1024;
+constexpr uint32_t kPiece = 32 * 1024;  // bytes a bulk copy
+
+// The packed graph tables (kernel/cuda_dense.py::pack_tables builds the
+// same layout): patch adjacency bitsets (N, Pp) as uint32 and patch slots
+// (N, Pp) as uint16, rows of Pp = P rounded up to 8 slots (16-byte
+// aligned: a row is a few vector loads; pads hold the node itself and no
+// adjacency), then neighbour edges (N, D) as uint32, each node's real
+// patch slots (N,) as a uint32 mask, neighbour slots (N, D) as uint16,
+// degrees (N,) as uint8 and, for patch slot s of u, the slot of u in the
+// patch of that node (N, Pp) as uint8; padded to 16 bytes.
+struct Layout {
+  size_t padj, pn, nedge, slots, nbr, deg, rev, bytes;
+  int pp;
+};
+
+__host__ __device__ inline Layout table_layout(int n, int d, int p) {
+  Layout l;
+  l.pp = (p + 7) & ~7;
+  l.padj = 0;
+  l.pn = l.padj + 4 * size_t(n) * l.pp;
+  l.nedge = l.pn + 2 * size_t(n) * l.pp;
+  l.slots = l.nedge + 4 * size_t(n) * d;
+  l.nbr = l.slots + 4 * size_t(n);
+  l.deg = l.nbr + 2 * size_t(n) * d;
+  l.rev = l.deg + size_t(n);
+  l.bytes = (l.rev + size_t(n) * l.pp + 15) & ~size_t(15);
+  return l;
+}
+
+struct Tables {
+  const uint32_t* padj;
+  const uint16_t* pn;
+  const uint32_t* nedge;
+  const uint32_t* slots;
+  const uint16_t* nbr;
+  const uint8_t* deg;
+  const uint8_t* rev;
+  int pp;  // a patch row's slots
+};
+
+// A table read: shared memory when staged, through L1 otherwise.
+template <bool kStaged, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kStaged)
+    return *p;
+  else
+    return __ldg(p);
+}
 
 struct Args {
-  // the graph: (N, D) neighbour slots (pad = the node), their edges, the
-  // degrees, populations, (N, P) patch slots (pad = the node) and their
-  // uint32 adjacency bitsets, (E, 2) edge ends
-  const int32_t* nbr;
-  const int32_t* nbr_edge;
-  const int32_t* deg;
-  const int32_t* pop;
-  const int32_t* patch_nodes;
-  const int32_t* patch_adj;
-  const int32_t* edges;
+  const uint8_t* tables;        // table_layout, 16-byte aligned
+  const int32_t* edges;         // (E, 2) edge ends
+  const int32_t* pop;           // (N,)
   // per chain in
   const int32_t* key_in;        // (2, C) uint32 key words
   const int8_t* assign_in;      // (C, N)
@@ -126,38 +215,123 @@ struct Args {
   float* h_wait;
   int32_t* h_acc;
   float* h_weight;
-  int32_t* last_change;         // (C, N) scratch, read only where flipped
   int n_chains, n, e, d, p, t_inner;
   int patch, geom_waits, nobacktrack, lazy, parity, fill_conn;
   int unit_pop;                 // > 0: every node's population; 0: varies
   int label0, label1;
+  // the launch shape (the C entry's): chains a block, the bytes of a
+  // chain's shared memory
+  int cpb, chain_bytes;
 };
 
-// kernel/contiguity.py::patch_connected of node u against the assignment
-// bits A: the same-district members of u's patch (pads and u left out),
-// seeds = members among the first deg(u) slots (u's neighbours), reach
-// grown from the lowest seed over patch_adj until every seed is reached or
-// nothing new is.
-__device__ bool patch_connected(const Args& a, const uint32_t* A, int u) {
-  const int P = a.p;
-  const int du = __ldg(a.deg + u);
-  const uint32_t au = bit_at(A, u);
-  const int32_t* pn = a.patch_nodes + (size_t)u * P;
-  const int32_t* padj = a.patch_adj + (size_t)u * P;
-  uint32_t member = 0u;
-  for (int s = 0; s < P; ++s) {
-    const int x = __ldg(pn + s);
-    if (x != u && bit_at(A, x) == au) member |= 1u << s;
+// ---- mbarriers and the bulk copy ----------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra.uni DONE;\n\t"
+      "bra.uni WAIT;\n"
+      "DONE:\n\t}" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// whether the barrier's phase of this parity has completed, without
+// waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, P1;\n\t}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0u;
+}
+
+// one thread: copy `bytes` (a multiple of 16) from global to shared memory,
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  for (uint32_t o = 0; o < bytes; o += kPiece) {
+    const uint32_t len = bytes - o < kPiece ? bytes - o : kPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(static_cast<char*>(dst) + o)),
+        "l"(static_cast<const char*>(src) + o), "r"(len), "r"(smem_u32(bar))
+        : "memory");
   }
-  const uint32_t first = du >= 32 ? kFull : ((1u << du) - 1u);
-  const uint32_t seeds = member & first;
+}
+
+// ---- warp helpers ---------------------------------------------------------
+__device__ __forceinline__ int incl_scan(int x, int lane) {
+#pragma unroll
+  for (int dd = 1; dd < 32; dd <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, dd);
+    if (lane >= dd) x += y;
+  }
+  return x;
+}
+
+// kernel/contiguity.py::patch_connected of node u against the assignment
+// A with v's bit flipped (the checks of a move run before its commit):
+// the same-district members of u's patch (pads and u left out), seeds =
+// members among the first deg(u) slots (u's neighbours), reach grown from
+// the lowest seed over the members' slot adjacency until every seed is
+// reached (true) or nothing new is (false).
+//
+// The narrow form (up to 8 chains a block, 64 registers a thread): seeds
+// first (at most one: true without the rest), the other slots' loads six
+// at a time, then a worklist that keeps reach, frontier and members in
+// registers and reads one adjacency word a turn.
+template <bool kStaged>
+__device__ __forceinline__ bool patch_connected(const Tables& tab,
+                                                const uint32_t* A, int u,
+                                                int v, int P) {
+  const int du = ld<kStaged>(tab.deg + u);
+  const uint32_t au = bit_at(A, u) ^ uint32_t(u == v);
+  const uint16_t* pn = tab.pn + size_t(u) * tab.pp;
+  auto same = [&](int s) {  // branch-free: the loads issue together
+    const int x = ld<kStaged>(pn + s);
+    const uint32_t ax = bit_at(A, x) ^ uint32_t(x == v);
+    return uint32_t(ax == au && x != u) << s;
+  };
+  uint32_t seeds = 0u;
+#pragma unroll 4
+  for (int s = 0; s < du; ++s) seeds |= same(s);
   if ((seeds & (seeds - 1u)) == 0u) return true;  // at most one seed
+  uint32_t member = seeds;
+#pragma unroll 6
+  for (int s = du; s < P; ++s) member |= same(s);
+  const uint32_t* pa = tab.padj + size_t(u) * tab.pp;
   uint32_t reach = seeds & (0u - seeds), frontier = reach;
   while (frontier) {
     const int s = __ffs(frontier) - 1;
     frontier &= frontier - 1u;
-    const uint32_t nb =
-        static_cast<uint32_t>(__ldg(padj + s)) & member & ~reach;
+    const uint32_t nb = ld<kStaged>(pa + s) & member & ~reach;
     reach |= nb;
     frontier |= nb;
     if ((seeds & ~reach) == 0u) return true;
@@ -165,22 +339,179 @@ __device__ bool patch_connected(const Args& a, const uint32_t* A, int u) {
   return false;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The wide form (one chain a block, registers to spare) keeps each node's
+// member mask M[u] (bit s: patch slot s of u is in u's district) in
+// shared memory, updated at every move: a flip of v toggles v's slot in
+// the mask of each node of v's patch (rev gives the slot) and every slot
+// of v's own. A check then reads M[u], u's degree and its adjacency words
+// (16-byte vectors, all at once) and grows the reach a frontier at a time
+// over every slot in registers.
+//
+// The member mask of u against A, from u's slot ids as 16-byte vectors
+// and the slots' assignment bits, all loads at once (branch-free).
+template <bool kStaged>
+__device__ __forceinline__ uint32_t member_mask(const Tables& tab,
+                                                const uint32_t* A, int u) {
+  const int nq = tab.pp >> 3;  // 8 slots a vector of ids, nq <= kWidePp / 8
+  const uint4* pn4 =
+      reinterpret_cast<const uint4*>(tab.pn + size_t(u) * tab.pp);
+  const uint32_t uu = uint32_t(u) | uint32_t(u) << 16;
+  uint32_t ids[kWidePp / 2];
+#pragma unroll
+  for (int q = 0; q < kWidePp / 8; ++q) {
+    const uint4 w = q < nq ? ld<kStaged>(pn4 + q) : make_uint4(uu, uu, uu, uu);
+    ids[4 * q] = w.x;
+    ids[4 * q + 1] = w.y;
+    ids[4 * q + 2] = w.z;
+    ids[4 * q + 3] = w.w;
+  }
+  const uint32_t au = bit_at(A, u);
+  uint32_t member = 0u;
+#pragma unroll
+  for (int s = 0; s < kWidePp; ++s) {
+    const int x = (ids[s >> 1] >> (16 * (s & 1))) & 0xFFFF;
+    member |= uint32_t(bit_at(A, x) == au && x != u) << s;
+  }
+  return member;
+}
+
+// kernel/contiguity.py::patch_connected of u from its member mask.
+template <bool kStaged>
+__device__ __forceinline__ bool patch_connected_wide(const Tables& tab,
+                                                     int u, uint32_t member) {
+  const int nq = tab.pp >> 3;
+  const uint4* pa4 =
+      reinterpret_cast<const uint4*>(tab.padj + size_t(u) * tab.pp);
+  uint32_t adj[kWidePp];
+#pragma unroll
+  for (int q = 0; q < kWidePp / 4; ++q) {
+    const uint4 w = q < 2 * nq ? ld<kStaged>(pa4 + q) : make_uint4(0, 0, 0, 0);
+    adj[4 * q] = w.x;
+    adj[4 * q + 1] = w.y;
+    adj[4 * q + 2] = w.z;
+    adj[4 * q + 3] = w.w;
+  }
+  const int du = ld<kStaged>(tab.deg + u);
+  const uint32_t first = du >= 32 ? kFull : ((1u << du) - 1u);
+  const uint32_t seeds = member & first;
+  if ((seeds & (seeds - 1u)) == 0u) return true;  // at most one seed
+  uint32_t reach = seeds & (0u - seeds), frontier = reach;
+  while (true) {
+    uint32_t g0 = 0u, g1 = 0u, g2 = 0u, g3 = 0u;
+#pragma unroll
+    for (int s = 0; s < kWidePp; s += 4) {
+      g0 |= adj[s] & (0u - ((frontier >> s) & 1u));
+      g1 |= adj[s + 1] & (0u - ((frontier >> (s + 1)) & 1u));
+      g2 |= adj[s + 2] & (0u - ((frontier >> (s + 2)) & 1u));
+      g3 |= adj[s + 3] & (0u - ((frontier >> (s + 3)) & 1u));
+    }
+    const uint32_t grown = (g0 | g1 | g2 | g3) & member & ~reach;
+    reach |= grown;
+    if ((seeds & ~reach) == 0u) return true;
+    if (grown == 0u) return false;
+    frontier = grown;
+  }
+}
+
+// The draws ring of a producer-mode block: kRing batches of 32 steps'
+// (proposal bits, log accept uniform, log wait uniform), a full and an
+// empty barrier each.
+struct Ring {
+  uint64_t full[kRing], empty[kRing];
+  uint32_t prop[kRing][32];
+  float log_acc[kRing][32], log_wait[kRing][32];
+};
+
+// The producer warp: the chain's key chain and uniforms, one batch of 32
+// steps after another, kRing batches ahead of the chain; the final key.
+__device__ void produce_draws(const Args& a, Ring* ring, int c) {
+  const int lane = threadIdx.x & 31, C = a.n_chains, T = a.t_inner;
+  uint32_t key0 = static_cast<uint32_t>(a.key_in[c]);
+  uint32_t key1 = static_cast<uint32_t>(a.key_in[C + c]);
+  for (int q = 0; 32 * q < T; ++q) {
+    const int slot = q % kRing;
+    const Draws dr = draw_batch(key0, key1, min(32, T - 32 * q));
+    key0 = dr.key0;
+    key1 = dr.key1;
+    // the producer runs ahead: it waits for a free slot with sleeps, so
+    // that its polling leaves the chain's shared-memory accesses alone
+    while (!mbar_test(&ring->empty[slot], ((q / kRing) & 1) ^ 1))
+      __nanosleep(512);
+    ring->prop[slot][lane] = dr.prop;
+    ring->log_acc[slot][lane] = dr.log_acc;
+    ring->log_wait[slot][lane] = dr.log_wait;
+    mbar_arrive(&ring->full[slot]);
+  }
+  if (lane == 0) {
+    a.key_out[c] = static_cast<int32_t>(key0);
+    a.key_out[C + c] = static_cast<int32_t>(key1);
+  }
+}
+
+// kWide: one chain a block with its draws warp (C up to the SM count),
+// patch rows of at most kWidePp slots in registers; else up to
+// kMaxChainsPerBlock chains a block, 64 registers a thread.
+template <bool kStaged, bool kWide>
+__global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
+                                  kWide ? 1 : 4)
     general_dense_kernel(const Args a) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int n = a.n, E = a.e, D = a.d, C = a.n_chains, T = a.t_inner;
-  const int nw = (n + 31) >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, E = a.e, D = a.d, P = a.p, C = a.n_chains, T = a.t_inner;
+  const int nw = (n + 31) >> 5, ng = (nw + 31) >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * kChainsPerBlock + warp;
+  const Layout lay = table_layout(n, D, P);
+  // shared memory: [table barrier | tables if staged | ring if producer |
+  //                 the block's chains]
+  uint64_t* tbar = reinterpret_cast<uint64_t*>(smem);
+  size_t off = 16;
+  const unsigned char* tbase = a.tables;
+  if constexpr (kStaged) {
+    tbase = smem + off;
+    off += lay.bytes;
+  }
+  Ring* ring = reinterpret_cast<Ring*>(smem + off);
+  if constexpr (kWide) off += (sizeof(Ring) + 15) & ~size_t(15);
+  if (threadIdx.x == 0) {
+    if constexpr (kStaged) mbar_init(tbar, 1);
+    if constexpr (kWide)
+      for (int s = 0; s < kRing; ++s) {
+        mbar_init(&ring->full[s], 32);
+        mbar_init(&ring->empty[s], 32);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if constexpr (kStaged) {
+    if (threadIdx.x == 0)
+      bulk_load(smem + 16, a.tables, static_cast<uint32_t>(lay.bytes), tbar);
+  }
+  if (kWide && warp == 1) {  // no block barrier below
+    produce_draws(a, ring, blockIdx.x);
+    return;
+  }
+  const int c = blockIdx.x * a.cpb + warp;
   if (c >= C) return;  // no block barrier below
-  uint32_t* A = smem + (size_t)warp * kPlanes * nw;
+  Tables tab;
+  tab.padj = reinterpret_cast<const uint32_t*>(tbase + lay.padj);
+  tab.nedge = reinterpret_cast<const uint32_t*>(tbase + lay.nedge);
+  tab.pn = reinterpret_cast<const uint16_t*>(tbase + lay.pn);
+  tab.nbr = reinterpret_cast<const uint16_t*>(tbase + lay.nbr);
+  tab.deg = tbase + lay.deg;
+  tab.slots = reinterpret_cast<const uint32_t*>(tbase + lay.slots);
+  tab.rev = tbase + lay.rev;
+  tab.pp = lay.pp;
+  uint32_t* A = reinterpret_cast<uint32_t*>(smem + off +
+                                            size_t(warp) * a.chain_bytes);
   uint32_t* Bd = A + nw;
   uint32_t* Cn = Bd + nw;
-  uint32_t* V = Cn + nw;
-  uint32_t* F = V + nw;
+  uint32_t* Y = Cn + nw;
+  uint32_t* R = Y + nw;
+  int* G = reinterpret_cast<int*>(R + nw);  // G[d * ng + j], district d
+  uint32_t* M = reinterpret_cast<uint32_t*>(G + 2 * ng);  // wide: (N,)
   const size_t bn = (size_t)c * n, be = (size_t)c * E;
 
   // ---- the chain in: planes, and the fields updated in place ----------
+#pragma unroll 8
   for (int k = 0; k < nw; ++k) {
     const int i = 32 * k + lane;
     const bool in = i < n;
@@ -188,33 +519,105 @@ __global__ void __launch_bounds__(kThreads)
     const int8_t cd = in ? a.cut_deg_in[bn + i] : int8_t(0);
     const uint32_t wa = __ballot_sync(kFull, in && av == 1);
     const uint32_t wb = __ballot_sync(kFull, in && cd > 0);
+    const uint32_t wn = __ballot_sync(kFull, in);
     if (lane == 0) {
       A[k] = wa;
       Bd[k] = wb;
-    }
-    if (in) {
-      a.cut_deg_out[bn + i] = cd;
-      a.part_sum_out[bn + i] = a.part_sum_in[bn + i];
-      a.last_flipped_out[bn + i] = a.last_flipped_in[bn + i];
-      a.num_flips_out[bn + i] = a.num_flips_in[bn + i];
+      R[k] = 0u;
+      // a run's first chunk: every conn bit stale (Cn filled below)
+      Y[k] = a.fill_conn && a.patch ? wn : 0u;
+      if (a.fill_conn) Cn[k] = a.patch ? 0u : wn;
     }
   }
-  for (int k = lane; k < nw; k += 32) {
-    if (!a.fill_conn)
+  if (!a.fill_conn)
+    for (int k = lane; k < nw; k += 32)
       Cn[k] = static_cast<uint32_t>(a.conn_in[(size_t)c * nw + k]);
-    F[k] = 0u;
+  // the fields updated in place, 16 bytes a lane between a row's first
+  // and last 16-byte boundaries
+  const int nh = int((4 - (bn & 3)) & 3) < n ? int((4 - (bn & 3)) & 3) : n;
+  const int n4 = (n - nh) >> 2;
+  for (int i = lane; i < n4; i += 32) {
+    const size_t at = ((bn + nh) >> 2) + i;
+    reinterpret_cast<int4*>(a.part_sum_out)[at] =
+        __ldg(reinterpret_cast<const int4*>(a.part_sum_in) + at);
+    reinterpret_cast<int4*>(a.last_flipped_out)[at] =
+        __ldg(reinterpret_cast<const int4*>(a.last_flipped_in) + at);
+    reinterpret_cast<int4*>(a.num_flips_out)[at] =
+        __ldg(reinterpret_cast<const int4*>(a.num_flips_in) + at);
   }
-  for (int i = lane; i < E; i += 32) a.cut_out[be + i] = a.cut_in[be + i];
+  // the at most 3 + 3 fields either side
+  for (int h = lane; h < nh + (n - nh - 4 * n4); h += 32) {
+    const int i = h < nh ? h : h + 4 * n4;
+    a.part_sum_out[bn + i] = a.part_sum_in[bn + i];
+    a.last_flipped_out[bn + i] = a.last_flipped_in[bn + i];
+    a.num_flips_out[bn + i] = a.num_flips_in[bn + i];
+  }
+  const int eh = int((4 - (be & 3)) & 3) < E ? int((4 - (be & 3)) & 3) : E;
+  const int e4 = (E - eh) >> 2;
+  for (int i = lane; i < e4; i += 32) {
+    const size_t at = ((be + eh) >> 2) + i;
+    int4 x = __ldg(reinterpret_cast<const int4*>(a.cut_times_in) + at);
+    const char4 k = __ldg(reinterpret_cast<const char4*>(a.cut_in) + at);
+    x.x += int(k.x) * T;
+    x.y += int(k.y) * T;
+    x.z += int(k.z) * T;
+    x.w += int(k.w) * T;
+    reinterpret_cast<int4*>(a.cut_times_out)[at] = x;
+  }
+  for (int h = lane; h < eh + (E - eh - 4 * e4); h += 32) {
+    const int i = h < eh ? h : h + 4 * e4;
+    a.cut_times_out[be + i] =
+        a.cut_times_in[be + i] + int(a.cut_in[be + i]) * T;
+  }
+  if constexpr (kStaged) mbar_wait(tbar, 0);
   __syncwarp();
-  if (a.fill_conn) {  // the full plane, from the whole of A
-    for (int k = 0; k < nw; ++k) {
-      const int i = 32 * k + lane;
-      const uint32_t w = __ballot_sync(
-          kFull, i < n && (!a.patch || patch_connected(a, A, i)));
-      if (lane == 0) Cn[k] = w;
+  if constexpr (kWide) {  // the member masks of the chain's nodes
+    if (a.patch) {
+      for (int i = lane; i < n; i += 32)
+        M[i] = member_mask<kStaged>(tab, A, i);
+      __syncwarp();
     }
-    __syncwarp();
   }
+  // the patch check of node x against A with v's bit flipped (v = -1: A);
+  // the wide form reads x's member mask, `flip` the slots v's flip toggles
+  auto check = [&](int x, int v, uint32_t flip) {
+    if constexpr (kWide)
+      return patch_connected_wide<kStaged>(tab, x, M[x] ^ flip);
+    else
+      return patch_connected<kStaged>(tab, A, x, v, P);
+  };
+  // the conn bits of the stale nodes of `mask` (one word a turn), checked
+  // against A and cleared from Y
+  auto refresh_stale = [&](const uint32_t* mask) {
+    for (int k = 0; k < nw; ++k) {
+      const uint32_t w = Y[k] & mask[k];
+      if (w == 0u) continue;
+      const bool mine = (w >> lane) & 1u;
+      const uint32_t ok = __ballot_sync(
+          kFull, mine && check(32 * k + lane, -1, 0u));
+      if (lane == 0) {
+        Cn[k] = (Cn[k] & ~w) | (ok & w);
+        Y[k] &= ~w;
+      }
+      __syncwarp();
+    }
+  };
+  // a conn bit counts only where Bd is set: those are kept exact, the
+  // others may stay stale (Y) until their node joins the boundary or the
+  // chunk ends
+  if (a.fill_conn && a.patch) refresh_stale(Bd);
+  for (int j = 0; j < ng; ++j) {  // the candidate counts of each group
+    const int k = 32 * j + lane;
+    const uint32_t cand = k < nw ? Bd[k] & Cn[k] : 0u;
+    const uint32_t av = k < nw ? A[k] : 0u;
+    const int c0 = __reduce_add_sync(kFull, __popc(cand & ~av));
+    const int c1 = __reduce_add_sync(kFull, __popc(cand & av));
+    if (lane == 0) {
+      G[j] = c0;
+      G[ng + j] = c1;
+    }
+  }
+  __syncwarp();
 
   uint32_t key0 = static_cast<uint32_t>(a.key_in[c]);
   uint32_t key1 = static_cast<uint32_t>(a.key_in[C + c]);
@@ -223,43 +626,158 @@ __global__ void __launch_bounds__(kThreads)
   float cur_wait = a.scal_in[4 * C + c], waits_sum = a.scal_in[5 * C + c];
   int dp0 = a.dist_pop_in[c], dp1 = a.dist_pop_in[C + c];
   int cut_count = a.ints_in[c], b_count = a.ints_in[C + c],
-      cur_flip = a.ints_in[2 * C + c], t_yield = a.ints_in[3 * C + c],
-      move_clock = a.ints_in[4 * C + c], acc_cnt = a.ints_in[5 * C + c],
+      cur_flip = a.ints_in[2 * C + c];
+  const int t_yield = a.ints_in[3 * C + c];
+  int move_clock = a.ints_in[4 * C + c], acc_cnt = a.ints_in[5 * C + c],
       tries = a.ints_in[6 * C + c], exh_cnt = a.ints_in[7 * C + c];
+  const int flip_in = cur_flip;
+  int run_start = 0, first_accept = T;  // the parity run at cur_flip
   const float denom =
       static_cast<float>(static_cast<double>(n) * n - 1.0);
+  const bool unit = a.unit_pop > 0;
   const float unitf = static_cast<float>(a.unit_pop);
+  const int K = a.patch ? P : D;  // touched slots besides v: patch or nbrs
+  auto label = [&](uint32_t b) { return b ? a.label1 : a.label0; };
+  // the selection's cache (uniform population; refreshed after a move)
+  bool fresh = false, open0 = false, open1 = false;
+  int sel_total = 0, xg = -1, xw = -1, g_cnt = 0, g_incl = 0, last_g = -1;
+  int w_cnt = 0, w_below = 0;
+  uint32_t w_word = 0u;
+  const uint32_t lt = (1u << lane) - 1u;  // the lanes below this one
   Draws draws{0u, 0u, 0u, 0.f, 0.f};  // lane i: step 32 * q + i's draws
+
+  // a parity run at x (district b) over yields ..e, k of them, closes
+  auto close_run = [&](int x, uint32_t b, int t_end) {
+    const int e_last = t_yield + t_end - 1;
+    const size_t at = bn + x;
+    atomicAdd(a.part_sum_out + at, (label(1u - b) - label(b)) * e_last);
+    atomicAdd(a.num_flips_out + at, t_end - run_start);
+    a.last_flipped_out[at] = e_last;
+    R[x >> 5] |= 1u << (x & 31);
+  };
 
   for (int t = 0; t < T; ++t) {
     // ---- 1. the step's uniforms, 32 steps at a time -------------------
     const int slot = t & 31;
     if (slot == 0) {
-      draws = draw_batch(key0, key1, min(32, T - t));
-      key0 = draws.key0;
-      key1 = draws.key1;
+      if constexpr (kWide) {
+        const int q = t >> 5, s = q % kRing;
+        mbar_wait(&ring->full[s], (q / kRing) & 1);
+        draws.prop = ring->prop[s][lane];
+        draws.log_acc = ring->log_acc[s][lane];
+        draws.log_wait = ring->log_wait[s][lane];
+        mbar_arrive(&ring->empty[s]);
+      } else {
+        draws = draw_batch(key0, key1, min(32, T - t));
+        key0 = draws.key0;
+        key1 = draws.key1;
+      }
     }
     const float u_prop = uniform_of(__shfl_sync(kFull, draws.prop, slot));
     const float log_acc = __shfl_sync(kFull, draws.log_acc, slot);
     const float log_wait = __shfl_sync(kFull, draws.log_wait, slot);
 
-    // ---- 2. the valid words and their count ----------------------------
-    const float p0f = static_cast<float>(dp0), p1f = static_cast<float>(dp1);
-    // a node of district 0 moves to 1: 0 loses it, 1 gains it
-    const uint32_t gate0 =
-        (p0f - unitf >= pop_lo) && (p1f + unitf <= pop_hi) ? kFull : 0u;
-    const uint32_t gate1 =
-        (p1f - unitf >= pop_lo) && (p0f + unitf <= pop_hi) ? kFull : 0u;
-    const bool excl = a.nobacktrack && cur_flip >= 0 &&
-                      bit_at(Bd, cur_flip) && b_count > 1;
-    int cnt = 0;
-    for (int k = lane; k < nw; k += 32) {
-      uint32_t w = Bd[k] & Cn[k];
-      if (excl && (cur_flip >> 5) == k) w &= ~(1u << (cur_flip & 31));
-      const uint32_t av = A[k];
-      if (a.unit_pop > 0) {
-        w &= (av & gate1) | (~av & gate0);
-      } else {
+    // ---- 2. the m-th valid node -----------------------------------------
+    int total, v = 0;
+    if (unit) {
+      // the state changes only at an accepted move: a rejected step reuses
+      // the gates, the gated counts, the group prefix and the last group's
+      // word prefix, and only m changes
+      if (!fresh) {
+        const float p0f = static_cast<float>(dp0);
+        const float p1f = static_cast<float>(dp1);
+        // a node of district 0 moves to 1: 0 loses it, 1 gains it
+        open0 = (p0f - unitf >= pop_lo) && (p1f + unitf <= pop_hi);
+        open1 = (p1f - unitf >= pop_lo) && (p0f + unitf <= pop_hi);
+        // the excluded node counts only where it is a gated candidate
+        const bool excl = a.nobacktrack && cur_flip >= 0 &&
+                          bit_at(Bd, cur_flip) && b_count > 1 &&
+                          bit_at(Cn, cur_flip) &&
+                          (bit_at(A, cur_flip) ? open1 : open0);
+        xg = excl ? cur_flip >> kGroupShift : -1;
+        xw = excl ? cur_flip >> 5 : -1;
+        if (ng == 1) {  // every lane reads the one group's counts
+          sel_total = (open0 ? G[0] : 0) + (open1 ? G[1] : 0) - int(excl);
+        } else if (ng <= 32) {  // lane j holds group j's prefix
+          g_cnt = lane < ng ? (open0 ? G[lane] : 0) +
+                                  (open1 ? G[ng + lane] : 0) - int(lane == xg)
+                            : 0;
+          g_incl = incl_scan(g_cnt, lane);
+          sel_total = __shfl_sync(kFull, g_incl, 31);
+        } else {
+          int cnt = 0;
+          for (int j = lane; j < ng; j += 32)
+            cnt += (open0 ? G[j] : 0) + (open1 ? G[ng + j] : 0) - int(j == xg);
+          sel_total = __reduce_add_sync(kFull, cnt);
+        }
+        last_g = -1;
+        fresh = true;
+      }
+      total = sel_total;
+      int m = static_cast<int>(u_prop * static_cast<float>(total));
+      m = min(m, max(total - 1, 0));
+      if (total > 0) {
+        int g = 0, r = m;
+        if (ng > 1 && ng <= 32) {  // the group of the m-th valid node
+          g = __ffs(__ballot_sync(kFull, g_incl > m)) - 1;
+          r = m - __shfl_sync(kFull, g_incl - g_cnt, g);
+        } else if (ng > 32) {  // a scan of the gated group counts
+          int before = 0;
+          for (int j0 = 0; j0 < ng; j0 += 32) {
+            const int j = j0 + lane;
+            const int cj = j < ng ? (open0 ? G[j] : 0) +
+                                        (open1 ? G[ng + j] : 0) - int(j == xg)
+                                  : 0;
+            const int incl = incl_scan(cj, lane);
+            const int round = __shfl_sync(kFull, incl, 31);
+            if (m < before + round) {
+              const int rr = m - before;
+              const int src = __ffs(__ballot_sync(kFull, incl > rr)) - 1;
+              g = j0 + src;
+              r = rr - __shfl_sync(kFull, incl - cj, src);
+              break;
+            }
+            before += round;
+          }
+        }
+        if (g != last_g) {
+          // the group's gated words and the prefix of their popcounts,
+          // one independent ballot a bit of the counts (at most 32)
+          const int k = (g << 5) + lane;
+          w_word = 0u;
+          if (k < nw) {
+            const uint32_t av = A[k];
+            w_word = Bd[k] & Cn[k] & ((open1 ? av : 0u) | (open0 ? ~av : 0u));
+            if (k == xw) w_word &= ~(1u << (cur_flip & 31));
+          }
+          w_cnt = __popc(w_word);
+          w_below = 0;
+#pragma unroll
+          for (int b = 0; b < 6; ++b)
+            w_below += __popc(__ballot_sync(kFull, (w_cnt >> b) & 1) & lt)
+                       << b;
+          last_g = g;
+        }
+        // the word, then the bit: the lane whose bit of the word is set
+        // with rr set bits below it
+        const int src = __ffs(__ballot_sync(kFull, w_below + w_cnt > r)) - 1;
+        const int rr = r - __shfl_sync(kFull, w_below, src);
+        const uint32_t ws = __shfl_sync(kFull, w_word, src);
+        const uint32_t hit = __ballot_sync(
+            kFull, ((ws >> lane) & 1u) && __popc(ws & lt) == rr);
+        v = min(32 * ((g << 5) + src) + __ffs(hit) - 1, n - 1);
+      }
+    } else {
+      // a population that varies by node: the valid words rebuilt, each
+      // candidate's gate tested in f32 (dense.py::_pop_plane_bi)
+      const float p0f = static_cast<float>(dp0);
+      const float p1f = static_cast<float>(dp1);
+      const bool excl = a.nobacktrack && cur_flip >= 0 &&
+                        bit_at(Bd, cur_flip) && b_count > 1;
+      auto valid_word = [&](int k) {
+        uint32_t w = Bd[k] & Cn[k];
+        if (excl && (cur_flip >> 5) == k) w &= ~(1u << (cur_flip & 31));
+        const uint32_t av = A[k];
         uint32_t rest = w;
         while (rest) {
           const int bit = __ffs(rest) - 1;
@@ -270,51 +788,41 @@ __global__ void __launch_bounds__(kThreads)
           if (!((from - pf >= pop_lo) && (to + pf <= pop_hi)))
             w &= ~(1u << bit);
         }
+        return w;
+      };
+      int cnt = 0;
+      for (int k = lane; k < nw; k += 32) cnt += __popc(valid_word(k));
+      total = __reduce_add_sync(kFull, cnt);
+      int m = static_cast<int>(u_prop * static_cast<float>(total));
+      m = min(m, max(total - 1, 0));
+      if (total > 0) {
+        int before = 0;
+        for (int k0 = 0; k0 < nw; k0 += 32) {
+          const int k = k0 + lane;
+          const uint32_t w = k < nw ? valid_word(k) : 0u;
+          const int cw = __popc(w);
+          const int incl = incl_scan(cw, lane);
+          const int round = __shfl_sync(kFull, incl, 31);
+          if (m < before + round) {
+            const int r = m - before;
+            const int src = __ffs(__ballot_sync(kFull, incl > r)) - 1;
+            const int below = __shfl_sync(kFull, incl - cw, src);
+            const uint32_t ws = __shfl_sync(kFull, w, src);
+            v = min(32 * (k0 + src) + nth_bit(ws, r - below), n - 1);
+            break;
+          }
+          before += round;
+        }
       }
-      V[k] = w;
-      cnt += __popc(w);
     }
-    const int total = __reduce_add_sync(kFull, cnt);
-    __syncwarp();
 
-    // ---- 3. the m-th valid node ----------------------------------------
+    // ---- 3. accept and commit; lane s < D holds v's slot s -------------
     const bool valid = total > 0;
-    int m = static_cast<int>(u_prop * static_cast<float>(total));
-    m = min(m, max(total - 1, 0));
-    int v = 0;
-    if (valid) {
-      int before = 0;
-      for (int k0 = 0; k0 < nw; k0 += 32) {
-        const int k = k0 + lane;
-        const uint32_t w = k < nw ? V[k] : 0u;
-        const int cw = __popc(w);
-        int incl = cw;
-#pragma unroll
-        for (int dd = 1; dd < 32; dd <<= 1) {
-          const int x = __shfl_up_sync(kFull, incl, dd);
-          if (lane >= dd) incl += x;
-        }
-        const int round = __shfl_sync(kFull, incl, 31);
-        if (m < before + round) {
-          const int r = m - before;
-          const unsigned hit = __ballot_sync(kFull, incl > r);
-          const int src = __ffs(hit) - 1;
-          const int below = __shfl_sync(kFull, incl - cw, src);
-          const uint32_t ws = __shfl_sync(kFull, w, src);
-          v = 32 * (k0 + src) + nth_bit(ws, r - below);
-          break;
-        }
-        before += round;
-      }
-      v = min(v, n - 1);
-    }
-
-    // ---- 4. accept and commit; lane s < D holds v's slot s -------------
     const uint32_t d_from = bit_at(A, v);
-    const int dv = __ldg(a.deg + v);
+    const int dv = ld<kStaged>(tab.deg + v);
     const bool msk = lane < dv;
-    const int nb = lane < D ? __ldg(a.nbr + (size_t)v * D + lane) : v;
-    const int eid = lane < D ? __ldg(a.nbr_edge + (size_t)v * D + lane) : 0;
+    const int nb = lane < D ? int(ld<kStaged>(tab.nbr + (size_t)v * D + lane))
+                            : v;
     const uint32_t na = bit_at(A, nb);
     const bool oc = msk && na != d_from;
     const bool nc = msk && na == d_from;  // na != d_to
@@ -323,39 +831,75 @@ __global__ void __launch_bounds__(kThreads)
     const float log_bound = -beta * static_cast<float>(dcut) * log_base;
     const bool accept = valid && (log_acc < log_bound);
     if (accept) {
-      const bool fv = bit_at(F, v);
-      int cd_old = 0, last_v = 0, last_n = 0, acc_old = 0;
-      if (msk) {
-        const bool fn = bit_at(F, nb);
-        if (fv) last_v = a.last_change[bn + v];
-        if (fn) last_n = a.last_change[bn + nb];
-        if (fv || fn) acc_old = a.cut_times_out[be + eid];
-        cd_old = a.cut_deg_out[bn + nb];
+      // cut_times: v's edges change state now, seen by T - t yields
+      if (msk)
+        atomicAdd(a.cut_times_out + be +
+                      ld<kStaged>(tab.nedge + (size_t)v * D + lane),
+                  (int(nc) - int(oc)) * (T - t));
+      // neighbour nb's boundary bit after the flip: a neighbour slot of nb
+      // in the other district, v's district flipped (pads hold nb itself)
+      bool bd_nb = false;
+      if (msk) {  // up to 8 slots' loads at once, branch-free
+        const uint16_t* row = tab.nbr + (size_t)nb * D;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int x = r < D ? int(ld<kStaged>(row + r)) : nb;
+          bd_nb |= (bit_at(A, x) ^ uint32_t(x == v)) != na;
+        }
+        for (int r = 8; r < D; ++r) {
+          const int x = ld<kStaged>(row + r);
+          bd_nb |= (bit_at(A, x) ^ uint32_t(x == v)) != na;
+        }
       }
-      const int cdv_old = a.cut_deg_out[bn + v];
-      __syncwarp();
+      const bool bd_up = __shfl_up_sync(kFull, bd_nb, 1);
+      const bool bd_31 = __shfl_sync(kFull, bd_nb, 31);
+      // the touched nodes, slot i = lane (+ 32): v, then its patch (its
+      // neighbours without contiguity), pads left out. A patch starts with
+      // the node's neighbours in neighbour-slot order, so slot i <= deg(v)
+      // is neighbour slot i - 1. Each slot's boundary bit after the flip,
+      // and its conn bit checked there if on the boundary (marked stale
+      // off it), all against A with v flipped, before anything is written.
+      int u[2];
+      uint32_t old_bits[2] = {0u, 0u}, new_bits[2] = {0u, 0u};  // Bd, Cn,
+                                                            // A, Y: bits 0-3
+      uint32_t flip[2] = {0u, 0u};  // wide: the slots of x's mask v toggles
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = lane + 32 * h;
+        int x = v;
+        if (i > 0 && i <= K)
+          x = a.patch ? int(ld<kStaged>(tab.pn + (size_t)v * tab.pp + i - 1))
+                      : int(ld<kStaged>(tab.nbr + (size_t)v * D + i - 1));
+        const bool live = i == 0 || (i <= K && x != v);
+        u[h] = live ? x : -1;
+        if (!live) continue;
+        const uint32_t bd = bit_at(Bd, x), cn = bit_at(Cn, x),
+                       av = bit_at(A, x), st = bit_at(Y, x);
+        const bool bd_new = i == 0 ? n_new > 0
+                            : i <= dv ? (h ? bd_31 : bd_up)
+                                      : bool(bd);
+        if (kWide && a.patch)
+          flip[h] = i == 0 ? ld<kStaged>(tab.slots + v)
+                           : 1u << ld<kStaged>(tab.rev + (size_t)v * tab.pp +
+                                                i - 1);
+        bool cn_new = cn;
+        if (a.patch && bd_new) cn_new = check(x, v, flip[h]);
+        old_bits[h] = bd | cn << 1 | av << 2 | st << 3;
+        new_bits[h] = uint32_t(bd_new) | uint32_t(cn_new) << 1 |
+                      (av ^ uint32_t(x == v)) << 2 |
+                      uint32_t(a.patch && !bd_new) << 3;
+      }
+      // the parity run at the last flip closes: district before this flip
+      const uint32_t b_prev = cur_flip >= 0 ? bit_at(A, cur_flip) : 0u;
+      // the boundary count, tallies and wait after the move, issued ahead
+      // of the commit's shared-memory updates, which do not wait on them
       int b_delta = 0;
-      if (msk) {
-        const int delta = int(nc) - int(oc);
-        const int last = last_v > last_n ? last_v : last_n;
-        a.cut_times_out[be + eid] = acc_old + int(oc) * (t - last);
-        a.cut_out[be + eid] = static_cast<int8_t>(a.cut_out[be + eid] + delta);
-        const int cd_new = cd_old + delta;
-        a.cut_deg_out[bn + nb] = static_cast<int8_t>(cd_new);
-        b_delta = int(cd_new > 0) - int(cd_old > 0);
-        if (b_delta) put_bit(Bd, nb, cd_new > 0);
-      }
-      if (lane == 0) {
-        a.cut_deg_out[bn + v] = static_cast<int8_t>(n_new);
-        b_delta += int(n_new > 0) - int(cdv_old > 0);
-        put_bit(Bd, v, n_new > 0);
-        A[v >> 5] ^= 1u << (v & 31);
-        F[v >> 5] |= 1u << (v & 31);
-        a.last_change[bn + v] = t;
-      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (u[h] >= 0)
+          b_delta += int(new_bits[h] & 1u) - int(old_bits[h] & 1u);
       b_count += __reduce_add_sync(kFull, b_delta);
-      __syncwarp();
-      const int popv = __ldg(a.pop + v);
+      const int popv = unit ? a.unit_pop : __ldg(a.pop + v);
       dp0 += d_from == 0u ? -popv : popv;
       dp1 += d_from == 0u ? popv : -popv;
       cut_count += dcut;
@@ -363,14 +907,33 @@ __global__ void __launch_bounds__(kThreads)
         const float pr = static_cast<float>(b_count) / denom;
         cur_wait = fmaxf(floorf(log_wait / log1pf(-pr)), 0.f);
       }
-      cur_flip = v;
-      if (a.patch) {
-        for (int i = lane; i <= a.p; i += 32) {
-          const int u =
-              i == 0 ? v : __ldg(a.patch_nodes + (size_t)v * a.p + i - 1);
-          if (i == 0 || u != v) put_bit(Cn, u, patch_connected(a, A, u));
-        }
+      __syncwarp();
+      // the commit: A, Bd, Cn, Y and the group counts at the touched nodes
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = u[h];
+        if (x < 0) continue;
+        const uint32_t o = old_bits[h], w = new_bits[h], diff = o ^ w;
+        if (diff & 1u) put_bit(Bd, x, w & 1u);
+        if (diff & 2u) put_bit(Cn, x, w & 2u);
+        if (diff & 8u) put_bit(Y, x, w & 8u);
+        if (kWide) M[x] ^= flip[h];  // the nodes differ: no two lanes meet
+        const uint32_t c_old = o & (o >> 1) & 1u, c_new = w & (w >> 1) & 1u;
+        const int j = x >> kGroupShift;
+        if (c_old && (!c_new || (diff & 4u)))
+          atomicSub(G + ((o >> 2) & 1u) * ng + j, 1);
+        if (c_new && (!c_old || (diff & 4u)))
+          atomicAdd(G + ((w >> 2) & 1u) * ng + j, 1);
       }
+      if (lane == 0) {
+        A[v >> 5] ^= 1u << (v & 31);
+        if (a.parity && cur_flip >= 0 && t > run_start)
+          close_run(cur_flip, b_prev, t);
+      }
+      cur_flip = v;
+      run_start = t;
+      fresh = false;
+      if (first_accept == T) first_accept = t;
       __syncwarp();
     }
     move_clock += accept;
@@ -378,7 +941,7 @@ __global__ void __launch_bounds__(kThreads)
     tries += 1;
     exh_cnt += !valid;
 
-    // ---- 5. the record ---------------------------------------------------
+    // ---- 4. the record ---------------------------------------------------
     const size_t row = (size_t)t * C + c;
     if (lane == 0) a.h_cut[row] = cut_count;
     if (lane == 1) a.h_b[row] = b_count;
@@ -386,36 +949,55 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 3) a.h_acc[row] = acc_cnt;
     if (lane == 4 && a.lazy) a.h_weight[row] = 1.0f + cur_wait;
     waits_sum += cur_wait;
-    if (a.parity && cur_flip >= 0 && lane == 0) {
-      const int sign = bit_at(A, cur_flip) ? a.label1 : a.label0;
-      const int ty = t_yield + t;
-      const size_t at = bn + cur_flip;
-      a.part_sum_out[at] += -sign * (ty - a.last_flipped_out[at]);
-      a.last_flipped_out[at] = ty;
-      a.num_flips_out[at] += 1;
-    }
-    __syncwarp();
   }
 
-  // ---- chunk end: assignment, conn bits, cut_times closed at T ----------
-  for (int i = lane; i < n; i += 32)
-    a.assign_out[bn + i] = static_cast<int8_t>(bit_at(A, i));
+  // ---- chunk end: the last parity run, then each run node's first-run and
+  // last-run terms ---------------------------------------------------------
+  if (a.parity) {
+    if (lane == 0 && cur_flip >= 0) close_run(cur_flip, bit_at(A, cur_flip), T);
+    __syncwarp();
+    for (int k = lane; k < nw; k += 32) {
+      uint32_t rest = R[k];
+      while (rest) {
+        const int x = 32 * k + __ffs(rest) - 1;
+        rest &= rest - 1u;
+        const size_t at = bn + x;
+        // the first run's district: x's own before its first flip if the
+        // chunk began inside x's run, else the other one
+        const uint32_t a_in = a.assign_in[at] == 1;
+        const uint32_t b1 =
+            (x == flip_in && first_accept > 0) ? a_in : 1u - a_in;
+        const int e_last = __ldcg(a.last_flipped_out + at);
+        atomicAdd(a.part_sum_out + at, label(b1) * a.last_flipped_in[at] -
+                                           label(1u - bit_at(A, x)) * e_last);
+      }
+    }
+  }
+  // ---- chunk end: the stale conn bits; assignment, conn bits, cut and
+  // cut_deg from A ------------------------------------------------------
+  if (a.patch) refresh_stale(Y);
+#pragma unroll 4
+  for (int i = lane; i < n; i += 32) {
+    const uint32_t ai = bit_at(A, i);
+    const uint16_t* row = tab.nbr + (size_t)i * D;
+    int cd = 0;
+    for (int r = 0; r < D; ++r) cd += bit_at(A, ld<kStaged>(row + r)) != ai;
+    a.assign_out[bn + i] = static_cast<int8_t>(ai);
+    a.cut_deg_out[bn + i] = static_cast<int8_t>(cd);
+  }
   for (int k = lane; k < nw; k += 32)
     a.conn_out[(size_t)c * nw + k] = static_cast<int32_t>(Cn[k]);
+#pragma unroll 4
   for (int i = lane; i < E; i += 32) {
-    const int u = __ldg(a.edges + 2 * i), w = __ldg(a.edges + 2 * i + 1);
-    const bool fu = bit_at(F, u), fw = bit_at(F, w);
-    const int lu = fu ? a.last_change[bn + u] : 0;
-    const int lw = fw ? a.last_change[bn + w] : 0;
-    const int last = lu > lw ? lu : lw;
-    const int cur = int(bit_at(A, u) != bit_at(A, w));
-    a.cut_times_out[be + i] = a.cut_times_in[be + i] +
-                              ((fu || fw) ? a.cut_times_out[be + i] : 0) +
-                              cur * (T - last);
+    const int2 ends = __ldg(reinterpret_cast<const int2*>(a.edges) + i);
+    a.cut_out[be + i] =
+        static_cast<int8_t>(bit_at(A, ends.x) != bit_at(A, ends.y));
   }
   if (lane == 0) {
-    a.key_out[c] = static_cast<int32_t>(key0);
-    a.key_out[C + c] = static_cast<int32_t>(key1);
+    if (!kWide) {
+      a.key_out[c] = static_cast<int32_t>(key0);
+      a.key_out[C + c] = static_cast<int32_t>(key1);
+    }
     a.dist_pop_out[c] = dp0;
     a.dist_pop_out[C + c] = dp1;
     a.scal_out[c] = cur_wait;
@@ -427,35 +1009,136 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t smem_bytes(int n) {
-  return 4 * size_t(kPlanes) * size_t((n + 31) >> 5) * kChainsPerBlock;
+// The launch shape of (n, d, p, n_chains): the wide form (one chain a
+// block with its producer warp and member masks, patch rows of up to
+// kWidePp slots in registers: hex and tri, P = 18) while the chains fit on
+// the SMs, the masks in shared memory and the rows in kWidePp slots, else
+// up to kMaxChainsPerBlock chains a block (any P up to 32); the tables
+// staged when they fit beside the block's chains.
+struct Shape {
+  int staged, cpb, wide, chain_bytes, threads, blocks;
+  size_t smem;
+};
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+Shape launch_shape(int n, int d, int p, int n_chains) {
+  Shape s;
+  const int nw = (n + 31) >> 5, ng = (nw + 31) >> 5;
+  s.chain_bytes = ((4 * (kPlanes * nw + 2 * ng)) + 15) & ~15;
+  const int sms = sm_count();
+  const size_t wide_chain = ((size_t(s.chain_bytes) + 4 * size_t(n)) + 15) &
+                            ~size_t(15);
+  const bool wide = n_chains <= sms && table_layout(n, d, p).pp <= kWidePp &&
+                    16 + ((sizeof(Ring) + 15) & ~size_t(15)) + wide_chain <=
+                        kSmemLimit;
+  s.wide = wide;
+  if (wide) s.chain_bytes = int(wide_chain);
+  s.cpb = wide ? 1 : std::min(kMaxChainsPerBlock, (n_chains + sms - 1) / sms);
+  const size_t ring = wide ? (sizeof(Ring) + 15) & ~size_t(15) : 0;
+  // as many chains as fit (a 65536-node chain takes 33 KB)
+  s.cpb = std::max(1, std::min<int>(s.cpb, (kSmemLimit - 16 - ring) /
+                                               size_t(s.chain_bytes)));
+  s.threads = 32 * (wide ? 2 : s.cpb);
+  s.blocks = (n_chains + s.cpb - 1) / s.cpb;
+  const size_t base = 16 + ring + size_t(s.cpb) * s.chain_bytes;
+  const size_t tables = table_layout(n, d, p).bytes;
+  s.staged = base + tables <= kSmemLimit;
+  s.smem = base + (s.staged ? tables : 0);
+  return s;
+}
+
+template <bool kStaged, bool kWide>
+int launch(const Args& a, const Shape& s, cudaStream_t stream) {
+  auto kern = general_dense_kernel<kStaged, kWide>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(s.smem));
+  if (err != cudaSuccess) return int(err);
+  kern<<<s.blocks, s.threads, s.smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <bool kStaged, bool kWide>
+int occupancy(const Shape& s) {
+  auto kern = general_dense_kernel<kStaged, kWide>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(s.smem)) != cudaSuccess)
+    return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, s.threads,
+                                                    s.smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// the row fields are copied 16 bytes a lane from 16-byte boundaries
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+bool shape_ok(int n_chains, int n, int e, int d, int p, int t_inner,
+              const Shape& s) {
+  return n_chains >= 1 && n >= 2 && n <= (1 << 16) && e >= 1 && d >= 1 &&
+         d <= 32 && p >= 1 && p <= 32 && t_inner >= 1 && s.smem <= kSmemLimit;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The launch shape of a chunk: out[0] 1 if the tables are staged in shared
+// memory (0: read through L1), out[1] the shared memory of a block in
+// bytes, out[2] chains a block, out[3] 1 with a producer warp a chain,
+// out[4] resident blocks an SM (cudaOccupancy...), out[5] threads a block.
+// Returns a cudaError_t.
+int fce_general_dense_shape(int n_chains, int n, int e, int d, int p,
+                            int* out) {
+  const Shape s = launch_shape(n, d, p, n_chains);
+  if (!shape_ok(n_chains, n, e, d, p, 1, s)) return int(cudaErrorInvalidValue);
+  out[0] = s.staged;
+  out[1] = int(s.smem);
+  out[2] = s.cpb;
+  out[3] = s.wide;
+  out[4] = s.staged ? (s.wide ? occupancy<true, true>(s)
+                              : occupancy<true, false>(s))
+                    : (s.wide ? occupancy<false, true>(s)
+                              : occupancy<false, false>(s));
+  out[5] = s.threads;
+  return out[4] < 0 ? int(cudaErrorInvalidValue) : 0;
+}
+
 // One chunk for every chain; returns a cudaError_t (0 on success).
 int fce_general_dense_chunk(
-    const int32_t* nbr, const int32_t* nbr_edge, const int32_t* deg,
-    const int32_t* pop, const int32_t* patch_nodes, const int32_t* patch_adj,
-    const int32_t* edges, const int32_t* key_in, const int8_t* assign_in,
-    const int8_t* cut_in, const int8_t* cut_deg_in,
-    const int32_t* dist_pop_in, const int32_t* conn_in, const float* scal_in,
-    const int32_t* ints_in, const int32_t* part_sum_in,
-    const int32_t* last_flipped_in, const int32_t* num_flips_in,
-    const int32_t* cut_times_in, int32_t* key_out, int8_t* assign_out,
-    int8_t* cut_out, int8_t* cut_deg_out, int32_t* dist_pop_out,
-    int32_t* conn_out, float* scal_out, int32_t* ints_out,
-    int32_t* part_sum_out, int32_t* last_flipped_out, int32_t* num_flips_out,
+    const uint8_t* tables, const int32_t* edges, const int32_t* pop,
+    const int32_t* key_in, const int8_t* assign_in, const int8_t* cut_in,
+    const int8_t* cut_deg_in, const int32_t* dist_pop_in,
+    const int32_t* conn_in, const float* scal_in, const int32_t* ints_in,
+    const int32_t* part_sum_in, const int32_t* last_flipped_in,
+    const int32_t* num_flips_in, const int32_t* cut_times_in,
+    int32_t* key_out, int8_t* assign_out, int8_t* cut_out,
+    int8_t* cut_deg_out, int32_t* dist_pop_out, int32_t* conn_out,
+    float* scal_out, int32_t* ints_out, int32_t* part_sum_out,
+    int32_t* last_flipped_out, int32_t* num_flips_out,
     int32_t* cut_times_out, int32_t* h_cut, int32_t* h_b, float* h_wait,
-    int32_t* h_acc, float* h_weight, int32_t* last_change, int n_chains,
-    int n, int e, int d, int p, int t_inner, int patch, int geom_waits,
-    int nobacktrack, int lazy, int parity, int fill_conn, int unit_pop,
-    int label0, int label1, void* stream) {
+    int32_t* h_acc, float* h_weight, int n_chains, int n, int e, int d,
+    int p, int t_inner, int patch, int geom_waits, int nobacktrack, int lazy,
+    int parity, int fill_conn, int unit_pop, int label0, int label1,
+    void* stream) {
+  const Shape s = launch_shape(n, d, p, n_chains);
+  if (!shape_ok(n_chains, n, e, d, p, t_inner, s) ||
+      !aligned16(tables) || !aligned16(cut_in) || !aligned16(part_sum_in) ||
+      !aligned16(last_flipped_in) || !aligned16(num_flips_in) ||
+      !aligned16(cut_times_in) || !aligned16(part_sum_out) ||
+      !aligned16(last_flipped_out) || !aligned16(num_flips_out) ||
+      !aligned16(cut_times_out))
+    return int(cudaErrorInvalidValue);
   Args a;
-  a.nbr = nbr; a.nbr_edge = nbr_edge; a.deg = deg; a.pop = pop;
-  a.patch_nodes = patch_nodes; a.patch_adj = patch_adj; a.edges = edges;
+  a.tables = tables; a.edges = edges; a.pop = pop;
   a.key_in = key_in; a.assign_in = assign_in; a.cut_in = cut_in;
   a.cut_deg_in = cut_deg_in; a.dist_pop_in = dist_pop_in;
   a.conn_in = conn_in; a.scal_in = scal_in; a.ints_in = ints_in;
@@ -467,24 +1150,19 @@ int fce_general_dense_chunk(
   a.part_sum_out = part_sum_out; a.last_flipped_out = last_flipped_out;
   a.num_flips_out = num_flips_out; a.cut_times_out = cut_times_out;
   a.h_cut = h_cut; a.h_b = h_b; a.h_wait = h_wait; a.h_acc = h_acc;
-  a.h_weight = h_weight; a.last_change = last_change;
+  a.h_weight = h_weight;
   a.n_chains = n_chains; a.n = n; a.e = e; a.d = d; a.p = p;
   a.t_inner = t_inner; a.patch = patch; a.geom_waits = geom_waits;
   a.nobacktrack = nobacktrack; a.lazy = lazy; a.parity = parity;
   a.fill_conn = fill_conn;
   a.unit_pop = unit_pop; a.label0 = label0; a.label1 = label1;
-  const size_t smem = smem_bytes(n);
-  if (n_chains < 1 || n < 2 || e < 1 || d < 1 || d > 32 || p < 1 ||
-      p > 32 || t_inner < 1 || smem > 227 * 1024)
-    return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      general_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  const int blocks = (n_chains + kChainsPerBlock - 1) / kChainsPerBlock;
-  general_dense_kernel<<<blocks, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return int(cudaGetLastError());
+  a.cpb = s.cpb; a.chain_bytes = s.chain_bytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s.staged)
+    return s.wide ? launch<true, true>(a, s, st)
+                  : launch<true, false>(a, s, st);
+  return s.wide ? launch<false, true>(a, s, st)
+                : launch<false, false>(a, s, st);
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@ package's ``general_dense`` body (``kernel/dense.py::transition``, then
 ``kernel/step.py::record``) for every chain of a ``ChainState``. On CUDA
 tensors it launches the hand-written kernel of
 ``csrc/general_dense_chunk.cu`` (built on first use by ``_build``; one
-warp per chain, the assignment, boundary, contiguity, valid and flipped
-sets bit-packed in shared memory); on CPU tensors it runs
+warp per chain, the assignment, boundary and contiguity sets bit-packed in
+shared memory with per-group candidate counts, the graph's packed tables
+staged into shared memory where they fit); on CPU tensors it runs
 ``general_dense_chunk_reference``, the step-by-step PyTorch replay of
 ``kernel/dense.py`` and ``kernel/step.py::record``. Both draw the JAX
 package's threefry stream from the state's keys, so they agree with the
@@ -20,8 +21,10 @@ re-propose semantics, accept 'cut', no annealing, contiguity 'patch' or
 the rest, naming the ROADMAP.md item that ports it; the runner never
 runs the plain version in the kernel's place on the card.
 
-    kernel inputs:  the static tables of ``make_static_inputs``; per chain
-        key (2, C), assignment (C, N) int8, cut (C, E) int8, cut_deg
+    kernel inputs:  the static tables of ``make_static_inputs`` (the
+        graph's tables packed by ``pack_tables``, edges, populations);
+        per chain key (2, C), assignment (C, N) int8, cut (C, E) int8,
+        cut_deg
         (C, N) int8, dist_pop (2, C), conn_bits (C, W) int32 bit patterns
         (or none: the kernel then fills the plane from the assignment, as
         ``dense.ensure_conn_bits`` does),
@@ -30,8 +33,9 @@ runs the plain version in the kernel's place on the card.
         t_yield, move_clock, accept_count, tries_sum, exhausted_count],
         part_sum, last_flipped, num_flips (C, N) and cut_times (C, E);
     kernel outputs: the same per-chain fields after the chunk (scal as
-        [cur_wait, waits_sum]), and the (T, C) rows cut_count, b_count,
-        wait, accepts and, under ``lazy_uniform``, weight.
+        [cur_wait, waits_sum]; cut and cut_deg recounted from the
+        assignment), and the (T, C) rows cut_count, b_count, wait, accepts
+        and, under ``lazy_uniform``, weight.
 """
 
 from __future__ import annotations
@@ -46,8 +50,7 @@ from . import dense
 from . import step as kstep
 from .step import Spec, StepParams, geom_denom_finite
 
-# shared memory holds five planes of ceil(N / 32) words for each of a
-# block's four chains
+# node ids are uint16 in the packed tables
 MAX_NODES = 1 << 16
 
 ROW_NAMES = ("cut_count", "b_count", "wait", "accepts", "weight")
@@ -55,16 +58,11 @@ ROW_NAMES = ("cut_count", "b_count", "wait", "accepts", "weight")
 
 @dataclasses.dataclass
 class DenseStatic:
-    """The kernel's graph tables as contiguous int32 tensors on the run's
-    device, made once a run."""
+    """The kernel's graph tables on the run's device, made once a run."""
 
-    nbr: torch.Tensor          # (N, D)
-    nbr_edge: torch.Tensor     # (N, D)
-    deg: torch.Tensor          # (N,)
-    pop: torch.Tensor          # (N,)
-    patch_nodes: torch.Tensor  # (N, P)
-    patch_adj: torch.Tensor    # (N, P) uint32 bit patterns
-    edges: torch.Tensor        # (E, 2)
+    tables: torch.Tensor       # uint8, ``pack_tables``
+    edges: torch.Tensor        # (E, 2) int32
+    pop: torch.Tensor          # (N,) int32
     unit_pop: int              # every node's population, or 0 if it varies
 
 
@@ -120,14 +118,69 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
         torch.int32).contiguous()
 
 
+def table_layout(n: int, d: int, p: int) -> dict:
+    """Byte offsets of the packed tables (``csrc/general_dense_chunk.cu``'s
+    ``table_layout``): patch adjacency bitsets and patch slots in rows of
+    ``pp`` = P rounded up to 8 slots (uint32, then uint16), neighbour edges
+    (N, D) as uint32, each node's real patch slots (N,) as a uint32 mask,
+    neighbour slots (N, D) as uint16, degrees (N,) as uint8 and, for patch
+    slot s of u, the slot of u in that node's patch (N, pp) as uint8;
+    ``bytes`` padded to 16."""
+    pp = (p + 7) // 8 * 8
+    padj = 0
+    pn = padj + 4 * n * pp
+    nedge = pn + 2 * n * pp
+    slots = nedge + 4 * n * d
+    nbr = slots + 4 * n
+    deg = nbr + 2 * n * d
+    rev = deg + n
+    return dict(padj=padj, pn=pn, nedge=nedge, slots=slots, nbr=nbr,
+                deg=deg, rev=rev, pp=pp, bytes=(rev + n * pp + 15) // 16 * 16)
+
+
+def _le_bytes(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Integers as ``width`` little-endian bytes each, flattened (uint8)."""
+    x = x.to(torch.int64).reshape(-1, 1)
+    shifts = 8 * torch.arange(width, dtype=torch.int64, device=x.device)
+    return ((x >> shifts) & 0xFF).to(torch.uint8).reshape(-1)
+
+
+def pack_tables(dg) -> torch.Tensor:
+    """The graph's tables as one uint8 tensor in ``table_layout``, made on
+    the graph's device: the bytes the kernel stages into shared memory or
+    reads through L1. Patch rows are padded with the node itself (slots)
+    and 0 (adjacency); ``rev`` holds 0 at pads (patch balls are
+    symmetric, so every real slot has its reverse)."""
+    n, d, p = dg.n_nodes, dg.max_deg, dg.max_patch
+    lay = table_layout(n, d, p)
+    pp = lay["pp"]
+    nodes = torch.arange(n, dtype=torch.int64, device=dg.device)
+    pn = torch.cat([dg.patch_nodes.to(torch.int64),
+                    nodes[:, None].expand(n, pp - p)], dim=1)
+    padj = torch.nn.functional.pad(dg.patch_adj.to(torch.int64),
+                                   (0, pp - p))
+    real = pn != nodes[:, None]
+    slots = (real.to(torch.int64)
+             << torch.arange(pp, device=dg.device)).sum(dim=1)
+    # the slot of u in the patch of x = pn[u, s]
+    back = pn[pn] == nodes[:, None, None]                 # (N, pp, pp)
+    rev = torch.where(real, back.to(torch.uint8).argmax(dim=2), 0)
+    buf = torch.zeros(lay["bytes"], dtype=torch.uint8, device=dg.device)
+    for key, x, width in (("padj", padj, 4), ("pn", pn, 2),
+                          ("nedge", dg.nbr_edge, 4), ("slots", slots, 4),
+                          ("nbr", dg.nbr, 2), ("deg", dg.deg, 1),
+                          ("rev", rev, 1)):
+        b = _le_bytes(x, width)
+        buf[lay[key]:lay[key] + b.numel()] = b
+    return buf
+
+
 def make_static_inputs(dg) -> DenseStatic:
     pop = dg.pop
     unit = int(pop[0]) if bool((pop == pop[0]).all()) and int(pop[0]) > 0 \
         else 0
-    return DenseStatic(
-        nbr=_i32(dg.nbr), nbr_edge=_i32(dg.nbr_edge), deg=_i32(dg.deg),
-        pop=_i32(pop), patch_nodes=_i32(dg.patch_nodes),
-        patch_adj=_i32(dg.patch_adj), edges=_i32(dg.edges), unit_pop=unit)
+    return DenseStatic(tables=pack_tables(dg), edges=_i32(dg.edges),
+                       pop=_i32(pop), unit_pop=unit)
 
 
 def general_dense_chunk_reference(dg, spec: Spec, params: StepParams, state,
@@ -141,14 +194,41 @@ def general_dense_chunk_reference(dg, spec: Spec, params: StepParams, state,
 
 
 def _entry(lib):
-    """``lib``'s ``fce_general_dense_chunk`` with its C signature: 37
+    """``lib``'s ``fce_general_dense_chunk`` with its C signature: 32
     pointers, 15 ints and the stream."""
     fn = lib.fce_general_dense_chunk
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 37 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 32 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_shape(dg, n_chains: int) -> dict:
+    """How the kernel runs ``n_chains`` chains of ``dg`` on this card:
+    ``staged`` (the tables in shared memory; False: read through L1),
+    ``smem_bytes`` a block, ``chains_per_block``, ``producer`` (a draws
+    warp a chain), ``blocks_per_sm`` resident, ``threads`` a block."""
+    from . import _build
+    fn = _build.load("general_dense_chunk").fce_general_dense_shape
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(n_chains, dg.n_nodes, dg.n_edges, dg.max_deg, dg.max_patch,
+             ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"general_dense_chunk shape query failed: CUDA "
+                           f"error {err}")
+    return dict(staged=bool(out[0]), smem_bytes=out[1],
+                chains_per_block=out[2], producer=bool(out[3]),
+                blocks_per_sm=out[4], threads=out[5])
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous from a 16-byte boundary (the kernel copies these
+    fields 16 bytes a lane); a view into a batch may start elsewhere."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
@@ -170,10 +250,10 @@ def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
                         state.t_yield, state.move_clock, state.accept_count,
                         state.tries_sum,
                         state.exhausted_count]).to(i32).contiguous()
-    ins = [state.assignment.contiguous(), state.cut.contiguous(),
+    ins = [state.assignment.contiguous(), _aligned(state.cut),
            state.cut_deg.contiguous(), dist_pop, conn, scal, ints,
-           state.part_sum.contiguous(), state.last_flipped.contiguous(),
-           state.num_flips.contiguous(), state.cut_times.contiguous()]
+           _aligned(state.part_sum), _aligned(state.last_flipped),
+           _aligned(state.num_flips), _aligned(state.cut_times)]
     for x, dtype in zip(ins[:3], (torch.int8,) * 3):
         if x.dtype != dtype:
             raise ValueError(f"expected {dtype}, got {x.dtype}")
@@ -194,13 +274,10 @@ def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
                 accepts=empty((t_inner, c), i32))
     rows["weight"] = (empty((t_inner, c), f32) if spec.lazy_uniform
                       else None)
-    scratch = empty((c, n), i32)
-    ptrs = [static.nbr, static.nbr_edge, static.deg, static.pop,
-            static.patch_nodes, static.patch_adj, static.edges, key, *ins,
+    ptrs = [static.tables, static.edges, static.pop, key, *ins,
             *outs.values(), *(rows[k] for k in ROW_NAMES[:4])]
     ptrs = [x.data_ptr() for x in ptrs]
     ptrs.append(rows["weight"].data_ptr() if spec.lazy_uniform else None)
-    ptrs.append(scratch.data_ptr())
     labels = [int(x) for x in params.label_values.cpu()]
     with torch.cuda.device(dev):
         err = _entry(lib)(

@@ -253,13 +253,15 @@ def _same_states(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,m,n,chains,tol,t_len,spec_kw,pop_seed", [
     ("hex_lattice", 14, 28, 8, 0.1, 369, {}, None),
-    ("hex_lattice", 64, 64, 32, 0.1, 100, {}, None),
+    ("hex_lattice", 64, 64, 32, 0.1, 100, {}, None),    # tables through L1
     ("triangular_lattice", 14, 28, 16, 0.1, 100, {"nobacktrack": True},
      None),
     ("hex_lattice", 14, 28, 16, 0.1, 100, {"lazy_uniform": True}, None),
     ("hex_lattice", 14, 28, 16, 0.1, 100, {"contiguity": "none"}, None),
     ("hex_lattice", 14, 28, 16, 0.0, 50, {}, None),     # no valid move
     ("hex_lattice", 14, 28, 16, 0.02, 200, {}, 5),      # random population
+    ("hex_lattice", 14, 28, 256, 0.1, 100, {}, None),   # 2 chains a block
+    ("hex_lattice", 14, 28, 1088, 0.1, 100, {}, None),  # 8 chains a block
 ])
 def test_general_dense_kernel_matches_plain_version(card, name, m, n, chains,
                                                     tol, t_len, spec_kw,
@@ -282,6 +284,24 @@ def test_general_dense_kernel_matches_plain_version(card, name, m, n, chains,
         for k in rows:
             assert torch.equal(rows[k], wrows[k]), k
         st = got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,chains,staged,producer,per_block", [
+    (14, 28, 8, True, True, 1),
+    (64, 64, 32, False, True, 1),
+    (14, 28, 1088, True, False, 8),
+    (64, 64, 4096, False, False, 8),
+])
+def test_general_dense_launch_forms(card, m, n, chains, staged, producer,
+                                    per_block):
+    """The kernel's four forms (tables staged or read through L1; one chain
+    a block with a draws warp or several chains a block), each reached by
+    a case of the test above or of chip_smoke.py."""
+    _, dg, _, _ = _dense_inputs("hex_lattice", m, n, 1, 0.1, card, None)
+    shape = cd.launch_shape(dg, chains)
+    assert (shape["staged"], shape["producer"],
+            shape["chains_per_block"]) == (staged, producer, per_block)
 
 
 @pytest.mark.cuda
