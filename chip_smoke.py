@@ -83,10 +83,12 @@ entry points a user calls, checks what comes out, and prints:
      and that config's time split (kernel, ``apply_flip_log``, host);
   8. the bench entry point as a user runs it, in a subprocess
      (``python -m flipcomplexityempirical_tpu_torch.bench``): ``--graph
-     square``, ``--pallas``, ``--graph sec11`` and ``--graph frank`` each
-     print bench.py's headline with this card's name, the JAX package's
-     body and the port's kernel, launched once a timed chunk; ``--grid 65``
-     exits nonzero naming ROADMAP B2;
+     square``, ``--pallas``, ``--graph sec11 --ess`` and ``--graph frank``
+     each print bench.py's headline with this card's name, the JAX
+     package's body and the port's kernel, launched once a timed chunk,
+     and sec11 its ``cut_ess_per_sec`` record, the ESS computed on the card
+     (``ess_on_device``) within 1 % of the host's (``ess_host_check``);
+     ``--grid 65`` exits nonzero naming ROADMAP B2;
   9. both rook routes against the exact stationary distribution of the
      3x4 grid of ``tests/test_enumeration.py`` (``tests/_torch_
      enumeration.py``): after each kernel is held against its plain
@@ -121,9 +123,10 @@ entry points a user calls, checks what comes out, and prints:
      version's ms and output from the same state (every state field and
      history row equal), its bound, the idle share of 1001 steps and the
      SM clock, its launch shape and cycles a step; the legacy body's ms a
-     step over 20 steps; then ``bench --graph hex`` in a subprocess: the dense body
-     raced against the legacy one, the dense body winning, its kernel
-     launched once a timed chunk;
+     step over 20 steps; then ``bench --graph hex --ess`` in a subprocess:
+     the dense body raced against the legacy one, the dense body winning,
+     its kernel launched once a timed chunk, and its ``cut_ess_per_sec``
+     record as phase 8's;
   12. the tri and hex families: one config of each at the paper's shape
      (100,000 steps, 8 chains) through ``run_config``, seconds split into
      run, render and set-up, the 7 artifacts, the counts zeroed before
@@ -157,7 +160,21 @@ entry points a user calls, checks what comes out, and prints:
      each against its plain version with one launch counted and timed
      beside its bound, the dense kernel's launch shape and cycles a step; ``bench --service --steps 400`` in a subprocess,
      its tenant_efficiency record;
-  15. one JSON line per kernel table (``{"kernels": [...]}``), then as the
+  15. the device analytics: ``summary_fold`` (``csrc/summary_fold.cu``)
+     against its plain version (``stats/accumulators.py::fold_block``),
+     every field, the buffer and the series bit-equal (NaN for NaN), one
+     launch counted a call, two folds in turn, at sec11's main-path rows
+     (C=4096, T=500), the experiment path's (C=8, T=369), the hex batch's
+     dense rows (C=32, T=2439), a buffer cap of 8 that decimates inside a
+     chunk and rows without waits, each timed with CUDA events beside its
+     byte bound; then ``run_config`` in summary mode for sec11 0B263P10,
+     frank 2B333P90 and hex-0B333P10 at the paper's shape, the counts
+     zeroed just before and read just after: every artifact byte-equal to
+     phases 7 and 12's history-mode runs, the fold launched once a chunk
+     and once more, the seconds split, the readback bytes, and
+     ``data["summary"]`` bit-equal to the plain fold of the history-mode
+     run's history on the card;
+  16. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
@@ -274,7 +291,7 @@ BENCH_RUNS = (
      "lowered_chunk"),
     ("square --pallas", ["--pallas"], "flips_per_sec_per_chip_64x64",
      "pallas", "board_chunk"),
-    ("sec11", ["--graph", "sec11"], "flips_per_sec_per_chip_sec11",
+    ("sec11", ["--graph", "sec11", "--ess"], "flips_per_sec_per_chip_sec11",
      "lowered_bits", "lowered_chunk"),
     ("frank", ["--graph", "frank"], "flips_per_sec_per_chip_frank",
      "lowered_bits", "lowered_chunk"))
@@ -341,6 +358,23 @@ def event_ms(fn, reps: int) -> float:
     """Mean device ms of ``fn`` over ``reps`` calls (CUDA events)."""
     import torch
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls, with the card kept
+    busy (``torch.cuda._sleep``) while the host enqueues them, so a call
+    whose wrapper takes longer on the host than its kernel on the card
+    is timed by the kernel, not by the gaps between launches."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000 * reps)        # ~1 ms a call at 2 GHz
     ev[0].record()
     for _ in range(reps):
         fn()
@@ -1345,6 +1379,7 @@ def experiment_runs(ex, drv, runner, cl, tb, out: str) -> dict:
             fail(f"{tag}: apply_flip_log ran {len(flip_calls)} times for "
                  f"{chunks} chunks and 1 final record")
         check_run(ex, drv, tb, cfg, data, out)
+        HISTORY_ARTIFACTS[tag] = artifact_digests(ex, cfg, out)
         print(f"  {tag}: all {cfg.n_chains} chains: cut_count equal to a "
               "recount, both districts connected, |part_sum| <= T; "
               f"wait.txt {int(round(data['waits_all'][0]))}; 13 artifacts")
@@ -1620,6 +1655,8 @@ def bench_phase(root) -> dict:
         heads[label] = {**head, "chains": meta["chains"],
                         "seconds": meta["seconds"],
                         "accept_rate": meta["accept_rate"]}
+        if "--ess" in extra:
+            heads[label]["ess"] = ess_record(out.stderr, label)
     out = subprocess.run(mod + ["--grid", "65"], cwd=root,
                          capture_output=True, text=True, timeout=600)
     if out.returncode == 0 or "B2" not in out.stderr or out.stdout:
@@ -2010,16 +2047,17 @@ def check_table_path(shape: dict, label: str) -> None:
 
 
 def general_bench(root) -> dict:
-    """``bench --graph hex`` as a user runs it: the dense body raced
-    against the legacy one at 64 x 64, C=4096; the dense body must win
-    and its kernel launch once a timed chunk."""
+    """``bench --graph hex --ess`` as a user runs it: the dense body
+    raced against the legacy one at 64 x 64, C=4096; the dense body must
+    win and its kernel launch once a timed chunk; its cut_ess_per_sec
+    record computed on the card."""
     import torch
     card = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m",
                           "flipcomplexityempirical_tpu_torch.bench",
-                          "--graph", "hex"], cwd=root, capture_output=True,
-                         text=True, timeout=900)
+                          "--graph", "hex", "--ess"], cwd=root,
+                         capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
         fail(f"bench --graph hex exited {out.returncode}:\n{out.stderr}")
@@ -2039,7 +2077,8 @@ def general_bench(root) -> dict:
     print(f"bench hex meta: {json.dumps(meta)}")
     return {**head, "chains": meta["chains"], "seconds": meta["seconds"],
             "seconds_by_body": meta["seconds_by_body"],
-            "accept_rate": meta["accept_rate"], "launches": meta["launches"]}
+            "accept_rate": meta["accept_rate"], "launches": meta["launches"],
+            "ess": ess_record(out.stderr, "hex")}
 
 
 def general_main_path(port, cb, cl, cd, probes, sampling, dense,
@@ -2156,6 +2195,16 @@ def general_main_path(port, cb, cl, cd, probes, sampling, dense,
     check_table_path(shape, label)
     print(f"general_dense_chunk {label} C={CHAINS} T={CHUNK}: {line}")
     legacy = legacy_steps(kstep, dg, spec, params, fs)
+    # the legacy body moves the dense chunk's state and rows, without the
+    # conn planes; it is bound by bytes (its operations are not counted)
+    c, n = fs.assignment.shape
+    legacy_bytes = (general_bound(dg, spec, fs, CHUNK, 0)[2]
+                    - 2 * c * 4 * ((n + 31) // 32))
+    legacy["bound_ms_per_chunk"] = 1e3 * legacy_bytes / PEAK_BYTES_PER_S
+    print(f"legacy body bound, a {CHUNK}-step chunk at C={c}: "
+          f"{legacy['bound_ms_per_chunk']:.4f} ms ({legacy_bytes:.4e} "
+          "bytes: the state read and written once, the rows written once, "
+          "the tables read once)")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "shape": shape,
             "first_chunk_ms": fill_ms, "plain_ms": plain_ms,
@@ -2233,6 +2282,7 @@ def general_families(port, cb, cl, cd, probes, drv_mod, out: str,
         results[tag] = dict(wall_s=wall, run_s=run_s, render_s=render_s,
                             launches=n, kernel=kernel, flips_per_s=fps)
         keep[tag] = data
+        HISTORY_ARTIFACTS[tag] = artifact_digests(ex, cfg, out)
     # the hex config in checkpoint segments, uninterrupted, against the
     # same config stopped after its first segment and resumed (the waits
     # drain once a chunk in f32, so the two runs share their chunking)
@@ -2676,6 +2726,246 @@ def service_phase(ex, runner, tb, cl, cd, solo: dict, card: str) -> dict:
             "bench": service_bench(str(ROOT), card)}
 
 
+# ---------------------------------------------------------------------------
+# The device analytics: the summary fold against its plain version, and
+# the paper's configs in summary mode against their history-mode runs
+# ---------------------------------------------------------------------------
+
+# the configs of phases 7 and 12, run again in summary mode (phase 15)
+SUMMARY_RUNS = (("sec11", "0B263P10"), ("frank", "2B333P90"),
+                ("hex", "hex-0B333P10"))
+# sha256 of each history-mode run's artifacts by file name, filled in by
+# phases 7 and 12
+HISTORY_ARTIFACTS: dict = {}
+
+
+def artifact_digests(ex, cfg, out: str) -> dict:
+    """sha256 of each of ``cfg``'s artifacts in ``out``, by file name."""
+    import hashlib
+    import os
+    return {cfg.tag + k: hashlib.sha256(pathlib.Path(
+        os.path.join(out, cfg.tag + k)).read_bytes()).hexdigest()
+        for k in ex.artifacts.artifact_kinds(cfg.family)}
+
+
+def fold_bound(acc, rows: dict) -> tuple:
+    """(bound ms, bytes) of one fold of ``rows`` into ``acc``: the rows
+    read once (the accepts' last row, the series' chain-0 column), the six
+    float fields read and written, accepts and n / kept / stride written,
+    the series entries written, and the buffer entries this fold writes
+    (its appends and, at a decimation, the chain's whole row), over the
+    HBM rate."""
+    n, kept, stride = (int(v) for v in (acc.n, acc.kept, acc.stride))
+    t_len, c = rows[acc.observable].shape
+    cap = acc.buf.shape[1]
+    appends = decimations = 0
+    for _ in range(t_len):
+        if n % stride == 0:
+            if kept >= cap:
+                kept, stride = cap // 2, stride * 2
+                decimations += 1
+            kept += 1
+            appends += 1
+        n += 1
+    nbytes = (4 * t_len * c * (1 + ("wait" in rows))
+              + 4 * c * ("accepts" in rows)
+              + 2 * 4 * t_len * len(acc.series)
+              + 2 * 4 * 6 * c + 4 * c + 12
+              + 4 * c * (appends + decimations * cap))
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, nbytes
+
+
+def same_fold(got, want, label: str) -> float:
+    """Two accumulators bit for bit in every field, the buffer and the
+    series (NaN for NaN); returns the largest |difference| (0.0)."""
+    import torch
+    pairs = [(getattr(got, k), getattr(want, k)) for k in (
+        "n", "kept", "stride", "accepts", "mean", "m2", "wsum", "wmean",
+        "wm2", "waits", "buf")]
+    pairs += [(got.series[k], want.series[k]) for k in want.series]
+    for g, w in pairs:
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                g.view(torch.int32), w.view(torch.int32)):
+            fail(f"{label}: the fold kernel differs from its plain version")
+    return max(float((g.double() - w.double()).nan_to_num().abs().max())
+               for g, w in pairs)
+
+
+def summary_kernel_cases(port, ex, drv, runner, cl, cd, cs, sacc,
+                         card: str) -> list:
+    """Phase 15 (1): summary_fold against its plain version on the card
+    at the shapes its callers give it, two folds in turn (the second from
+    mid-schedule), every field bit-equal and one launch counted a call;
+    then the kernel's CUDA-event ms from the first fold's end state (the
+    launches queued behind a device sleep: at C=8 the wrapper's host work
+    outlasts the kernel), the plain version's host-clock ms and the byte
+    bound."""
+    import torch
+    keys = ("slope", "angle")
+    _, bg, st, params, spec = lowered_workload(port, "sec11", CHAINS, 0)
+    _, main_rows = cl.run_chunk(bg, spec, params, st, CHUNK)
+    cfg = experiment_config(ex, "sec11", "0B263P10", total_steps=EXP_STEPS,
+                            n_chains=EXP_CHAINS)
+    g, plan, _ = drv.build_graph_and_plan(cfg)
+    espec = drv.spec_for(cfg)
+    _, (ebg, est, epar) = drv._init_run(cfg, g, plan, espec, DEVICE)
+    _, exp_rows = cl.run_chunk(ebg, espec, epar, est,
+                               runner.pick_chunk(EXP_STEPS, 512))
+    prepared, hst, hpar = sweep_batch(ex, "hex")
+    handle = prepared[0].handle
+    _, hex_rows = cd.run_general_dense_chunk_cuda(
+        handle, cd.make_static_inputs(handle), prepared[0].spec, hpar, hst,
+        runner.pick_chunk(EXP_STEPS, 4096))
+    no_wait = {k: v for k, v in exp_rows.items() if k != "wait"}
+    cases = (("sec11 main-path rows", main_rows, 4096, keys),
+             ("the experiment path's rows", exp_rows, 4096, keys),
+             ("the hex batch's dense rows", hex_rows, 4096, ()),
+             ("the experiment path's rows, cap 8", exp_rows, 8, keys),
+             ("the experiment path's rows without waits", no_wait, 4096,
+              keys))
+    out = []
+    for label, rows, cap, series in cases:
+        t_len, c = rows["cut_count"].shape
+        label = f"[{card}] summary_fold, {label} C={c} T={t_len}"
+        acc = sacc.init_summary(c, cap=cap, series_keys=series,
+                                series_cap=EXP_STEPS, device=DEVICE)
+        plain, err = acc.clone(), 0.0
+        for _ in range(2):
+            start = acc.clone()
+            torch.cuda.synchronize()
+            n0 = cs.summary_fold.launches
+            acc = cs.summary_fold(acc, rows)
+            torch.cuda.synchronize()
+            if cs.summary_fold.launches != n0 + 1:
+                fail(f"{label}: the wrapper did not count its launch")
+            t0 = time.perf_counter()
+            plain = sacc.fold_block(plain, rows)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            err = max(err, same_fold(acc, plain, label))
+        reps = 10
+        clones = [start.clone() for _ in range(reps)]
+        ms = device_ms(lambda: cs.summary_fold(clones.pop(), rows), reps)
+        bound_ms, nbytes = fold_bound(start, rows)
+        print(f"{label}, cap {cap}, series {len(series)}: bit-equal to the "
+              f"plain version in every field (two folds, n {int(acc.n)}, "
+              f"kept {int(acc.kept)}, stride {int(acc.stride)}); "
+              f"{ms:.4f} ms a fold (CUDA events behind a device sleep, "
+              f"mean of {reps}), plain "
+              f"version {plain_ms:.3f} ms; bound {bound_ms:.6f} ms "
+              f"({nbytes:.4e} bytes)")
+        out.append(dict(case=label, chains=c, steps=t_len, cap=cap, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by="bytes", max_abs_err=err))
+    return out
+
+
+def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
+    """Phase 15 (2): run_config in summary mode for SUMMARY_RUNS at the
+    paper's shape, the counts zeroed just before and read just after:
+    every artifact byte-equal to the history-mode run's (phases 7 and 12),
+    the fold launched once a chunk and once for the run's other record,
+    the seconds split, the readback, and ``data["summary"]`` bit-equal to
+    the plain fold_block of the history-mode run's history on the card."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_board as cb
+    from flipcomplexityempirical_tpu_torch.kernel import probes
+    results = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for family, tag in SUMMARY_RUNS:
+            cfg = experiment_config(ex, family, tag, total_steps=EXP_STEPS,
+                                    n_chains=EXP_CHAINS, analytics="summary")
+            out = os.path.join(tmp, family)
+            torch.cuda.synchronize()
+            zero_launch_counts(cb, cl, cd, probes)
+            cs.summary_fold.launches = 0
+            t0 = time.perf_counter()
+            data = ex.run_config(cfg, out, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            folds = cs.summary_fold.launches
+            chunks = (cl.run_lowered_chunk_cuda.launches
+                      + cd.run_general_dense_chunk_cuda.launches)
+            kernel = "general_dense_chunk" if family == "hex" else \
+                "lowered_chunk"
+            if chunks == 0 or folds != chunks + 1:
+                fail(f"summary {tag}: summary_fold launched {folds} times "
+                     f"for {chunks} chunks")
+            got = artifact_digests(ex, cfg, out)
+            bad = sorted(k for k in got
+                         if got[k] != HISTORY_ARTIFACTS[tag].get(k))
+            if bad or len(got) != len(HISTORY_ARTIFACTS[tag]):
+                fail(f"summary {tag}: artifacts differ from the history "
+                     f"mode's: {bad}")
+            hist = solo[tag]["history"]
+            for k, v in data["history"].items():
+                if not np.array_equal(v[0].view(np.int32),
+                                      np.asarray(hist[k][0]).view(np.int32)):
+                    fail(f"summary {tag}: series {k} differs")
+            rows = {k: torch.as_tensor(hist[k], device=DEVICE).T.contiguous()
+                    for k in ("cut_count", "wait", "accepts")}
+            t1 = time.perf_counter()
+            ref = sacc.summary_host(sacc.fold_block(
+                sacc.init_summary(cfg.n_chains, device=DEVICE), rows))
+            plain_s = time.perf_counter() - t1
+            for k in sacc.SUMMARY_FIELDS:
+                a, b = np.asarray(data["summary"][k]), ref[k]
+                if a.dtype != b.dtype or not np.array_equal(
+                        a.view(np.int32), b.view(np.int32)):
+                    fail(f"summary {tag}: data['summary'][{k!r}] differs "
+                         "from the plain fold of the history")
+            run_s, render_s = data["seconds"], data["render_seconds"]
+            fps = cfg.n_chains * (cfg.total_steps - 1) / run_s
+            print(f"[{card}] summary {family} {tag} ({cfg.n_chains} chains "
+                  f"x {cfg.total_steps} steps): {wall:.3f} s in all, run "
+                  f"{run_s:.3f} s (history mode {solo[tag]['seconds']:.3f}), "
+                  f"render {render_s:.3f} s, set-up and scores "
+                  f"{wall - run_s - render_s:.3f} s; {fps:.6e} flips/s; "
+                  f"{kernel} launches {chunks}, summary_fold launches "
+                  f"{folds}; readback {data['readback_bytes']} bytes; "
+                  f"{len(got)} artifacts byte-equal to the history mode's; "
+                  f"data['summary'] bit-equal to the plain fold of the "
+                  f"history ({plain_s:.3f} s)")
+            results[tag] = dict(wall_s=wall, run_s=run_s, render_s=render_s,
+                                history_run_s=solo[tag]["seconds"],
+                                flips_per_s=fps, chunks=chunks,
+                                launches=folds,
+                                readback_bytes=data["readback_bytes"])
+    return results
+
+
+def ess_record(stderr: str, label: str) -> dict:
+    """The cut_ess_per_sec record of a ``bench --ess`` run's stderr,
+    computed on the card and within 1 % of the host's float64 ESS."""
+    recs = [json.loads(ln) for ln in stderr.splitlines()
+            if ln.startswith("{") and '"cut_ess_per_sec"' in ln]
+    if len(recs) != 1:
+        fail(f"bench {label}: {len(recs)} cut_ess_per_sec records")
+    rec = recs[0]
+    if (rec.get("ess_on_device") is not True
+            or not rec.get("ess_host_check", 1.0) < 0.01
+            or not rec["value"] > 0):
+        fail(f"bench {label}: ESS record {rec}")
+    print(f"bench {label} ESS: {json.dumps(rec)}")
+    return rec
+
+
+def summary_phase(port, ex, drv, runner, cl, cd, solo: dict,
+                  card: str) -> dict:
+    """Phase 15: the device analytics on the card."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary as cs
+    from flipcomplexityempirical_tpu_torch.stats import accumulators as sacc
+    cases = summary_kernel_cases(port, ex, drv, runner, cl, cd, cs, sacc,
+                                 card)
+    runs = summary_runs(ex, drv, cl, cd, cs, sacc, solo, card)
+    return {"cases": cases, "runs": runs}
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2903,6 +3193,9 @@ def main() -> None:
     # ---- 14: the sweep service ------------------------------------------
     service = service_phase(port.experiments, gsampling.runner, tb, cl, cd,
                             solo, card)
+    # ---- 15: the device analytics -----------------------------------------
+    analytics = summary_phase(port, port.experiments, drv, gsampling.runner,
+                              cl, cd, solo, card)
     del solo
     sweeps = service["sweeps"]
     per_graph["service"] = {
@@ -2917,6 +3210,20 @@ def main() -> None:
                                  service["kernels"]["hex"]["max_abs_err"])
     general["service"] = {"kernel": service["kernels"]["hex"],
                           "sweep": sweeps["hex"]}
+    exp_case = analytics["cases"][1]      # the experiment path's rows
+    kernels.insert(0, {
+        "name": "summary_fold", "route": "cuda",
+        "source": "flipcomplexityempirical_tpu_torch/csrc/summary_fold.cu",
+        "replaces": "flipcomplexityempirical_tpu/stats/accumulators.py:116",
+        "launches": sum(r["launches"] for r in analytics["runs"].values()),
+        "max_abs_err": max(c["max_abs_err"] for c in analytics["cases"]),
+        "ms": exp_case["ms"], "plain_ms": exp_case["plain_ms"],
+        "bound_ms": exp_case["bound_ms"], "bound_by": exp_case["bound_by"],
+        "library_ms": None, "cases": analytics["cases"],
+        "runs": analytics["runs"],
+        "bench_ess": {"sec11": heads["sec11"]["ess"],
+                      "hex": general["bench"]["ess"]},
+    })
     kernels.insert(0, {
         "name": "general_dense_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/"

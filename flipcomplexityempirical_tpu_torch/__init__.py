@@ -21,7 +21,10 @@ through ``experiments`` (``run_config``, ``run_sweep`` and the CLI
 service (``service``, ``python -m flipcomplexityempirical_tpu_torch.
 service``) runs a sweep's fingerprint-equal configs as one batch of
 chains, and ``python -m flipcomplexityempirical_tpu_torch.bench`` is the
-port of the root ``bench.py``'s board and general paths.
+port of the root ``bench.py``'s board and general paths. Summary mode
+(``stats``: ``analytics=`` on the runners, ``analytics='summary'`` in the
+driver) folds each chunk's rows on the card (``kernel/cuda_summary.py``,
+``csrc/summary_fold.cu``) instead of copying the history to the host.
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where every kernel runs its plain PyTorch version.
 """

@@ -5,6 +5,7 @@ and general paths, on the card.
         [--graph square|sec11|frank|hex] [--pallas] [--general] [--cpu]
         [--grid N] [--chains C] [--steps S] [--warmup W] [--chunk T]
         [--base B] [--pop-tol P] [--repeats R] [--body bits]
+        [--ess [--ess-host] [--record-every K]]
     or: ... --service [--tenants N] [--chains C] [--steps S]
         [--graph sec11|frank] [--cpu]
 
@@ -52,6 +53,20 @@ the timed runs and the best seconds of each raced body) and on stdout one headli
 "repeats", "repeat_policy"}``, under ``bench.py``'s metric names, so that
 ``tools/bench_compare.py`` reads it. ``bench.py``'s other flags are refused
 with exit code 2, each naming the ROADMAP.md item that ports it.
+
+``--ess`` (``bench.py``'s recorded pass) then runs the winning body once
+more from the warmed state with its history recorded and reports the
+effective samples of the cut-count trajectory per second, ``{"metric":
+"cut_ess_per_sec", ...}``, on stderr before the meta line. On the card
+the history stays there (``history_device``) and the Sokal ESS is
+computed there (``stats.ess_device``) inside the timed window; the
+host's float64 estimator checks it outside (``ess_host_check``, a
+relative difference), beside the bottleneck ratio of the same
+trajectory (``bottleneck_phi``, ``bottleneck_r``). Under ``--pallas``,
+``--cpu`` or ``--ess-host`` the history is copied to the host and the
+host estimators run instead. A warm-up pass, whose history is released,
+comes first. ``--record-every K`` thins the recorded history (K must
+divide ``--chunk``).
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from . import graphs
@@ -77,10 +93,7 @@ from .sampling import (init_batch, init_board, run_board, run_board_cuda,
 # that ports each; a "flag value" key refuses that value only
 _NOT_PORTED = {
     "--k": "A7 (the k-district pair walk)",
-    "--ess": "A5 (device analytics)",
-    "--ess-host": "A5 (device analytics)",
-    "--devstats": "A5 (device analytics)",
-    "--record-every": "A5 (device analytics)",
+    "--devstats": "A11 (the host layers: obs events)",
     "--mesh": "A10 (multiple GPUs)",
     "--adaptive": "A11 (the host layers: the control plane)",
     "--target-rhat": "A11 (the host layers: the control plane)",
@@ -137,6 +150,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--body", choices=["bits"], default=None)
     ap.add_argument("--repeats", type=int, default=2,
                     help="timed runs; the best is reported")
+    ap.add_argument("--ess", action="store_true",
+                    help="also run a recorded pass and report effective "
+                         "samples of the cut-count trajectory per second "
+                         "(cut_ess_per_sec) on stderr")
+    ap.add_argument("--ess-host", action="store_true",
+                    help="--ess with the history copied to the host and "
+                         "the host's float64 estimator")
+    ap.add_argument("--record-every", type=int, default=1,
+                    help="history thinning of the --ess recorded pass")
     ap.add_argument("--service", action="store_true",
                     help="the sweep service's tenant_efficiency record: "
                          "--tenants coalescible jobs drained as one batch "
@@ -153,6 +175,7 @@ def _refusal(args) -> str | None:
     if args.service:
         for flag, name in ((args.pallas, "--pallas"),
                            (args.general, "--general"),
+                           (args.ess, "--ess"),
                            (args.body is not None, "--body")):
             if flag:
                 return (f"{name} is incompatible with --service (the "
@@ -174,6 +197,9 @@ def _refusal(args) -> str | None:
                 "warmup-1 must be >= chunk")
     if args.repeats < 1:
         return "--repeats must be >= 1"
+    if args.record_every < 1 or args.chunk % args.record_every:
+        return (f"--record-every {args.record_every} must divide --chunk "
+                f"({args.chunk})")
     return None
 
 
@@ -283,6 +309,9 @@ def main(argv=None) -> int:
     }
     if len(variants) > 1:
         meta["seconds_by_body"] = {k: round(v, 3) for k, v in seconds.items()}
+    if args.ess:
+        print(json.dumps(_ess_record(args, run, state, best, sync)),
+              file=sys.stderr)
     print(json.dumps(meta), file=sys.stderr)
     headline = {
         "metric": _metric(args.graph), "value": round(fps, 1),
@@ -296,6 +325,59 @@ def main(argv=None) -> int:
         headline["body"] = kernel_path
     print(json.dumps(headline))
     return 0
+
+
+def _ess_record(args, run, state, best, sync) -> dict:
+    """``bench.py``'s ``--ess`` record: the winning body ``best`` from the
+    warmed ``state``, its history recorded, effective samples of the cut
+    trajectory per second of the recorded pass (module docstring)."""
+    from .stats import (bottleneck_ratio, bottleneck_ratio_device, ess,
+                        ess_device, integer_thresholds)
+    dev_hist = not (args.pallas or args.cpu or args.ess_host)
+    # the warm-up pass, its history released before the timed one
+    warm = run(state, args.steps if dev_hist else args.warmup, best, seed=1,
+               record=True, device_hist=dev_hist)
+    if dev_hist:
+        ess_device(warm.history["cut_count"])[1].item()
+    sync()
+    del warm
+    t0 = time.perf_counter()
+    res = run(state, args.steps, best, seed=1, record=True,
+              device_hist=dev_hist)
+    if dev_hist:
+        hist = res.history["cut_count"]
+        ess_total = ess_device(hist)[1].item()
+    else:
+        sync()
+        hist64 = np.asarray(res.history["cut_count"], np.float64)
+        _, ess_total = ess(hist64)
+    d_rec = time.perf_counter() - t0
+    # outside the timed window: the bottleneck ratio of the same
+    # trajectory on the integer level-set grid, on the history's side
+    if dev_hist:
+        phi, r_star = (v.item() for v in bottleneck_ratio_device(
+            hist, integer_thresholds(hist)))
+    else:
+        phi, r_star = bottleneck_ratio(
+            hist64, np.arange(hist64.min(), hist64.max() + 1.0))
+    record = {
+        "metric": "cut_ess_per_sec",
+        "ess_total": round(float(ess_total), 1),
+        "recorded_seconds": round(d_rec, 3),
+        "value": round(float(ess_total) / d_rec, 2),
+        "ess_on_device": dev_hist,
+        # null (not NaN, which is invalid JSON) for a frozen observable
+        "bottleneck_phi": None if np.isnan(phi) else round(float(phi), 6),
+        "bottleneck_r": None if np.isnan(r_star) else float(r_star),
+    }
+    if dev_hist:
+        _, host_total = ess(hist.cpu().numpy().astype(np.float64))
+        record["ess_host_check"] = round(
+            abs(float(host_total) - ess_total) / max(float(host_total), 1.0),
+            6)
+    if args.record_every > 1:
+        record["record_every"] = args.record_every
+    return record
 
 
 def _service_bench(args) -> int:
@@ -337,14 +419,16 @@ def _board_bench(args, g, plan, spec, dev):
         clow.check(bg, spec, params)
         wrapper = clow.run_lowered_chunk_cuda
 
-    def run(st, n_steps: int, variant, seed: int):
+    def run(st, n_steps: int, variant, seed: int, record=False,
+            device_hist=False):
         if args.pallas:
             return run_board_cuda(bg, spec, params, st, n_steps=n_steps,
-                                  record_history=False, chunk=args.chunk,
+                                  record_history=record, chunk=args.chunk,
                                   seed=seed, device=dev)
         return run_board(bg, spec, params, st, n_steps=n_steps,
-                         record_history=False, chunk=args.chunk, bits=bits,
-                         device=dev)
+                         record_history=record, chunk=args.chunk, bits=bits,
+                         record_every=args.record_every if record else 1,
+                         history_device=device_hist, device=dev)
     return run, state, [body], wrapper
 
 
@@ -362,10 +446,12 @@ def _general_bench(args, g, plan, spec, dev):
         if dev.type == "cuda":
             cdense.check(dg, spec, params)
 
-    def run(st, n_steps: int, variant, seed: int):
+    def run(st, n_steps: int, variant, seed: int, record=False,
+            device_hist=False):
         return run_chains(dg, spec, params, st, n_steps=n_steps,
-                          record_history=False, chunk=args.chunk,
-                          kernel_path=variant)
+                          record_history=record, chunk=args.chunk,
+                          record_every=args.record_every if record else 1,
+                          history_device=device_hist, kernel_path=variant)
     return run, state, variants, (cdense.run_general_dense_chunk_cuda
                                   if "general_dense" in variants else None)
 

@@ -1,12 +1,14 @@
 """CLI: python -m flipcomplexityempirical_tpu_torch.experiments
          --family sec11|frank|tri|hex --out plots/sec11 [--steps N]
          [--chains C] [--only 2B30P10 ...] [--variant nobacktrack|lazy]
-         [--contiguity patch|exact] [--device cuda|cpu]
+         [--contiguity patch|exact] [--analytics history|summary]
+         [--device cuda|cpu]
 
 Runs the sweep grid of a family (150 sec11 configs, 24 Frankengraph
 configs, 4 triangular- and 4 hexagonal-lattice configs) on the card, with
 skip-if-done resume, writing each config's artifacts under the
-reference's file names. The bare
+reference's file names (``--analytics summary``: the same files, with
+the history folded on the card instead of copied to the host). The bare
 fail-fast loop: the first failure ends the process with a nonzero exit.
 ``--device cpu`` runs the plain PyTorch versions on the host, and only
 when asked; without a card the default ``cuda`` exits nonzero.
@@ -36,6 +38,13 @@ def main(argv=None) -> None:
     ap.add_argument("--record-every", type=int, default=1,
                     help="history thinning (yields 0, k, 2k, ... recorded; "
                          "accumulators exact)")
+    ap.add_argument("--analytics", choices=["history", "summary"],
+                    default="history",
+                    help="'history' copies each segment's history to the "
+                         "host; 'summary' folds it on the card and reads "
+                         "back chain 0's interface series once (the same "
+                         "artifacts; incompatible with --checkpoint-dir "
+                         "and --record-every > 1)")
     ap.add_argument("--contiguity", choices=["patch", "exact"],
                     default="patch",
                     help="the radius-r patch check, or the exact "
@@ -59,10 +68,14 @@ def main(argv=None) -> None:
         resolve_device(args.device)
     except RuntimeError as exc:
         sys.exit(f"error: {exc}")
-    configs = list(SWEEPS[args.family](
-        total_steps=args.steps, n_chains=args.chains, seed=args.seed,
-        record_every=args.record_every, contiguity=args.contiguity,
-        checkpoint_every=args.checkpoint_every, variant=args.variant))
+    overrides = dict(total_steps=args.steps, n_chains=args.chains,
+                     seed=args.seed, record_every=args.record_every,
+                     contiguity=args.contiguity,
+                     checkpoint_every=args.checkpoint_every,
+                     variant=args.variant)
+    if args.analytics != "history":
+        overrides["analytics"] = args.analytics
+    configs = list(SWEEPS[args.family](**overrides))
     if args.only:
         configs = [c for c in configs if c.tag in set(args.only)]
         if not configs:

@@ -16,6 +16,13 @@ checkpoint segments when ``cfg.checkpoint_every > 0``:
   the general-dense kernel where the JAX package would take it, else the
   legacy body.
 
+``cfg.analytics == 'summary'`` runs either path in summary mode, as the
+JAX package's driver does: no history is kept, each chunk's rows are
+folded on the card (``stats.accumulators.DeviceAnalytics``,
+``kernel/cuda_summary.py``), and chain 0's interface series (sec11 and
+frank) come back once at the end, so the artifacts are the history
+mode's, byte for byte.
+
 Completion manifest: a config is done when all its artifacts exist
 (``artifacts.FAMILY_ARTIFACTS``); ``run_sweep`` skips completed configs. A crash between segments loses at
 most ``checkpoint_every`` steps: the next ``run_config`` resumes chain
@@ -24,8 +31,8 @@ on-disk format is the JAX package's (file names, manifest, ``state_*`` /
 ``meta_*`` / ``hist_*`` keys and dtypes, the key as uint32[C, 2]), so a
 sweep checkpointed by either package resumes in the other.
 
-Refuse, never substitute: a family, chain, analytics mode or spec that
-this package has not ported raises ``ValueError`` naming the missing
+Refuse, never substitute: a family, chain or spec that this package has
+not ported raises ``ValueError`` naming the missing
 ROADMAP.md item; no other chain is run in its place.
 """
 
@@ -55,6 +62,7 @@ from ..sampling.board_runner import (finalize_board_run, init_board,
                                      run_board_segment)
 from ..sampling.runner import init_batch, run_chains
 from ..stats import partisan
+from ..stats.accumulators import DeviceAnalytics, summary_host
 from .artifacts import (artifact_kinds, render_all, render_generic,
                         render_start)
 from .config import ExperimentConfig
@@ -117,15 +125,37 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.chain != "flip":
         raise ValueError(f"chain {cfg.chain!r} is not ported: it waits for "
                          "ROADMAP.md A9 (ReCom)")
-    if cfg.analytics != "history":
-        raise ValueError(f"analytics {cfg.analytics!r} is not ported: it "
-                         "waits for ROADMAP.md A5 (device analytics)")
+    if cfg.analytics not in ("history", "summary"):
+        raise ValueError(f"analytics {cfg.analytics!r}")
     if cfg.family in ("sec11", "frank") and (cfg.variant != "none"
                                              or cfg.contiguity == "exact"):
         raise ValueError(
             f"{cfg.family} with variant {cfg.variant!r} / contiguity "
             f"{cfg.contiguity!r} runs the general path with the interface "
             "metrics, which wait for ROADMAP.md A6b")
+
+
+def _check_summary(cfg: ExperimentConfig, checkpoint_dir) -> None:
+    """The JAX driver's refusals of summary mode, in its words."""
+    if cfg.analytics != "summary":
+        return
+    if checkpoint_dir:
+        raise ValueError(
+            "analytics='summary' keeps histories on device, so "
+            "there is no host history to checkpoint; resumable runs "
+            "need analytics='history' (checkpoint_every may still "
+            "segment a summary run — it then only sets the control "
+            "consult grid)")
+    if cfg.record_every != 1:
+        raise ValueError(
+            "analytics='summary' folds every yield on device; "
+            "record_every > 1 only thins a host history that "
+            "summary mode never materializes")
+    if cfg.chain == "recom":
+        raise ValueError(
+            "analytics='summary' covers the flip-walk runners "
+            "(board/general); the recom chain stays on the "
+            "history oracle path")
 
 
 def build_graph_and_plan(cfg: ExperimentConfig):
@@ -210,6 +240,7 @@ def run_config(cfg: ExperimentConfig, outdir: str,
     ``seconds`` (the chains, from the first segment to the assembled
     result) and ``render_seconds`` (the artifacts)."""
     dev = resolve_device(device)
+    _check_summary(cfg, checkpoint_dir)
     _check_ported(cfg)
     g, plan, _ = build_graph_and_plan(cfg)
     spec = spec_for(cfg)
@@ -251,11 +282,21 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
     initial state. The segmented run equals an uninterrupted one bit for
     bit: the PRNG keys live in the chain state. ``_stop_after_segments``
     simulates an interruption for tests; ``run`` is ``_init_run``'s pair
-    when the caller made it already."""
+    when the caller made it already. In summary mode (``cfg.analytics``)
+    the runners fold on the card and keep no history; the data gains
+    ``summary`` and ``readback_bytes``."""
     dev = resolve_device(device)
+    _check_summary(cfg, checkpoint_dir)
     spec = spec_for(cfg)
     use_board, (handle, states, params) = (
         run if run is not None else _init_run(cfg, g, plan, spec, dev))
+    summary_mode = cfg.analytics == "summary"
+    analytics = None
+    if summary_mode:
+        series_keys = ("slope", "angle") if spec.record_interface else ()
+        analytics = DeviceAnalytics(
+            cfg.n_chains, observable="cut_count", series_keys=series_keys,
+            series_cap=cfg.total_steps if series_keys else 0, device=dev)
     done = 0   # transitions advanced (board) / yields recorded (general)
     n_parts = 0
     hist_parts: dict = {}
@@ -278,13 +319,16 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
         n = min(every, total - done)
         if use_board:
             res = run_board_segment(handle, spec, params, states, n,
+                                    record_history=not summary_mode,
                                     record_every=cfg.record_every,
-                                    history_device=True, device=dev)
+                                    history_device=True, device=dev,
+                                    analytics=analytics)
         else:
             res = run_chains(handle, spec, params, states, n_steps=n,
+                             record_history=not summary_mode,
                              record_initial=(done == 0),
                              record_every=cfg.record_every,
-                             history_device=True)
+                             history_device=True, analytics=analytics)
         states = res.state
         seg_hist = {k: v.cpu().numpy() for k, v in res.history.items()}
         for k, v in seg_hist.items():
@@ -299,17 +343,29 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
         if _stop_after_segments and segments >= _stop_after_segments:
             raise _SegmentStop(done)
 
-    if not use_board:
+    if use_board:
+        # the final yield (no trailing transition) and its wait bookkeeping
+        res = finalize_board_run(handle, spec, params, states, hist_parts,
+                                 waits_total, [], not summary_mode,
+                                 cfg.total_steps, cfg.record_every,
+                                 analytics=analytics)
+        states, history, waits_total = (res.state, res.history,
+                                        res.waits_total)
+    else:
         history = {k: np.concatenate(v, axis=1)
                    for k, v in hist_parts.items()}
-        return assemble_run_data(cfg, g, handle, states, history,
-                                 waits_total, use_board=False)
-    # the final yield (no trailing transition) and its wait bookkeeping
-    res = finalize_board_run(handle, spec, params, states, hist_parts,
-                             waits_total, [], True, cfg.total_steps,
-                             cfg.record_every)
-    return assemble_run_data(cfg, g, handle, res.state, res.history,
-                             res.waits_total)
+    if analytics is not None:
+        # chain 0's interface series, folded on the card, read back once:
+        # the (1, T) arrays the history mode would hand the renderers
+        history = dict(history)
+        for k, v in analytics.series_host().items():
+            history[k] = v[None, :]
+    data = assemble_run_data(cfg, g, handle, states, history, waits_total,
+                             use_board=use_board)
+    if analytics is not None:
+        data["summary"] = summary_host(analytics.summary_refs())
+        data["readback_bytes"] = analytics.readback_bytes
+    return data
 
 
 def assemble_run_data(cfg: ExperimentConfig, g, handle, states,

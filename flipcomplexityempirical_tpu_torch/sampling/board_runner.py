@@ -3,9 +3,12 @@ the lowered-chunk kernel.
 
 Port of ``init_board``, ``drain_waits``, ``_sum_pending``,
 ``finalize_board_run``, ``run_board_segment`` and ``run_board`` from
-``flipcomplexityempirical_tpu/sampling/board_runner.py`` (without the
-observability, analytics and degradation hooks, which this package has
-not ported). Which graphs take which kernel:
+``flipcomplexityempirical_tpu/sampling/board_runner.py``, with the device
+analytics (``analytics=``, a ``stats.accumulators.DeviceAnalytics``: each
+chunk's rows, and the final record, folded on the card by
+``kernel.cuda_summary.summary_fold``) and without the observability and
+degradation hooks, which this package has not ported. Which graphs take
+which kernel:
 
 - ``run_board_segment`` / ``run_board`` run every chunk on the
   lowered-chunk kernel (``kernel/cuda_lowered.py``,
@@ -33,6 +36,7 @@ from ..device import check_on, resolve_device
 from ..graphs.lattice import LatticeGraph
 from ..kernel import board as kboard
 from ..kernel import cuda_lowered as clow
+from ..kernel import cuda_summary
 from ..kernel import step as kstep
 from ..kernel.step import Spec
 from .runner import (RunResult, assemble_history, default_label_values,
@@ -74,13 +78,18 @@ def _sum_pending(waits_total: np.ndarray, pending_waits: list) -> np.ndarray:
 def finalize_board_run(bg, spec, params, state, hist_parts, waits_total,
                        pending_waits, record_history, n_steps,
                        record_every: int = 1,
-                       history_device: bool = False) -> RunResult:
+                       history_device: bool = False,
+                       analytics=None) -> RunResult:
     """Record the final yield (no trailing transition), drain waits and
     assemble the RunResult. Under thinning the final yield joins the
     history only when it lands on the record grid. ``history_device``
     keeps the history as tensors on the run's device (``hist_parts``
-    then holds tensors too) instead of numpy arrays."""
+    then holds tensors too) instead of numpy arrays. ``analytics`` folds
+    the final yield as it would join the history (one fold launch)."""
     state, out_last = kboard.record_final(bg, spec, params, state)
+    if analytics is not None:
+        analytics.update(cuda_summary.summary_fold(
+            analytics.acc, {k: v[None] for k, v in out_last.items()}), 1)
     if record_history and (n_steps - 1) % record_every == 0:
         for k, v in maybe_host(out_last, history_device).items():
             hist_parts.setdefault(k, []).append(v[:, None])
@@ -97,7 +106,7 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
                       chunk: Optional[int] = None,
                       bits: Optional[bool] = None, record_every: int = 1,
                       history_device: bool = False,
-                      device="cuda") -> RunResult:
+                      device="cuda", analytics=None) -> RunResult:
     """Advance ``n_transitions`` transitions of the batched chain on
     ``device``, where the state must already live, recording the same
     number of yields (each before its transition) and no trailing
@@ -112,9 +121,13 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
     signature's body choice: None or True run the body ``body_for``
     names, False (the JAX package's int8 bodies) raises.
     ``history_device=True`` returns the history as tensors on the run's
-    device, (C, T_recorded) per key, copied nowhere. The chains draw the
-    JAX package's threefry stream, so a run equals the JAX package's
-    draw for draw."""
+    device, (C, T_recorded) per key, copied nowhere. ``analytics`` (a
+    ``stats.accumulators.DeviceAnalytics`` on the run's device) folds
+    each chunk's rows, every step whatever ``record_every``, with one
+    ``summary_fold`` launch a chunk after the chunk kernel and no host
+    sync; pass ``record_history=False`` for summary mode, where no
+    history is kept. The chains draw the JAX package's threefry stream,
+    so a run equals the JAX package's draw for draw."""
     dev = resolve_device(device)
     check_on(dev, state.board, bg.pop, params.log_base)
     clow.body_for(bg, spec, bits)
@@ -134,6 +147,9 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
     while done < n_transitions:
         this = min(chunk, n_transitions - done)
         state, rows = clow.run_chunk(bg, spec, params, state, this, static)
+        if analytics is not None:
+            analytics.update(cuda_summary.summary_fold(analytics.acc, rows),
+                             this)
         if record_history:
             # records precede their transitions: row 0 is on the grid
             rows = maybe_host({k: v[::record_every] for k, v in rows.items()},
@@ -153,15 +169,20 @@ def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
               state: kboard.BoardState, n_steps: int,
               record_history: bool = True, chunk: Optional[int] = None,
               bits: Optional[bool] = None, record_every: int = 1,
-              device="cuda") -> RunResult:
+              history_device: bool = False, device="cuda",
+              analytics=None) -> RunResult:
     """Run the batched chain for ``n_steps`` yields (yield 0 is the
     initial state): one ``run_board_segment`` of ``n_steps - 1``
-    transitions, then the final record (``finalize_board_run``)."""
+    transitions, then the final record (``finalize_board_run``);
+    ``history_device`` and ``analytics`` as there (the fold launches
+    once a chunk and once for the final record)."""
     seg = run_board_segment(bg, spec, params, state, n_steps - 1,
                             record_history=record_history, chunk=chunk,
                             bits=bits, record_every=record_every,
-                            device=device)
+                            history_device=history_device, device=device,
+                            analytics=analytics)
     hist_parts = {k: [v] for k, v in seg.history.items()}
     return finalize_board_run(bg, spec, params, seg.state, hist_parts,
                               seg.waits_total, [], record_history, n_steps,
-                              record_every)
+                              record_every, history_device=history_device,
+                              analytics=analytics)

@@ -4,9 +4,10 @@ Port of ``flipcomplexityempirical_tpu/sampling/runner.py``: ``RunResult``,
 ``pick_chunk``, ``snap_chunk_to``, ``pop_bounds``,
 ``default_label_values``, ``maybe_host``, ``assemble_history``,
 ``thin_outs``, and the general path's ``init_batch`` and ``run_chains``
-(without the obs recorder, the device analytics and the degradation
-ladder, which this package has not ported). Long-horizon wait sums
-accumulate on the host in float64 from per-chunk float32 partial sums.
+with the device analytics (``analytics=``; without the obs recorder and
+the degradation ladder, which this package has not ported). Long-horizon
+wait sums accumulate on the host in float64 from per-chunk float32
+partial sums.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from .. import rng
 from ..convert import to_numpy
 from ..device import resolve_device
 from ..graphs.lattice import LatticeGraph
-from ..kernel import cuda_dense, dense
+from ..kernel import cuda_dense, cuda_summary, dense
 from ..kernel import step as kstep
 from ..state.chain_state import init_state
 
@@ -183,14 +184,14 @@ def run_chains(dg, spec, params, states, n_steps: int,
     dense version never runs in its place. The legacy body ('general')
     runs as torch ops on the run's device. The conn planes are attached
     on entry (by the kernel itself on its first chunk) and stripped on
-    exit. ``recorder`` (obs events) and
-    ``analytics`` (device summaries) wait for ROADMAP.md A11 and A5."""
+    exit. ``analytics`` (a ``stats.accumulators.DeviceAnalytics`` on the
+    run's device) folds the initial record and each chunk's rows, every
+    step whatever ``record_every``, with one ``summary_fold`` launch
+    each; pass ``record_history=False`` for summary mode. ``recorder``
+    (obs events) waits for ROADMAP.md A11."""
     if recorder is not None:
         raise ValueError("run_chains(recorder=...): obs events wait for "
                          "ROADMAP.md A11")
-    if analytics is not None:
-        raise ValueError("run_chains(analytics=...): device analytics wait "
-                         "for ROADMAP.md A5")
     kstep.check_general(spec)
     if states.reject_count is not None:
         raise ValueError("reject_count is not ported: the reject taxonomy "
@@ -217,6 +218,11 @@ def run_chains(dg, spec, params, states, n_steps: int,
     done = 0
     if record_initial:
         states, out0 = kstep.record(dg, spec, params, states)
+        if analytics is not None:
+            # the initial yield is on the recorded grid: fold it so the
+            # summary matches the history sample for sample
+            analytics.update(cuda_summary.summary_fold(
+                analytics.acc, {k: v[None] for k, v in out0.items()}), 1)
         if record_history:
             out0 = maybe_host(out0, history_device)
             hist_parts = {k: [v[:, None]] for k, v in out0.items()}
@@ -227,6 +233,9 @@ def run_chains(dg, spec, params, states, n_steps: int,
         this = min(chunk, n_steps - done)
         states, outs = _run_chunk(dg, spec, params, states, this, path,
                                   static)
+        if analytics is not None:
+            analytics.update(cuda_summary.summary_fold(analytics.acc, outs),
+                             this)
         if record_history:
             outs = maybe_host(thin_outs(outs, record_every), history_device)
             for k, v in outs.items():

@@ -18,6 +18,12 @@ contract rests on two invariants of the port:
    one batch serves them all: one launch a chunk for every tenant where
    solo runs would launch once a chunk each.
 
+A summary-mode config (``analytics='summary'``) is accepted as the JAX
+service accepts it: its fingerprint keeps it apart from history-mode
+jobs, and its batch runs as the JAX service's ``_run_batch`` runs it, in
+history mode (no ``analytics`` is passed), so a tenant equals the JAX
+service's output for it.
+
 A job with an existing checkpoint runs solo from its resume point
 (coalescing assumes a common step 0). A job that raises is marked
 ``failed`` with its error, with no retry, so one pass over the queue's

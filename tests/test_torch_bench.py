@@ -8,7 +8,9 @@ it: a ``--cpu`` run prints one headline on stdout that
 ``tools/bench_compare.py::extract_metrics`` reads under ``bench.py``'s
 metric name; without a card and without ``--cpu`` it exits 1; every flag
 of ``bench.py`` it does not port exits 2 naming the ROADMAP.md item
-(``--block-chains``, the TPU kernel's block size, is left to argparse).
+(``--block-chains``, the TPU kernel's block size, is left to argparse);
+``--ess`` (with ``--ess-host``, ``--record-every``) adds the
+``cut_ess_per_sec`` record on stderr.
 The enumeration copy must give ``tests/test_enumeration.py``'s states,
 cut counts and stationary distribution exactly (float64, same order of
 operations); its lazy iteration must give the stationary distribution
@@ -105,8 +107,7 @@ def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
 
 @pytest.mark.parametrize("extra,item", [
     (["--k", "3"], "A7"),
-    (["--ess"], "A5"), (["--ess-host"], "A5"), (["--devstats"], "A5"),
-    (["--record-every", "2"], "A5"), (["--mesh", "4"], "A10"),
+    (["--devstats"], "A11"), (["--mesh", "4"], "A10"),
     (["--service", "--events", "-"], "A11"), (["--adaptive"], "A11"),
     (["--workload-matrix"], "A11"), (["--workloads", "frank"], "A11"),
     (["--fleet"], "A11"), (["--events", "-"], "A11"),
@@ -120,6 +121,37 @@ def test_bench_refuses_unported_flags(capsys, extra, item):
     code, out, err = _run(capsys, ["--cpu"] + extra)
     assert code == 2 and out == ""
     assert item in err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--ess"], ["--ess", "--ess-host"], ["--ess", "--record-every", "2"],
+    ["--ess", "--graph", "hex", "--grid", "4"]],
+    ids=["ess", "ess-host", "record-every", "hex"])
+def test_bench_runs_the_ess_flags(capsys, extra):
+    """The flags that waited for the device analytics now run: the
+    headline as before, and before the meta line on stderr the
+    cut_ess_per_sec record of the host estimators (``--cpu``)."""
+    code, out, err = _run(capsys, ["--cpu", "--grid", "6", "--chains", "4",
+                                   "--steps", "41", "--warmup", "11",
+                                   "--chunk", "10"] + extra)
+    assert code == 0
+    assert json.loads(out.strip())["metric"].startswith(
+        "flips_per_sec_per_chip_")
+    records = [json.loads(ln) for ln in err.splitlines()
+               if ln.startswith("{")]
+    assert [r.get("metric") for r in records] == ["cut_ess_per_sec", None]
+    rec = records[0]
+    assert rec["ess_on_device"] is False and "ess_host_check" not in rec
+    assert rec["ess_total"] > 0 and rec["value"] > 0
+    assert rec["bottleneck_phi"] > 0 and rec["bottleneck_r"] > 0
+    assert rec.get("record_every", 1) == (2 if "--record-every" in extra
+                                          else 1)
+
+
+def test_bench_refuses_record_every_off_the_chunk(capsys):
+    code, out, err = _run(capsys, ["--cpu", "--chunk", "10",
+                                   "--record-every", "3", "--ess"])
+    assert code == 2 and out == "" and "--record-every 3 must divide" in err
 
 
 def test_bench_refuses_what_bench_py_refuses(capsys):

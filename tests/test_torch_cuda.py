@@ -330,3 +330,90 @@ def test_general_dense_kernel_matches_jax_fixture(card):
         {k[6:]: v for k, v in want.items() if k.startswith("state_")},
         {k[5:]: v for k, v in want.items() if k.startswith("hist_")},
         want["waits_total"])
+
+
+# ---------------------------------------------------------------------------
+# The summary fold (csrc/summary_fold.cu)
+# ---------------------------------------------------------------------------
+
+def _fold_rows(t_len, chains, dev, seed, integer=True, wait=True,
+               series=True):
+    r = np.random.default_rng(seed)
+    x = (r.integers(5, 600, (t_len, chains)).astype(np.int32) if integer
+         else r.normal(40.0, 9.0, (t_len, chains)).astype(np.float32))
+    rows = {"cut_count": x,
+            "accepts": np.cumsum(r.integers(0, 2, (t_len, chains)),
+                                 axis=0).astype(np.int32)}
+    if wait:
+        rows["wait"] = r.geometric(0.3, (t_len, chains)).astype(
+            np.float32) - 1
+    if series:
+        for k in ("slope", "angle"):
+            v = r.normal(size=(t_len, chains)).astype(np.float32)
+            v[r.random(t_len) < 0.2] = np.nan
+            rows[k] = v
+    return {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
+
+
+def _same_acc(got, want):
+    for k in ("n", "kept", "stride", "accepts", "mean", "m2", "wsum",
+              "wmean", "wm2", "waits", "buf"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
+    for k in want.series:
+        assert torch.equal(got.series[k].view(torch.int32),
+                           want.series[k].view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len,chains,cap,integer,wait,series", [
+    (500, 4096, 4096, True, True, True),      # the lowered main path
+    (369, 8, 4096, True, True, True),          # the experiment path
+    (2439, 32, 4096, True, True, False),       # the hex batch's dense rows
+    (369, 8, 8, True, True, True),             # decimates inside a chunk
+    (200, 130, 16, False, False, False),       # float data, no waits
+])
+def test_summary_fold_matches_plain_version(card, t_len, chains, cap,
+                                            integer, wait, series):
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary
+    from flipcomplexityempirical_tpu_torch.stats import accumulators as sacc
+    keys = ("slope", "angle") if series else ()
+    rows = _fold_rows(t_len, chains, card, t_len + chains, integer, wait,
+                      series)
+    got = sacc.init_summary(chains, cap=cap, series_keys=keys,
+                            series_cap=t_len + 100, device=card)
+    want = got.clone()
+    n0 = cuda_summary.summary_fold.launches
+    for _ in range(2):          # the second fold starts mid-schedule
+        got = cuda_summary.summary_fold(got, rows)
+        want = sacc.fold_block(want, rows)
+    torch.cuda.synchronize()
+    assert cuda_summary.summary_fold.launches == n0 + 2
+    assert int(got.n) == 2 * t_len
+    _same_acc(got, want)
+
+
+@pytest.mark.cuda
+def test_summary_runs_go_through_the_fold_kernel(card):
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary
+    from flipcomplexityempirical_tpu_torch.stats import accumulators as sacc
+    g = graphs.grid_sec11()
+    spec = Spec(contiguity="patch", record_interface=True)
+    bg, st, params = init_board(g, graphs.sec11_plan(g, 0), n_chains=8,
+                                seed=0, spec=spec, base=1.4, pop_tol=0.1,
+                                device=card)
+    hist = run_board(bg, spec, params, st, n_steps=101, chunk=25,
+                     device=card)
+    ana = sacc.DeviceAnalytics(8, series_keys=("slope", "angle"),
+                               series_cap=101, device=card)
+    n0 = cuda_summary.summary_fold.launches
+    summ = run_board(bg, spec, params, st, n_steps=101, chunk=25,
+                     record_history=False, device=card, analytics=ana)
+    assert cuda_summary.summary_fold.launches == n0 + 5   # 4 chunks + final
+    assert torch.equal(summ.state.board, hist.state.board)
+    rows = {k: torch.as_tensor(hist.history[k], device=card).T.contiguous()
+            for k in ("cut_count", "wait", "accepts", "slope", "angle")}
+    want = sacc.fold_block(sacc.init_summary(
+        8, series_keys=("slope", "angle"), series_cap=101, device=card),
+        rows)
+    _same_acc(ana.acc, want)

@@ -23,6 +23,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(total_steps=41, n_chains=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The runs here are small: one intra-op thread is as fast alone and
+    keeps parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("family", sorted(jconfig.SWEEPS))
 def test_tags_sizes_identities_match_jax(family):
     jax_cfgs = list(jconfig.SWEEPS[family]())
@@ -52,13 +62,11 @@ def test_sweep_sizes_and_constants():
 @pytest.mark.parametrize("kw, missing", [
     (dict(family="kpair", n_districts=4), "A7"),
     (dict(family="tri", chain="recom"), "A9"),
-    (dict(family="hex", analytics="summary"), "A5"),
     (dict(family="dual", n_districts=4), "A7"),
     (dict(family="temper", betas=(1.0, 0.9), swap_every=10), "A8"),
     (dict(family="frank", contiguity="exact"), "A6b"),
     (dict(family="frank", accept="corrected"), "B4"),
     (dict(family="sec11", chain="recom"), "A9"),
-    (dict(family="sec11", analytics="summary"), "A5"),
     (dict(family="frank", variant="lazy"), "A6b"),
     (dict(family="sec11", variant="nobacktrack"), "A6b"),
 ], ids=lambda x: x if isinstance(x, str) else "-".join(
@@ -70,6 +78,21 @@ def test_unported_configs_are_refused(kw, missing, tmp_path):
         tdriver.run_sweep([cfg], str(tmp_path), device="cpu",
                           verbose=False)
     assert not os.listdir(tmp_path)        # nothing written, nothing run
+
+
+@pytest.mark.parametrize("kw", [dict(family="hex", analytics="summary"),
+                                dict(family="sec11", analytics="summary")],
+                         ids=["family=hex-analytics=summary",
+                              "family=sec11-analytics=summary"])
+def test_summary_configs_run(kw, tmp_path):
+    """The configs that were refused while summary mode waited for the
+    device analytics now run, with their summary in the data."""
+    cfg = tconfig.ExperimentConfig(
+        **dict(dict(alignment=0, base=0.3, pop_tol=0.5), **SMALL, **kw))
+    [(_, data)] = tdriver.run_sweep([cfg], str(tmp_path), device="cpu",
+                                    verbose=False)
+    assert tdriver.is_done(cfg, str(tmp_path))
+    assert int(data["summary"]["n"]) == SMALL["total_steps"]
 
 
 def test_run_sweep_skips_finished_config(tmp_path, capsys):
