@@ -165,15 +165,26 @@ entry points a user calls, checks what comes out, and prints:
      every field, the buffer and the series bit-equal (NaN for NaN), one
      launch counted a call, two folds in turn, at sec11's main-path rows
      (C=4096, T=500), the experiment path's (C=8, T=369), the hex batch's
-     dense rows (C=32, T=2439), a buffer cap of 8 that decimates inside a
-     chunk and rows without waits, each timed with CUDA events beside its
-     byte bound; then ``run_config`` in summary mode for sec11 0B263P10,
-     frank 2B333P90 and hex-0B333P10 at the paper's shape, the counts
-     zeroed just before and read just after: every artifact byte-equal to
-     phases 7 and 12's history-mode runs, the fold launched once a chunk
-     and once more, the seconds split, the readback bytes, and
-     ``data["summary"]`` bit-equal to the plain fold of the history-mode
-     run's history on the card;
+     dense rows (C=32, T=2439), the general main path's (hex 64x64,
+     C=4096, T=500), a buffer cap of 8 that decimates inside a chunk and
+     rows without waits, each timed with CUDA events beside its byte
+     bound; at the same cases but the last (no chunk kernel records
+     without a wait) the chunk kernel that makes the rows
+     (``lowered_chunk``, ``general_dense_chunk``: its wide form at C=32,
+     its narrow form at C=4096, the fold instantiation's launch shape
+     printed) folding its own records without a history (on a fold warp,
+     on the chains' warps in the dense narrow form; the form printed),
+     its state, flip log and outputs bit-equal to its history-mode launch
+     and its accumulator to the standalone fold, and the history chunk,
+     the fused chunk and the history chunk plus the standalone fold timed
+     in turns; then
+     ``run_config`` in summary mode for sec11 0B263P10, frank 2B333P90 and
+     hex-0B333P10 at the paper's shape, the counts zeroed just before and
+     read just after: every artifact byte-equal to phases 7 and 12's
+     history-mode runs, one fused launch a chunk and one standalone fold
+     launch (the run's one-row record), the seconds split, the readback
+     bytes, and ``data["summary"]`` bit-equal to the plain fold of the
+     history-mode run's history on the card;
   16. one JSON line per kernel table (``{"kernels": [...]}``), then as the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -182,7 +193,9 @@ version's C interface), checks that its outputs equal the current
 kernel's at the main path's shape and times the two in turn (baseline,
 current, current, baseline; three rounds) in the same call.
 ``--baseline-lowered PATH`` does the same for an earlier
-``lowered_chunk.cu`` (the same C interface) at both lowered main paths.
+``lowered_chunk.cu`` (the same C interface; one from before the fold's
+two trailing arguments takes the first, null, as its stream: the default
+stream, which this script runs on) at both lowered main paths.
 
 Any failed phase exits nonzero before the last line. Without a CUDA card,
 or without the port's package beside it, the script exits nonzero and
@@ -2791,47 +2804,177 @@ def same_fold(got, want, label: str) -> float:
                for g, w in pairs)
 
 
-def summary_kernel_cases(port, ex, drv, runner, cl, cd, cs, sacc,
-                         card: str) -> list:
-    """Phase 15 (1): summary_fold against its plain version on the card
-    at the shapes its callers give it, two folds in turn (the second from
-    mid-schedule), every field bit-equal and one launch counted a call;
-    then the kernel's CUDA-event ms from the first fold's end state (the
-    launches queued behind a device sleep: at C=8 the wrapper's host work
-    outlasts the kernel), the plain version's host-clock ms and the byte
-    bound."""
+def same_fused_outputs(got: dict, want: dict, label: str) -> None:
+    """Two chunk launches' outputs ({name: tensor}) bit for bit (NaN for
+    NaN); ``got`` may leave out what a fused launch without a history does
+    not write."""
     import torch
-    keys = ("slope", "angle")
+    for k, g in got.items():
+        w = want[k]
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            fail(f"{label}: the fused launch's {k} differs from the "
+                 "history-mode launch's")
+
+
+def lowered_fold_route(cl, bg, spec, params, st, t_len: int):
+    """The lowered kernel's two launches at one input state: (history():
+    (outputs by name, rows, the next state), fused(acc): (outputs by name,
+    acc)), their inputs packed once, outside any timed call."""
+    static = cl.make_static_inputs(bg, spec, params)
+    ins = (st.board, *cl.pack_state(st, params))
+
+    def history():
+        outs = cl.run_lowered_chunk_cuda(bg, static, spec, t_len, *ins)
+        return (dict(zip(cl.OUT_NAMES, outs)), cl.chunk_rows(spec, outs),
+                cl.unpack_state(st, outs, t_len))
+
+    def fused(acc):
+        outs, acc = cl.run_lowered_chunk_cuda(bg, static, spec, t_len, *ins,
+                                              acc=acc, keep_rows=False)
+        return ({k: v for k, v in zip(cl.OUT_NAMES, outs) if v is not None},
+                acc)
+    return history, fused
+
+
+def dense_fold_route(cd, dg, spec, params, st, t_len: int):
+    """The dense kernel's two launches at one input state, as
+    ``lowered_fold_route``'s (the state's fields are its outputs)."""
+    import dataclasses
+    static = cd.make_static_inputs(dg)
+
+    def fields(state):
+        return {f.name: getattr(state, f.name)
+                for f in dataclasses.fields(state)
+                if getattr(state, f.name) is not None}
+
+    def history():
+        new, rows = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                    st, t_len)
+        return ({**fields(new), **{f"row {k}": v for k, v in rows.items()}},
+                rows, new)
+
+    def fused(acc):
+        new, rows, acc = cd.run_general_dense_chunk_cuda(
+            dg, static, spec, params, st, t_len, acc=acc, keep_rows=False)
+        if rows:
+            fail("a fused dense launch without a history returned rows")
+        return fields(new), acc
+    return history, fused
+
+
+def fold_inputs(port, ex, drv, gsampling, cd) -> list:
+    """(label, kind, graph, spec, params, state, T) of the chunk shapes the
+    summary fold's callers give it: sec11's main path (C=4096, T=500) and
+    the experiment path's sec11 0B263P10 (C=8, T=369) on the lowered
+    kernel, the hex sweep's batch (C=32, T=2439) and the general main
+    path's hex 64x64 (C=4096, T=500, after one chunk, so that the conn
+    planes are attached) on the dense kernel."""
+    runner = gsampling.runner
     _, bg, st, params, spec = lowered_workload(port, "sec11", CHAINS, 0)
-    _, main_rows = cl.run_chunk(bg, spec, params, st, CHUNK)
     cfg = experiment_config(ex, "sec11", "0B263P10", total_steps=EXP_STEPS,
                             n_chains=EXP_CHAINS)
     g, plan, _ = drv.build_graph_and_plan(cfg)
     espec = drv.spec_for(cfg)
     _, (ebg, est, epar) = drv._init_run(cfg, g, plan, espec, DEVICE)
-    _, exp_rows = cl.run_chunk(ebg, espec, epar, est,
-                               runner.pick_chunk(EXP_STEPS, 512))
     prepared, hst, hpar = sweep_batch(ex, "hex")
-    handle = prepared[0].handle
-    _, hex_rows = cd.run_general_dense_chunk_cuda(
-        handle, cd.make_static_inputs(handle), prepared[0].spec, hpar, hst,
-        runner.pick_chunk(EXP_STEPS, 4096))
-    no_wait = {k: v for k, v in exp_rows.items() if k != "wait"}
-    cases = (("sec11 main-path rows", main_rows, 4096, keys),
-             ("the experiment path's rows", exp_rows, 4096, keys),
-             ("the hex batch's dense rows", hex_rows, 4096, ()),
-             ("the experiment path's rows, cap 8", exp_rows, 8, keys),
-             ("the experiment path's rows without waits", no_wait, 4096,
-              keys))
+    _, gspec, gdg, gst, gpar = general_inputs(
+        port, gsampling, "hex_lattice", (GRID, GRID), CHAINS, POP_TOL, BASE,
+        seed=0)
+    gst, _ = cd.run_general_dense_chunk_cuda(
+        gdg, cd.make_static_inputs(gdg), gspec, gpar, gst, CHUNK)
+    return [("sec11's main path", "lowered", bg, spec, params, st, CHUNK),
+            ("the experiment path", "lowered", ebg, espec, epar, est,
+             runner.pick_chunk(EXP_STEPS, 512)),
+            ("the hex batch", "dense", prepared[0].handle, prepared[0].spec,
+             hpar, hst, runner.pick_chunk(EXP_STEPS, 4096)),
+            ("hex 64x64", "dense", gdg, gspec, gpar, gst, CHUNK)]
+
+
+def fold_route(cl, cd, label, kind, *args):
+    """``lowered_fold_route`` or ``dense_fold_route`` of one of
+    ``fold_inputs``'s shapes, through the modules ``cl`` and ``cd``."""
+    if kind == "lowered":
+        return lowered_fold_route(cl, *args)
+    return dense_fold_route(cd, *args)
+
+
+def fold_turns(history, fused, cs, acc0, reps: int = 10,
+               rounds: int = 2) -> dict:
+    """CUDA-event ms of three routes at one input, timed in turns (H F S,
+    then S F H, ...), each call behind a device sleep: the history-mode
+    chunk (H), the fused chunk without a history (F), and the history
+    chunk followed by the standalone fold of its rows (S). Every fold
+    starts from its own copy of ``acc0``, made before the timing."""
+    def standalone(acc):
+        _, rows, _ = history()
+        return cs.summary_fold(acc, rows)
+    routes = {"history": lambda acc: history(), "fused": fused,
+              "standalone": standalone}
+    ms = {k: [] for k in routes}
+    order = list(routes)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            accs = [acc0.clone() for _ in range(reps)]
+            ms[name].append(device_ms(lambda: routes[name](accs.pop()),
+                                      reps))
+    return ms
+
+
+def summary_kernel_cases(port, ex, drv, gsampling, cl, cd, cs, sacc,
+                         card: str) -> list:
+    """Phase 15 (1): the fold at the shapes its callers give it, two
+    chunks in turn (the second from mid-schedule). The standalone kernel
+    against its plain version, every field bit-equal and one launch
+    counted a call, then its CUDA-event ms (behind a device sleep: at C=8
+    the wrapper's host work outlasts the kernel), the plain version's
+    host-clock ms and the byte bound. Except for the rows without waits,
+    which no chunk kernel makes, the chunk kernel of each case in fused
+    summary mode (no history): its state, flip log and outputs bit-equal
+    to the history-mode launch's, its accumulator bit-equal to the
+    standalone fold of the history rows; then the three routes timed in
+    turns (``fold_turns``). The dense kernel runs its wide form (a fold
+    warp) at the hex batch's C=32 and its narrow form (the fold on the
+    chains' warps) at the general main path's C=4096, its fold launch
+    shape printed and checked."""
+    import torch
+    keys = ("slope", "angle")
+    inputs = fold_inputs(port, ex, drv, gsampling, cd)
+    main, exp, hexr, narrow = (fold_route(cl, cd, *x) for x in inputs)
+    # the dense kernel folds on a fold warp in its wide form, on the
+    # chains' warps in its narrow one
+    for (label, _, dg, _, _, st, _), wide in zip(inputs[2:], (True, False)):
+        c = st.key.shape[0]
+        shape = cd.launch_shape(dg, c, fold=True)
+        print(f"[{card}] general_dense_chunk fold instantiation at {label}, "
+              f"C={c}: {shape}")
+        if shape["producer"] != wide:
+            fail(f"general_dense_chunk at {label}: not the "
+                 f"{'wide' if wide else 'narrow'} form")
+    warp, own = "a fold warp", "the chains' warps"
+    cases = (("sec11 main-path rows", main, cl, warp, 4096, keys, True),
+             ("the experiment path's rows", exp, cl, warp, 4096, keys,
+              True),
+             ("the hex batch's dense rows", hexr, cd, warp, 4096, (), True),
+             ("the general main path's dense rows", narrow, cd, own, 4096,
+              (), True),
+             ("the experiment path's rows, cap 8", exp, cl, warp, 8, keys,
+              True),
+             ("the experiment path's rows without waits", exp, cl, None,
+              4096, keys, False))
     out = []
-    for label, rows, cap, series in cases:
+    for label, (history, fused), kern, form, cap, series, waits in cases:
+        outs, rows, _ = history()
+        if not waits:
+            rows = {k: v for k, v in rows.items() if k != "wait"}
         t_len, c = rows["cut_count"].shape
         label = f"[{card}] summary_fold, {label} C={c} T={t_len}"
         acc = sacc.init_summary(c, cap=cap, series_keys=series,
                                 series_cap=EXP_STEPS, device=DEVICE)
-        plain, err = acc.clone(), 0.0
+        plain, fused_acc, err = acc.clone(), acc.clone(), 0.0
         for _ in range(2):
-            start = acc.clone()
+            start, fused_start = acc.clone(), fused_acc.clone()
             torch.cuda.synchronize()
             n0 = cs.summary_fold.launches
             acc = cs.summary_fold(acc, rows)
@@ -2843,6 +2986,17 @@ def summary_kernel_cases(port, ex, drv, runner, cl, cd, cs, sacc,
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t0)
             err = max(err, same_fold(acc, plain, label))
+            if not waits:
+                continue
+            # the chunk kernel folding its own records, from the same
+            # accumulator state
+            f0 = cs.fused_fold.launches
+            got, fused_acc = fused(fused_acc)
+            torch.cuda.synchronize()
+            if cs.fused_fold.launches != f0 + 1:
+                fail(f"{label}: the fused launch was not counted")
+            same_fused_outputs(got, outs, label)
+            err = max(err, same_fold(fused_acc, acc, label + " (fused)"))
         reps = 10
         clones = [start.clone() for _ in range(reps)]
         ms = device_ms(lambda: cs.summary_fold(clones.pop(), rows), reps)
@@ -2854,9 +3008,29 @@ def summary_kernel_cases(port, ex, drv, runner, cl, cd, cs, sacc,
               f"mean of {reps}), plain "
               f"version {plain_ms:.3f} ms; bound {bound_ms:.6f} ms "
               f"({nbytes:.4e} bytes)")
-        out.append(dict(case=label, chains=c, steps=t_len, cap=cap, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by="bytes", max_abs_err=err))
+        case = dict(case=label, chains=c, steps=t_len, cap=cap, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                    max_abs_err=err, kernel=None)
+        out.append(case)
+        if not waits:
+            continue
+        turns = fold_turns(history, fused, cs, fused_start)
+        span = {k: (min(v), max(v)) for k, v in turns.items()}
+        fold_in_chunk = (min(turns["fused"]) - max(turns["history"]),
+                         max(turns["fused"]) - min(turns["history"]))
+        kname = "lowered_chunk" if kern is cl else "general_dense_chunk"
+        print(f"{label}: fused into {kname} (on {form}): state, flip log "
+              f"and outputs bit-equal to the history-mode launch, accumulator "
+              f"bit-equal to the standalone fold (two chunks); in turns "
+              f"(ms a chunk, CUDA events behind a device sleep, "
+              f"{len(turns['fused'])} x mean of 10): history "
+              f"{span['history'][0]:.4f}-{span['history'][1]:.4f}, fused "
+              f"{span['fused'][0]:.4f}-{span['fused'][1]:.4f}, history + "
+              f"standalone fold {span['standalone'][0]:.4f}-"
+              f"{span['standalone'][1]:.4f}; the fold inside the chunk "
+              f"{fold_in_chunk[0]:+.4f} to {fold_in_chunk[1]:+.4f} ms")
+        case.update(kernel=kname, form=form, turns=turns,
+                    fused_minus_history_ms=fold_in_chunk)
     return out
 
 
@@ -2884,18 +3058,23 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
             torch.cuda.synchronize()
             zero_launch_counts(cb, cl, cd, probes)
             cs.summary_fold.launches = 0
+            cs.fused_fold.launches = 0
             t0 = time.perf_counter()
             data = ex.run_config(cfg, out, device=DEVICE)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             folds = cs.summary_fold.launches
+            fused = cs.fused_fold.launches
             chunks = (cl.run_lowered_chunk_cuda.launches
                       + cd.run_general_dense_chunk_cuda.launches)
             kernel = "general_dense_chunk" if family == "hex" else \
                 "lowered_chunk"
-            if chunks == 0 or folds != chunks + 1:
-                fail(f"summary {tag}: summary_fold launched {folds} times "
-                     f"for {chunks} chunks")
+            # the chunks fold their own records; the run's one-row record
+            # (the board path's final yield, the general path's initial
+            # one) is the one standalone launch
+            if chunks == 0 or fused != chunks or folds != 1:
+                fail(f"summary {tag}: {fused} fused launches for {chunks} "
+                     f"chunks, summary_fold launched {folds} times")
             got = artifact_digests(ex, cfg, out)
             bad = sorted(k for k in got
                          if got[k] != HISTORY_ARTIFACTS[tag].get(k))
@@ -2926,15 +3105,17 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                   f"{run_s:.3f} s (history mode {solo[tag]['seconds']:.3f}), "
                   f"render {render_s:.3f} s, set-up and scores "
                   f"{wall - run_s - render_s:.3f} s; {fps:.6e} flips/s; "
-                  f"{kernel} launches {chunks}, summary_fold launches "
-                  f"{folds}; readback {data['readback_bytes']} bytes; "
+                  f"{kernel} launches {chunks}, each folding its records "
+                  f"(on a fold warp), summary_fold launches {folds}; "
+                  f"readback "
+                  f"{data['readback_bytes']} bytes; "
                   f"{len(got)} artifacts byte-equal to the history mode's; "
                   f"data['summary'] bit-equal to the plain fold of the "
                   f"history ({plain_s:.3f} s)")
             results[tag] = dict(wall_s=wall, run_s=run_s, render_s=render_s,
                                 history_run_s=solo[tag]["seconds"],
                                 flips_per_s=fps, chunks=chunks,
-                                launches=folds,
+                                launches=folds, fused_launches=fused,
                                 readback_bytes=data["readback_bytes"])
     return results
 
@@ -2955,12 +3136,12 @@ def ess_record(stderr: str, label: str) -> dict:
     return rec
 
 
-def summary_phase(port, ex, drv, runner, cl, cd, solo: dict,
+def summary_phase(port, ex, drv, gsampling, cl, cd, solo: dict,
                   card: str) -> dict:
     """Phase 15: the device analytics on the card."""
     from flipcomplexityempirical_tpu_torch.kernel import cuda_summary as cs
     from flipcomplexityempirical_tpu_torch.stats import accumulators as sacc
-    cases = summary_kernel_cases(port, ex, drv, runner, cl, cd, cs, sacc,
+    cases = summary_kernel_cases(port, ex, drv, gsampling, cl, cd, cs, sacc,
                                  card)
     runs = summary_runs(ex, drv, cl, cd, cs, sacc, solo, card)
     return {"cases": cases, "runs": runs}
@@ -3194,7 +3375,7 @@ def main() -> None:
     service = service_phase(port.experiments, gsampling.runner, tb, cl, cd,
                             solo, card)
     # ---- 15: the device analytics -----------------------------------------
-    analytics = summary_phase(port, port.experiments, drv, gsampling.runner,
+    analytics = summary_phase(port, port.experiments, drv, gsampling,
                               cl, cd, solo, card)
     del solo
     sweeps = service["sweeps"]
@@ -3211,16 +3392,30 @@ def main() -> None:
     general["service"] = {"kernel": service["kernels"]["hex"],
                           "sweep": sweeps["hex"]}
     exp_case = analytics["cases"][1]      # the experiment path's rows
+    runs = analytics["runs"]
+
+    def fused_route(kname: str, families) -> dict:
+        return {
+            "name": f"summary fold inside {kname}", "route": "cuda",
+            "source": f"flipcomplexityempirical_tpu_torch/csrc/{kname}.cu",
+            "header": "flipcomplexityempirical_tpu_torch/csrc/"
+                      "summary_fold.cuh",
+            "launches": sum(runs[t]["fused_launches"] for f, t in
+                            SUMMARY_RUNS if f in families),
+            "cases": [c["case"] for c in analytics["cases"]
+                      if c["kernel"] == kname]}
     kernels.insert(0, {
         "name": "summary_fold", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/summary_fold.cu",
         "replaces": "flipcomplexityempirical_tpu/stats/accumulators.py:116",
-        "launches": sum(r["launches"] for r in analytics["runs"].values()),
+        "launches": sum(r["launches"] for r in runs.values()),
         "max_abs_err": max(c["max_abs_err"] for c in analytics["cases"]),
         "ms": exp_case["ms"], "plain_ms": exp_case["plain_ms"],
         "bound_ms": exp_case["bound_ms"], "bound_by": exp_case["bound_by"],
         "library_ms": None, "cases": analytics["cases"],
-        "runs": analytics["runs"],
+        "runs": runs,
+        "fused_routes": [fused_route("lowered_chunk", ("sec11", "frank")),
+                         fused_route("general_dense_chunk", ("hex",))],
         "bench_ess": {"sec11": heads["sec11"]["ess"],
                       "hex": general["bench"]["ess"]},
     })

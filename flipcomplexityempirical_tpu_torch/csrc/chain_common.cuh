@@ -1,8 +1,10 @@
 // Device helpers shared by the chunk kernels that draw the JAX package's
 // threefry2x32 stream (lowered_chunk.cu, general_dense_chunk.cu): the
 // threefry block and the f32 uniform of jax.random (rng.py holds their
-// torch twins), the batched per-step draws of split(key, 4), and small
-// bit-plane helpers.
+// torch twins), the batched per-step draws of split(key, 4), small
+// bit-plane helpers, and the mbarrier operations of the hand-offs between
+// warps in shared memory (the dense kernel's draws ring and table copy,
+// summary_fold.cuh's fold ring).
 
 #pragma once
 
@@ -70,6 +72,50 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int r) {
     }
   }
   return pos;
+}
+
+// ---- mbarriers in shared memory ----------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra.uni DONE;\n\t"
+      "bra.uni WAIT;\n"
+      "DONE:\n\t}" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// whether the barrier's phase of this parity has completed, without
+// waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, P1;\n\t}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0u;
 }
 
 // The threefry draws of up to 32 steps: the key chain (split counter 0 of

@@ -96,6 +96,18 @@
 //     once per node of R (tests/test_torch_dense_bookkeeping.py holds a
 //     numpy model of this arithmetic to the plain version).
 // cut and cut_deg are written at the chunk's end from A.
+// Summary mode (kFold; fce_general_dense_chunk with the fold's arrays)
+// also folds each record into the run's summary accumulator, as the JAX
+// package's scan bodies call fold_out on every yield (summary_fold.cuh):
+// step t's record leaves a packet in lane t mod 32's registers, and every
+// 32 steps the lanes store the batch to shared memory for the fold. In
+// the wide form a third warp of the block folds it, behind a ring of two
+// batches on mbarriers, so its serial steps run beside the chain's next
+// ones. In the narrow form the chain's own warp folds it: a fold warp
+// there, with the 4 blocks an SM kept (56 registers a thread), ran 0.07
+// to 0.34 ms slower a 500-step chunk at 64x64 hex and C=4096 on an H100
+// (fold_turns.py). Without a history no row is written. kFold = false is
+// the history-mode kernel.
 //
 // Traps the code keeps:
 //   - the wait denominator is N**2 - 1 over the graph's nodes, in f32
@@ -116,6 +128,7 @@
 #include <cuda_runtime.h>
 
 #include "chain_common.cuh"
+#include "summary_fold.cuh"
 
 namespace {
 
@@ -129,6 +142,10 @@ constexpr int kRing = 4;          // draw batches in flight (producer mode)
 constexpr int kWidePp = 24;       // patch row slots the wide form holds
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr uint32_t kPiece = 32 * 1024;  // bytes a bulk copy
+// the narrow form's fold area a chain: 32 packets and its FoldState
+constexpr size_t kFoldChainBytes =
+    32 * sizeof(float4) + ((sizeof(FoldState) + 15) & ~size_t(15));
+constexpr size_t kFoldRingBytes = (sizeof(FoldRing<1>) + 15) & ~size_t(15);
 
 // The packed graph tables (kernel/cuda_dense.py::pack_tables builds the
 // same layout): patch adjacency bitsets (N, Pp) as uint32 and patch slots
@@ -222,52 +239,10 @@ struct Args {
   // the launch shape (the C entry's): chains a block, the bytes of a
   // chain's shared memory
   int cpb, chain_bytes;
+  FoldArgs fold;                // the summary accumulator (kFold only)
 };
 
-// ---- mbarriers and the bulk copy ----------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred P1;\n"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
-      "@P1 bra.uni DONE;\n\t"
-      "bra.uni WAIT;\n"
-      "DONE:\n\t}" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// whether the barrier's phase of this parity has completed, without
-// waiting
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred P1;\n\t"
-      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, P1;\n\t}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0u;
-}
-
+// ---- the bulk copy ---------------------------------------------------
 // one thread: copy `bytes` (a multiple of 16) from global to shared memory,
 // completing on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -450,9 +425,13 @@ __device__ void produce_draws(const Args& a, Ring* ring, int c) {
 
 // kWide: one chain a block with its draws warp (C up to the SM count),
 // patch rows of at most kWidePp slots in registers; else up to
-// kMaxChainsPerBlock chains a block, 64 registers a thread.
-template <bool kStaged, bool kWide>
-__global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
+// kMaxChainsPerBlock chains a block, 64 registers a thread. kFold: the
+// summary fold of the records (summary_fold.cuh), on a third warp of the
+// block in the wide form, on the chain's own warp every 32 steps in the
+// narrow one; without it, the history-mode kernel.
+template <bool kStaged, bool kWide, bool kFold>
+__global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
+                                        : 32 * kMaxChainsPerBlock,
                                   kWide ? 1 : 4)
     general_dense_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -471,6 +450,8 @@ __global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
   }
   Ring* ring = reinterpret_cast<Ring*>(smem + off);
   if constexpr (kWide) off += (sizeof(Ring) + 15) & ~size_t(15);
+  FoldRing<1>* fring = reinterpret_cast<FoldRing<1>*>(smem + off);
+  if constexpr (kWide && kFold) off += kFoldRingBytes;
   if (threadIdx.x == 0) {
     if constexpr (kStaged) mbar_init(tbar, 1);
     if constexpr (kWide)
@@ -478,6 +459,7 @@ __global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
         mbar_init(&ring->full[s], 32);
         mbar_init(&ring->empty[s], 32);
       }
+    if constexpr (kWide && kFold) fold_ring_init(fring, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -488,6 +470,12 @@ __global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
   if (kWide && warp == 1) {  // no block barrier below
     produce_draws(a, ring, blockIdx.x);
     return;
+  }
+  if constexpr (kWide && kFold) {
+    if (warp == 2) {  // the chain's records, one batch behind it
+      fold_warp(a.fold, fring, T, blockIdx.x, 1);
+      return;
+    }
   }
   const int c = blockIdx.x * a.cpb + warp;
   if (c >= C) return;  // no block barrier below
@@ -508,6 +496,19 @@ __global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
   uint32_t* R = Y + nw;
   int* G = reinterpret_cast<int*>(R + nw);  // G[d * ng + j], district d
   uint32_t* M = reinterpret_cast<uint32_t*>(G + 2 * ng);  // wide: (N,)
+  // the fold's packet of step 32 q + lane, kept in that lane's registers
+  // until its batch ends (no shared store in the step), then stored at
+  // fpk[lane]; in the narrow form fpk and the chain's FoldState lie from a
+  // 16-byte boundary after G
+  float4 pk_mine = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* fpk = nullptr;
+  FoldState* fst = nullptr;
+  if constexpr (kFold && !kWide) {
+    fpk = reinterpret_cast<float4*>(
+        reinterpret_cast<unsigned char*>(A) +
+        ((4 * (size_t(kPlanes) * nw + 2 * ng) + 15) & ~size_t(15)));
+    fst = reinterpret_cast<FoldState*>(fpk + 32);
+  }
   const size_t bn = (size_t)c * n, be = (size_t)c * E;
 
   // ---- the chain in: planes, and the fields updated in place ----------
@@ -645,6 +646,7 @@ __global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
   uint32_t w_word = 0u;
   const uint32_t lt = (1u << lane) - 1u;  // the lanes below this one
   Draws draws{0u, 0u, 0u, 0.f, 0.f};  // lane i: step 32 * q + i's draws
+  if constexpr (kFold && !kWide) fold_state_start(a.fold, fst, c);
 
   // a parity run at x (district b) over yields ..e, k of them, closes
   auto close_run = [&](int x, uint32_t b, int t_end) {
@@ -942,13 +944,43 @@ __global__ void __launch_bounds__(kWide ? 64 : 32 * kMaxChainsPerBlock,
     exh_cnt += !valid;
 
     // ---- 4. the record ---------------------------------------------------
-    const size_t row = (size_t)t * C + c;
-    if (lane == 0) a.h_cut[row] = cut_count;
-    if (lane == 1) a.h_b[row] = b_count;
-    if (lane == 2) a.h_wait[row] = cur_wait;
-    if (lane == 3) a.h_acc[row] = acc_cnt;
-    if (lane == 4 && a.lazy) a.h_weight[row] = 1.0f + cur_wait;
+    if (!kFold || a.fold.keep_rows) {  // rows only the fold reads: a history
+      const size_t row = (size_t)t * C + c;
+      if (lane == 0) a.h_cut[row] = cut_count;
+      if (lane == 1) a.h_b[row] = b_count;
+      if (lane == 2) a.h_wait[row] = cur_wait;
+      if (lane == 3) a.h_acc[row] = acc_cnt;
+      if (lane == 4 && a.lazy) a.h_weight[row] = 1.0f + cur_wait;
+    }
     waits_sum += cur_wait;
+    if constexpr (kFold) {
+      // the fold's packet: the record's rows as floats, as fold_block
+      // converts them (selects, not a switch: no branch in the step; row
+      // 4, the weight, exists under lazy_uniform)
+      auto rowf = [&](int r) -> float {
+        const float fi = __int2float_rn(
+            r == 0 ? cut_count : r == 1 ? b_count : acc_cnt);
+        return r == 2 ? cur_wait : r == 4 ? __fadd_rn(1.0f, cur_wait) : fi;
+      };
+      const FoldArgs& f = a.fold;
+      const float4 p = make_float4(rowf(f.obs), cur_wait,
+                                   f.src0 >= 0 ? rowf(f.src0) : 0.f,
+                                   f.src1 >= 0 ? rowf(f.src1) : 0.f);
+      if (lane == slot) pk_mine = p;
+      if (slot == 31 || t == T - 1) {  // the batch's records to the fold
+        if constexpr (kWide) fpk = fold_ring_acquire(fring, t >> 5);
+        if (lane <= slot) fpk[lane] = pk_mine;
+        if constexpr (kWide)
+          fold_ring_publish(fring, t >> 5);
+        else
+          fold_inline_batch(f, fst, fpk, slot + 1, c);
+      }
+    }
+  }
+  if constexpr (kFold) {
+    if constexpr (!kWide) fold_state_finish(a.fold, fst, c);
+    // the last record follows the last transition: its accepts are these
+    if (lane == 0) a.fold.accepts[c] = acc_cnt;
   }
 
   // ---- chunk end: the last parity run, then each run node's first-run and
@@ -1027,24 +1059,29 @@ int sm_count() {
   return sms;
 }
 
-Shape launch_shape(int n, int d, int p, int n_chains) {
+// A fold launch (kFold) adds a fold warp and its ring to the wide form,
+// a chain's fold area to the narrow one.
+Shape launch_shape(int n, int d, int p, int n_chains, bool fold = false) {
   Shape s;
   const int nw = (n + 31) >> 5, ng = (nw + 31) >> 5;
   s.chain_bytes = ((4 * (kPlanes * nw + 2 * ng)) + 15) & ~15;
   const int sms = sm_count();
   const size_t wide_chain = ((size_t(s.chain_bytes) + 4 * size_t(n)) + 15) &
                             ~size_t(15);
+  const size_t fring = fold ? kFoldRingBytes : 0;
   const bool wide = n_chains <= sms && table_layout(n, d, p).pp <= kWidePp &&
-                    16 + ((sizeof(Ring) + 15) & ~size_t(15)) + wide_chain <=
+                    16 + ((sizeof(Ring) + 15) & ~size_t(15)) + fring +
+                            wide_chain <=
                         kSmemLimit;
   s.wide = wide;
   if (wide) s.chain_bytes = int(wide_chain);
+  else if (fold) s.chain_bytes += int(kFoldChainBytes);
   s.cpb = wide ? 1 : std::min(kMaxChainsPerBlock, (n_chains + sms - 1) / sms);
-  const size_t ring = wide ? (sizeof(Ring) + 15) & ~size_t(15) : 0;
+  const size_t ring = wide ? ((sizeof(Ring) + 15) & ~size_t(15)) + fring : 0;
   // as many chains as fit (a 65536-node chain takes 33 KB)
   s.cpb = std::max(1, std::min<int>(s.cpb, (kSmemLimit - 16 - ring) /
                                                size_t(s.chain_bytes)));
-  s.threads = 32 * (wide ? 2 : s.cpb);
+  s.threads = 32 * (wide ? (fold ? 3 : 2) : s.cpb);
   s.blocks = (n_chains + s.cpb - 1) / s.cpb;
   const size_t base = 16 + ring + size_t(s.cpb) * s.chain_bytes;
   const size_t tables = table_layout(n, d, p).bytes;
@@ -1053,9 +1090,9 @@ Shape launch_shape(int n, int d, int p, int n_chains) {
   return s;
 }
 
-template <bool kStaged, bool kWide>
+template <bool kStaged, bool kWide, bool kFold>
 int launch(const Args& a, const Shape& s, cudaStream_t stream) {
-  auto kern = general_dense_kernel<kStaged, kWide>;
+  auto kern = general_dense_kernel<kStaged, kWide, kFold>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(s.smem));
   if (err != cudaSuccess) return int(err);
@@ -1063,9 +1100,9 @@ int launch(const Args& a, const Shape& s, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <bool kStaged, bool kWide>
+template <bool kStaged, bool kWide, bool kFold>
 int occupancy(const Shape& s) {
-  auto kern = general_dense_kernel<kStaged, kWide>;
+  auto kern = general_dense_kernel<kStaged, kWide, kFold>;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            int(s.smem)) != cudaSuccess)
     return -1;
@@ -1087,32 +1124,60 @@ bool shape_ok(int n_chains, int n, int e, int d, int p, int t_inner,
          d <= 32 && p >= 1 && p <= 32 && t_inner >= 1 && s.smem <= kSmemLimit;
 }
 
+template <bool kFold>
+int run(Args& a, cudaStream_t st) {
+  const Shape s = launch_shape(a.n, a.d, a.p, a.n_chains, kFold);
+  if (!shape_ok(a.n_chains, a.n, a.e, a.d, a.p, a.t_inner, s) ||
+      !aligned16(a.tables) || !aligned16(a.cut_in) ||
+      !aligned16(a.part_sum_in) || !aligned16(a.last_flipped_in) ||
+      !aligned16(a.num_flips_in) || !aligned16(a.cut_times_in) ||
+      !aligned16(a.part_sum_out) || !aligned16(a.last_flipped_out) ||
+      !aligned16(a.num_flips_out) || !aligned16(a.cut_times_out))
+    return int(cudaErrorInvalidValue);
+  a.cpb = s.cpb;
+  a.chain_bytes = s.chain_bytes;
+  if (s.staged)
+    return s.wide ? launch<true, true, kFold>(a, s, st)
+                  : launch<true, false, kFold>(a, s, st);
+  return s.wide ? launch<false, true, kFold>(a, s, st)
+                : launch<false, false, kFold>(a, s, st);
+}
+
+template <bool kFold>
+int shape_occupancy(const Shape& s) {
+  return s.staged ? (s.wide ? occupancy<true, true, kFold>(s)
+                            : occupancy<true, false, kFold>(s))
+                  : (s.wide ? occupancy<false, true, kFold>(s)
+                            : occupancy<false, false, kFold>(s));
+}
+
 }  // namespace
 
 extern "C" {
 
-// The launch shape of a chunk: out[0] 1 if the tables are staged in shared
-// memory (0: read through L1), out[1] the shared memory of a block in
-// bytes, out[2] chains a block, out[3] 1 with a producer warp a chain,
-// out[4] resident blocks an SM (cudaOccupancy...), out[5] threads a block.
+// The launch shape of a chunk (fold != 0: of its fold instantiation):
+// out[0] 1 if the tables are staged in shared memory (0: read through
+// L1), out[1] the shared memory of a block in bytes, out[2] chains a
+// block, out[3] 1 in the wide form (a producer warp a chain), out[4]
+// resident blocks an SM (cudaOccupancy...), out[5] threads a block.
 // Returns a cudaError_t.
 int fce_general_dense_shape(int n_chains, int n, int e, int d, int p,
-                            int* out) {
-  const Shape s = launch_shape(n, d, p, n_chains);
+                            int fold, int* out) {
+  const Shape s = launch_shape(n, d, p, n_chains, fold != 0);
   if (!shape_ok(n_chains, n, e, d, p, 1, s)) return int(cudaErrorInvalidValue);
   out[0] = s.staged;
   out[1] = int(s.smem);
   out[2] = s.cpb;
   out[3] = s.wide;
-  out[4] = s.staged ? (s.wide ? occupancy<true, true>(s)
-                              : occupancy<true, false>(s))
-                    : (s.wide ? occupancy<false, true>(s)
-                              : occupancy<false, false>(s));
+  out[4] = fold ? shape_occupancy<true>(s) : shape_occupancy<false>(s);
   out[5] = s.threads;
   return out[4] < 0 ? int(cudaErrorInvalidValue) : 0;
 }
 
-// One chunk for every chain; returns a cudaError_t (0 on success).
+// One chunk for every chain; returns a cudaError_t (0 on success). With
+// fold_ptrs (not null) the chunk also folds its records into the summary
+// accumulator (summary_fold.cuh's fold_args: 14 pointers, 6 ints), and
+// the rows that keep_rows leaves unwritten may be null.
 int fce_general_dense_chunk(
     const uint8_t* tables, const int32_t* edges, const int32_t* pop,
     const int32_t* key_in, const int8_t* assign_in, const int8_t* cut_in,
@@ -1128,15 +1193,7 @@ int fce_general_dense_chunk(
     int32_t* h_acc, float* h_weight, int n_chains, int n, int e, int d,
     int p, int t_inner, int patch, int geom_waits, int nobacktrack, int lazy,
     int parity, int fill_conn, int unit_pop, int label0, int label1,
-    void* stream) {
-  const Shape s = launch_shape(n, d, p, n_chains);
-  if (!shape_ok(n_chains, n, e, d, p, t_inner, s) ||
-      !aligned16(tables) || !aligned16(cut_in) || !aligned16(part_sum_in) ||
-      !aligned16(last_flipped_in) || !aligned16(num_flips_in) ||
-      !aligned16(cut_times_in) || !aligned16(part_sum_out) ||
-      !aligned16(last_flipped_out) || !aligned16(num_flips_out) ||
-      !aligned16(cut_times_out))
-    return int(cudaErrorInvalidValue);
+    void* const* fold_ptrs, const int* fold_ints, void* stream) {
   Args a;
   a.tables = tables; a.edges = edges; a.pop = pop;
   a.key_in = key_in; a.assign_in = assign_in; a.cut_in = cut_in;
@@ -1156,13 +1213,14 @@ int fce_general_dense_chunk(
   a.nobacktrack = nobacktrack; a.lazy = lazy; a.parity = parity;
   a.fill_conn = fill_conn;
   a.unit_pop = unit_pop; a.label0 = label0; a.label1 = label1;
-  a.cpb = s.cpb; a.chain_bytes = s.chain_bytes;
+  a.cpb = 0; a.chain_bytes = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s.staged)
-    return s.wide ? launch<true, true>(a, s, st)
-                  : launch<true, false>(a, s, st);
-  return s.wide ? launch<false, true>(a, s, st)
-                : launch<false, false>(a, s, st);
+  if (fold_ptrs == nullptr) {
+    a.fold = FoldArgs{};
+    return run<false>(a, st);
+  }
+  a.fold = fold_args(fold_ptrs, fold_ints);
+  return run<true>(a, st);
 }
 
 }  // extern "C"

@@ -94,6 +94,26 @@
 //     same device functions torch's CUDA ops call, so the plain version on
 //     the card agrees bit for bit.
 //
+// Summary mode. The fold instantiation (kFold; fce_lowered_chunk with
+// the fold's arrays) also folds each step's record into the run's summary
+// accumulator, as the JAX package's scan bodies call fold_out on every
+// yield (summary_fold.cuh): step t's record leaves a packet (the
+// observable, the wait, the series sources) in lane t mod 32's registers,
+// and every 32 steps the lanes store the batch to shared memory for the
+// fold (a shared store in every step held back the step's other shared
+// accesses). A ninth warp a block folds the batches, one lane a chain,
+// through a ring of two on mbarriers, so the fold's serial steps (two
+// IEEE divisions each) run beside the chains' next steps. While the
+// blocks fit the SMs (C up to 8 a block times the SM count) a step's
+// latency is the wall and the launch bounds let the chains take every
+// register they want (with 56 a thread the C=8 chunk ran 1.00 ms against
+// 0.73 on an H100); past that they keep the history kernel's blocks an
+// SM, 56 registers a thread at one and two words a lane, and the fold
+// warp still beat folding on each chain's warp (fold_turns.py). Without
+// a history the rows only the fold reads are not written (the flip-log
+// pair is). kFold = false is the history-mode kernel, untouched by any of
+// it.
+//
 // What bounds it on an H100: instruction issue, not memory. Device memory
 // carries the board in and out, the four cut planes out and the (T, C)
 // rows. At C = 4096 an SM holds ~31 warps, one chain each, ~8 a scheduler,
@@ -118,6 +138,7 @@
 #include <cuda_runtime.h>
 
 #include "chain_common.cuh"
+#include "summary_fold.cuh"
 
 namespace {
 
@@ -130,6 +151,8 @@ constexpr uint32_t kIfaceBig = 1u << 30;
 // a class row's stride in shared memory: 33 words, so that word q of
 // different classes' rows lies in different banks
 constexpr int kRowStride = 33;
+// the fold warp's ring (summary_fold.cuh), one lane a chain of the block
+using BlockRing = FoldRing<kChainsPerBlock>;
 
 // the board word holding cells 32 * k + o .. 32 * k + o + 31, for o > 0
 // and o < 0 (guards zero)
@@ -179,6 +202,7 @@ struct Args {
   int label0, label1, unit_pop;
   int qx_off, qy_off, bx, by;
   float cx, cy;
+  FoldArgs fold;               // the summary accumulator (kFold only)
 };
 
 // Shared memory, in 32-bit words, sized at launch (NW = the board's words):
@@ -187,18 +211,23 @@ struct Args {
 //     (f32, N + 1), the cells' patch classes (uint16, N), the wall-word
 //     list (uint16, NW) and its length;
 //   per chain: board guard + NW + guard (guards zero: a window cell is at
-//     most 2w + 2 cells away), then the planes flipped, bnd and ok, NW each.
+//     most 2w + 2 cells away), then the planes flipped, bnd and ok, NW each;
+//   under kFold, from a 16-byte boundary after the chains: the block's
+//     fold ring.
 struct Layout {
-  int nw, guard, board, stat, chain;
-  __host__ __device__ Layout(int n, int w, int n_classes) {
+  int nw, guard, board, stat, chain, fold, fold_words;
+  __host__ __device__ Layout(int n, int w, int n_classes, bool with_fold) {
     nw = (n + 31) >> 5;
     guard = ((2 * w + 2) >> 5) + 2;
     board = nw + 2 * guard;
     stat = 16 + 13 * nw + kRowStride * n_classes + (n + 1) + (n + 1) / 2 +
            (nw + 1) / 2 + 1;
     chain = board + 3 * nw;
+    fold = (stat + kChainsPerBlock * chain + 3) & ~3;
+    fold_words = with_fold ? int((sizeof(BlockRing) + 15) / 16 * 4) : 0;
   }
   size_t bytes() const {
+    if (fold_words) return 4 * (size_t(fold) + size_t(fold_words));
     return 4 * (size_t(stat) + size_t(kChainsPerBlock) * chain);
   }
 };
@@ -339,12 +368,16 @@ __device__ __forceinline__ uint32_t boundary_word(const uint32_t* B,
   return bmask;
 }
 
-template <int WPL>
-__global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
+// kFold adds a ninth warp that folds the block's records as the chain
+// warps hand them over; without it, the history-mode kernel. MB, the
+// blocks an SM the launch bounds ask for: WPL <= 2 ? 4 : 2, or 1 for a
+// fold launch whose blocks fit the SMs.
+template <int WPL, bool kFold, int MB>
+__global__ void __launch_bounds__(kFold ? kThreads + 32 : kThreads, MB)
     lowered_chunk_kernel(const Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int w = a.w, n = a.h * a.w, C = a.n_chains, T = a.t_inner;
-  const Layout L(n, w, a.n_classes);
+  const Layout L(n, w, a.n_classes, kFold);
   const int nw = L.nw;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int32_t** row_out = reinterpret_cast<int32_t**>(smem);  // the 8 rows
@@ -396,9 +429,23 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
     }
     if (lane == 0) *n_wall_words = cnt;
   }
+  BlockRing* const ring = reinterpret_cast<BlockRing*>(smem + L.fold);
+  const int c0 = blockIdx.x * kChainsPerBlock;
+  if constexpr (kFold) {
+    if (threadIdx.x == 0) {
+      fold_ring_init(ring, min(kChainsPerBlock, C - c0));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
   __syncthreads();  // the only block barrier
+  if constexpr (kFold) {
+    if (warp == kChainsPerBlock) {
+      fold_warp(a.fold, ring, T, c0, min(kChainsPerBlock, C - c0));
+      return;
+    }
+  }
 
-  const int c = blockIdx.x * kChainsPerBlock + warp;
+  const int c = c0 + warp;
   if (c >= C) return;
   uint32_t* board_all = smem + L.stat + warp * L.chain;
   uint32_t* B = board_all + L.guard;  // B[-guard .. nw + guard) readable
@@ -467,6 +514,10 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
   const float unitf = static_cast<float>(a.unit_pop);
   const float lo = ceilf(pop_lo), hi = floorf(pop_hi);
   Draws draws{0u, 0u, 0u, 0.f, 0.f};  // lane i: step 32 * q + i's draws
+  // the fold's packet of step 32 q + lane, kept in that lane's registers
+  // until its batch ends (no shared store in the step), then stored into
+  // the ring in one round
+  float4 pk_mine = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int t = 0; t < T; ++t) {
     // ---- 1. the step's uniforms, drawn 32 steps at a time -------------
@@ -526,7 +577,25 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
       const float wn = floorf(log_wait / log1p_b[b_count]);
       cur_wait = fmaxf(wn, 0.f);
     }
-    if (lane < 8) {
+    if constexpr (kFold) {
+      // the fold's packet: the record's rows as floats, as fold_block
+      // converts them (selects, not a switch: no branch in the step)
+      auto rowf = [&](int r) -> float {
+        const float fi = __int2float_rn(
+            r == 0 ? cut_count : r == 1 ? b_count : r == 3 ? acc_cnt
+            : r == 4 ? cur_flip : cur_sign);
+        return r == 2 ? cur_wait : r == 6 ? slope : r == 7 ? angle : fi;
+      };
+      const FoldArgs& f = a.fold;
+      const float4 p = make_float4(rowf(f.obs), cur_wait,
+                                   f.src0 >= 0 ? rowf(f.src0) : 0.f,
+                                   f.src1 >= 0 ? rowf(f.src1) : 0.f);
+      if (lane == slot) pk_mine = p;
+      if (t == T - 1 && lane == 0) f.accepts[c] = acc_cnt;
+    }
+    // without a history only the flip-log pair (rows 4, 5) is written
+    if (lane < 8 &&
+        (!kFold || a.fold.keep_rows || lane == 4 || lane == 5)) {
       const int v = lane == 0   ? cut_count
                     : lane == 1 ? b_count
                     : lane == 2 ? __float_as_int(cur_wait)
@@ -637,6 +706,13 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
     acc_cnt += accept;
     exh_cnt += !any_valid;
     __syncwarp();
+    if constexpr (kFold) {
+      if (slot == 31 || t == T - 1) {  // the batch's records to the fold
+        float4* fpk = fold_ring_acquire(ring, t >> 5) + warp;
+        if (lane <= slot) fpk[lane * kChainsPerBlock] = pk_mine;
+        fold_ring_publish(ring, t >> 5);
+      }
+    }
   }
 
   // ---- chunk end: board out (holes -1), cut planes closed at T ----------
@@ -676,27 +752,46 @@ __global__ void __launch_bounds__(kThreads, WPL <= 2 ? 4 : 2)
   }
 }
 
-template <int WPL>
+template <int WPL, bool kFold, int MB>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = Layout(a.h * a.w, a.w, a.n_classes).bytes();
+  auto kern = lowered_chunk_kernel<WPL, kFold, MB>;
+  const size_t smem = Layout(a.h * a.w, a.w, a.n_classes, kFold).bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      lowered_chunk_kernel<WPL>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
       int(cudaSharedmemCarveoutMaxShared));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(lowered_chunk_kernel<WPL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const int blocks = (a.n_chains + kChainsPerBlock - 1) / kChainsPerBlock;
-  lowered_chunk_kernel<WPL><<<blocks, kThreads, smem, stream>>>(a);
+  kern<<<blocks, kFold ? kThreads + 32 : kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
+}
+
+// kAllRegs: one block an SM in the launch bounds (MB = 1)
+template <bool kFold, bool kAllRegs>
+int launch_words(const Args& a, cudaStream_t s) {
+  const int nw = (a.h * a.w + 31) >> 5;
+  if (nw <= 32) return launch<1, kFold, kAllRegs ? 1 : 4>(a, s);
+  if (nw <= 64) return launch<2, kFold, kAllRegs ? 1 : 4>(a, s);
+  return launch<4, kFold, kAllRegs ? 1 : 2>(a, s);
+}
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 }  // namespace
 
 extern "C" {
 
+// One chunk for every chain; returns a cudaError_t. With fold_ptrs (not
+// null) the chunk also folds its records into the summary accumulator
+// (summary_fold.cuh's fold_args: 14 pointers, 6 ints), and the rows that
+// keep_rows leaves unwritten may be null.
 int fce_lowered_chunk(
     const int8_t* board_in, const int32_t* key_in, const int32_t* dist_pop_in,
     const float* scal_in, const int32_t* ints_in, const uint32_t* adj_words,
@@ -710,7 +805,7 @@ int fce_lowered_chunk(
     int n_real, int n_classes, int t_inner, int patch, int geom_waits,
     int accept_always, int iface, int label0, int label1, int unit_pop,
     int qx_off, int qy_off, int bx, int by, float cx, float cy,
-    void* stream) {
+    void* const* fold_ptrs, const int* fold_ints, void* stream) {
   Args a;
   a.board_in = board_in; a.key_in = key_in; a.dist_pop_in = dist_pop_in;
   a.scal_in = scal_in; a.ints_in = ints_in; a.adj_words = adj_words;
@@ -727,14 +822,17 @@ int fce_lowered_chunk(
   a.iface = iface; a.label0 = label0; a.label1 = label1;
   a.unit_pop = unit_pop; a.qx_off = qx_off; a.qy_off = qy_off; a.bx = bx;
   a.by = by; a.cx = cx; a.cy = cy;
+  const bool fold = fold_ptrs != nullptr;
+  a.fold = fold ? fold_args(fold_ptrs, fold_ints) : FoldArgs{};
   const int nw = (h * w + 31) >> 5;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chains < 1 || h < 3 || w < 3 || t_inner < 1 || nw > 128 ||
-      n_classes < 1 || Layout(h * w, w, n_classes).bytes() > 227 * 1024)
+      n_classes < 1 || Layout(h * w, w, n_classes, fold).bytes() > 227 * 1024)
     return int(cudaErrorInvalidValue);
-  if (nw <= 32) return launch<1>(a, s);
-  if (nw <= 64) return launch<2>(a, s);
-  return launch<4>(a, s);
+  if (!fold) return launch_words<false, false>(a, s);
+  const int blocks = (n_chains + kChainsPerBlock - 1) / kChainsPerBlock;
+  return blocks <= sm_count() ? launch_words<true, true>(a, s)
+                              : launch_words<true, false>(a, s);
 }
 
 }  // extern "C"

@@ -36,6 +36,15 @@ runs the plain version in the kernel's place on the card.
         [cur_wait, waits_sum]; cut and cut_deg recounted from the
         assignment), and the (T, C) rows cut_count, b_count, wait, accepts
         and, under ``lazy_uniform``, weight.
+
+With ``acc=`` (a ``stats.accumulators.SummaryAcc``) the chunk also folds
+its records into the run's summary accumulator: on the card inside the
+same launch (in the wide form a fold warp beside the chain and its
+draws warp, in the narrow one a batch fold on each chain's warp every 32
+steps; ``csrc/summary_fold.cuh``), on the CPU by the plain chunk and then
+``cuda_summary.fold_chunk_rows``. With
+``keep_rows=False`` (summary mode, no history) the kernel writes none of
+the rows.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ import dataclasses
 import torch
 
 from .. import rng
-from . import dense
+from . import cuda_summary, dense
 from . import step as kstep
 from .step import Spec, StepParams, geom_denom_finite
 
@@ -54,6 +63,13 @@ from .step import Spec, StepParams, geom_denom_finite
 MAX_NODES = 1 << 16
 
 ROW_NAMES = ("cut_count", "b_count", "wait", "accepts", "weight")
+
+
+def fold_row_index(spec: Spec) -> dict:
+    """{name: lane} of the record rows a chunk's fold may read (the
+    weight under ``lazy_uniform``)."""
+    return {k: i for i, k in enumerate(ROW_NAMES)
+            if k != "weight" or spec.lazy_uniform}
 
 
 @dataclasses.dataclass
@@ -195,27 +211,29 @@ def general_dense_chunk_reference(dg, spec: Spec, params: StepParams, state,
 
 def _entry(lib):
     """``lib``'s ``fce_general_dense_chunk`` with its C signature: 32
-    pointers, 15 ints and the stream."""
+    pointers, 15 ints, the fold's two host arrays (null in history mode),
+    the stream."""
     fn = lib.fce_general_dense_chunk
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 32 + [ctypes.c_int] * 15
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch_shape(dg, n_chains: int) -> dict:
-    """How the kernel runs ``n_chains`` chains of ``dg`` on this card:
-    ``staged`` (the tables in shared memory; False: read through L1),
-    ``smem_bytes`` a block, ``chains_per_block``, ``producer`` (a draws
-    warp a chain), ``blocks_per_sm`` resident, ``threads`` a block."""
+def launch_shape(dg, n_chains: int, fold: bool = False) -> dict:
+    """How the kernel runs ``n_chains`` chains of ``dg`` on this card (with
+    ``fold``, its summary-fold instantiation): ``staged`` (the tables in
+    shared memory; False: read through L1), ``smem_bytes`` a block,
+    ``chains_per_block``, ``producer`` (a draws warp a chain),
+    ``blocks_per_sm`` resident, ``threads`` a block."""
     from . import _build
     fn = _build.load("general_dense_chunk").fce_general_dense_shape
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
     err = fn(n_chains, dg.n_nodes, dg.n_edges, dg.max_deg, dg.max_patch,
-             ctypes.addressof(out))
+             int(fold), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"general_dense_chunk shape query failed: CUDA "
                            f"error {err}")
@@ -232,7 +250,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
-            state, t_inner: int):
+            state, t_inner: int, acc=None, keep_rows: bool = True):
     c, n = state.assignment.shape
     e = dg.n_edges
     dev = state.assignment.device
@@ -268,28 +286,31 @@ def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
         scal=empty((2, c), f32), ints=empty((8, c), i32),
         part_sum=empty((c, n), i32), last_flipped=empty((c, n), i32),
         num_flips=empty((c, n), i32), cut_times=empty((c, e), i32))
-    rows = dict(cut_count=empty((t_inner, c), i32),
-                b_count=empty((t_inner, c), i32),
-                wait=empty((t_inner, c), f32),
-                accepts=empty((t_inner, c), i32))
-    rows["weight"] = (empty((t_inner, c), f32) if spec.lazy_uniform
-                      else None)
+    rows = {k: empty((t_inner, c), f32 if k in ("wait", "weight") else i32)
+            for k in fold_row_index(spec)} if keep_rows else {}
     ptrs = [static.tables, static.edges, static.pop, key, *ins,
-            *outs.values(), *(rows[k] for k in ROW_NAMES[:4])]
-    ptrs = [x.data_ptr() for x in ptrs]
-    ptrs.append(rows["weight"].data_ptr() if spec.lazy_uniform else None)
+            *outs.values(), *(rows.get(k) for k in ROW_NAMES)]
+    ptrs = [None if x is None else x.data_ptr() for x in ptrs]
     labels = [int(x) for x in params.label_values.cpu()]
-    with torch.cuda.device(dev):
-        err = _entry(lib)(
-            *ptrs, c, n, e, dg.max_deg, dg.max_patch, t_inner,
-            int(spec.contiguity == "patch"), int(spec.geom_waits),
-            int(spec.nobacktrack), int(spec.lazy_uniform),
-            int(spec.parity_metrics), int(fill), static.unit_pop, labels[0],
-            labels[1],
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"general_dense_chunk launch failed: CUDA error "
-                           f"{err}")
+
+    def launch(fold_ptrs=None, fold_ints=None):
+        with torch.cuda.device(dev):
+            err = _entry(lib)(
+                *ptrs, c, n, e, dg.max_deg, dg.max_patch, t_inner,
+                int(spec.contiguity == "patch"), int(spec.geom_waits),
+                int(spec.nobacktrack), int(spec.lazy_uniform),
+                int(spec.parity_metrics), int(fill), static.unit_pop,
+                labels[0], labels[1], fold_ptrs, fold_ints,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"general_dense_chunk launch failed: CUDA "
+                               f"error {err}")
+
+    if acc is None:
+        launch()
+    else:
+        acc = cuda_summary.fused_fold(acc, fold_row_index(spec), c, launch,
+                                      keep_rows)
     ints_o, scal_o = outs["ints"], outs["scal"]
     new = state.replace(
         key=outs["key"].T.to(torch.int64) & rng.MASK32,
@@ -302,28 +323,42 @@ def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
         waits_sum=scal_o[1], accept_count=ints_o[5], tries_sum=ints_o[6],
         exhausted_count=ints_o[7],
         conn_bits=outs["conn"].to(torch.int64) & rng.MASK32)
-    return new, {k: v for k, v in rows.items() if v is not None}
+    return new, rows, acc
 
 
 def run_general_dense_chunk_cuda(dg, static: DenseStatic, spec: Spec,
-                                 params: StepParams, state, t_inner: int):
+                                 params: StepParams, state, t_inner: int,
+                                 acc=None, keep_rows: bool = True):
     """One chunk for every chain: (state, rows {name: (T, C)}), the state
     carrying its conn planes (filled first where it came without). CUDA
     tensors launch the kernel; CPU tensors run the plain version.
-    ``run_general_dense_chunk_cuda.launches`` counts kernel launches."""
+    ``run_general_dense_chunk_cuda.launches`` counts kernel launches.
+    With ``acc`` the chunk folds its records into it and returns (state,
+    rows, the updated accumulator), on the card in the same launch
+    (``cuda_summary.fused_fold.launches`` counts those);
+    ``keep_rows=False``, for a run that keeps no history, writes no row
+    (rows is empty)."""
     check(dg, spec, params)
     if t_inner < 1:
         raise ValueError(f"t_inner {t_inner} < 1")
+    if acc is None and not keep_rows:
+        raise ValueError("keep_rows=False drops the rows that only the "
+                         "fold reads: pass an accumulator")
     dev = state.assignment.device
     if dev.type == "cuda":
         from . import _build
-        out = _launch(_build.load("general_dense_chunk"), dg, static, spec,
-                      params, state, t_inner)
+        new, rows, acc_out = _launch(
+            _build.load("general_dense_chunk"), dg, static, spec, params,
+            state, t_inner, acc, keep_rows)
         run_general_dense_chunk_cuda.launches += 1
-        return out
+        return (new, rows) if acc is None else (new, rows, acc_out)
     if dev.type == "cpu":
-        return general_dense_chunk_reference(dg, spec, params, state,
-                                             t_inner)
+        new, rows = general_dense_chunk_reference(dg, spec, params, state,
+                                                  t_inner)
+        if acc is None:
+            return new, rows
+        acc = cuda_summary.fold_chunk_rows(acc, rows, fold_row_index(spec))
+        return new, (rows if keep_rows else {}), acc
     raise ValueError(f"no general-dense chunk path for device {dev}")
 
 

@@ -27,6 +27,14 @@ so they agree with the JAX package draw for draw.
              the forward planes E, SE, S, SW (SE and SW stay zero on a
              rook grid, whose state keeps no diagonal planes).
 
+With ``acc=`` (a ``stats.accumulators.SummaryAcc``) the chunk also folds
+its records into the run's summary accumulator, as the JAX package's
+scan bodies call ``fold_out`` on every yield: on the card inside the same
+launch (a fold warp of each block, ``csrc/summary_fold.cuh``), on the CPU by
+the plain chunk and then ``cuda_summary.fold_chunk_rows``. With
+``keep_rows=False`` (summary mode, no history) the kernel writes only the
+flip-log pair of the rows, and the row outputs are None.
+
 ``run_chunk`` is the chunk at the level of BoardState (the JAX package's
 ``run_board_chunk`` contract on this body); ``body_for`` names the JAX
 package's body that a run equals. ``window_patch_ok`` and
@@ -45,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from . import cuda_summary
 from .board import (CUT_KEYS, IFACE_BIG, BoardGraph, BoardState,
                     apply_flip_log, interface_stencil, is_lowered,
                     planes_stencil, ring_offsets)
@@ -56,6 +65,29 @@ MAX_CELLS = 4096
 OUT_NAMES = ("board", "key", "dist_pop", "scal", "ints", "log_f", "log_s",
              "hist_cut", "hist_b", "hist_wait", "hist_acc", "hist_slope",
              "hist_angle", "cut_planes")
+
+# the record's rows in the kernel's lane order (lane r writes row r)
+RECORD_ROWS = ("cut_count", "b_count", "wait", "accepts", "log_f", "log_s",
+               "slope", "angle")
+# the outputs a fused launch without a history leaves unwritten (None)
+FOLD_ONLY_OUTS = tuple(range(7, 13))
+
+
+def fold_row_index(spec: Spec) -> dict:
+    """{name: lane} of the record rows a chunk's fold may read: the rows
+    ``run_chunk`` returns (slope and angle under ``record_interface``)."""
+    names = ("cut_count", "b_count", "wait", "accepts")
+    if spec.record_interface:
+        names += ("slope", "angle")
+    return {k: RECORD_ROWS.index(k) for k in names}
+
+
+def chunk_rows(spec: Spec, outs) -> dict:
+    """The rows ``run_chunk`` returns, {name: (T, C)}, from a chunk's
+    outputs (``fold_row_index``'s names)."""
+    rows = dict(zip(("cut_count", "b_count", "wait", "accepts", "slope",
+                     "angle"), outs[7:13]))
+    return {k: rows[k] for k in fold_row_index(spec)}
 
 
 @dataclasses.dataclass
@@ -448,31 +480,34 @@ def _check_inputs(bg: BoardGraph, static: LoweredStatic, t_inner: int,
 
 def _entry(lib):
     """``lib``'s ``fce_lowered_chunk`` with its C signature declared: 26
-    pointers, 17 ints, two floats and the stream."""
+    pointers, 17 ints, two floats, the fold's two host arrays (null in
+    history mode), the stream."""
     fn = lib.fce_lowered_chunk
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 17
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(lib, bg: BoardGraph, static: LoweredStatic, spec: Spec,
-            t_inner: int, board, key, dist_pop, scal, ints):
+            t_inner: int, board, key, dist_pop, scal, ints, acc=None,
+            keep_rows: bool = True):
     c, n = board.shape
     dev = board.device
     i32, f32 = torch.int32, torch.float32
 
-    def rows(dtype):
-        return torch.empty((t_inner, c), dtype=dtype, device=dev)
+    def rows(dtype, written=True):
+        return (torch.empty((t_inner, c), dtype=dtype, device=dev)
+                if written else None)
 
     outs = (torch.empty((c, n), dtype=torch.int8, device=dev),
             torch.empty((2, c), dtype=i32, device=dev),
             torch.empty((2, c), dtype=i32, device=dev),
             torch.empty((2, c), dtype=f32, device=dev),
             torch.empty((8, c), dtype=i32, device=dev),
-            rows(i32), rows(i32), rows(i32), rows(i32), rows(f32), rows(i32),
-            rows(f32), rows(f32),
+            rows(i32), rows(i32),
+            *(rows(dt, keep_rows) for dt in (i32, i32, f32, i32, f32, f32)),
             torch.empty((4, c, n), dtype=i32, device=dev))
     # last flip step of each cell, read by the kernel only where it wrote
     # it in this launch
@@ -481,36 +516,69 @@ def _launch(lib, bg: BoardGraph, static: LoweredStatic, spec: Spec,
            static.wall_words, static.node_words, static.cell_class,
            static.class_rows, static.iface_key, *outs, scratch]
     qx_off, qy_off, bx, by = bg.iface_decode
-    with torch.cuda.device(dev):
-        err = _entry(lib)(
-            *(x.data_ptr() for x in ins), c, bg.h, bg.w, bg.n_real,
-            static.class_rows.shape[0], t_inner,
+    args = ([None if x is None else x.data_ptr() for x in ins], c, bg.h,
+            bg.w, bg.n_real, static.class_rows.shape[0], t_inner,
             int(spec.contiguity == "patch"), int(spec.geom_waits),
-            int(spec.accept == "always"),
-            int(spec.record_interface), static.labels[0], static.labels[1],
-            static.unit_pop, int(qx_off), int(qy_off), int(bx), int(by),
-            float(bg.center[0]), float(bg.center[1]),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lowered_chunk launch failed: CUDA error {err}")
-    return outs
+            int(spec.accept == "always"), int(spec.record_interface),
+            static.labels[0], static.labels[1], static.unit_pop,
+            int(qx_off), int(qy_off), int(bx), int(by),
+            float(bg.center[0]), float(bg.center[1]))
+
+    def launch(fold_ptrs=None, fold_ints=None):
+        ptrs, *rest = args
+        with torch.cuda.device(dev):
+            err = _entry(lib)(*ptrs, *rest, fold_ptrs, fold_ints,
+                              torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lowered_chunk launch failed: CUDA error "
+                               f"{err}")
+
+    if acc is None:
+        launch()
+        return outs
+    return outs, cuda_summary.fused_fold(acc, fold_row_index(spec), c, launch,
+                                         keep_rows)
+
+
+def _fold_on_host(bg, static, spec, t_inner, args, acc, keep_rows):
+    """The plain version of a fused launch: the plain chunk, then the fold
+    of its rows (``cuda_summary.fold_chunk_rows``)."""
+    outs = lowered_chunk_reference(bg, static, spec, t_inner, *args)
+    acc = cuda_summary.fold_chunk_rows(acc, chunk_rows(spec, outs),
+                                       fold_row_index(spec))
+    if not keep_rows:
+        outs = tuple(None if i in FOLD_ONLY_OUTS else x
+                     for i, x in enumerate(outs))
+    return outs, acc
 
 
 def run_lowered_chunk_cuda(bg: BoardGraph, static: LoweredStatic,
                            spec: Spec, t_inner: int, board, key, dist_pop,
-                           scal, ints):
+                           scal, ints, acc=None, keep_rows: bool = True):
     """One chunk for all chains (module docstring for the layout). A CUDA
     board launches the kernel; a CPU board runs the plain version.
-    ``run_lowered_chunk_cuda.launches`` counts kernel launches."""
+    ``run_lowered_chunk_cuda.launches`` counts kernel launches. With
+    ``acc`` the chunk folds its records into it and returns (outs, the
+    updated accumulator), on the card in the same launch
+    (``cuda_summary.fused_fold.launches`` counts those);
+    ``keep_rows=False``, for a run that keeps no history, leaves the rows
+    only the fold reads unwritten (None)."""
     _check_inputs(bg, static, t_inner, board, key, dist_pop, scal, ints)
+    if acc is None and not keep_rows:
+        raise ValueError("keep_rows=False drops the rows that only the "
+                         "fold reads: pass an accumulator")
     args = (bg, static, spec, t_inner, board, key, dist_pop, scal, ints)
     if board.device.type == "cuda":
         from . import _build
-        outs = _launch(_build.load("lowered_chunk"), *args)
+        out = _launch(_build.load("lowered_chunk"), *args, acc=acc,
+                      keep_rows=keep_rows)
         run_lowered_chunk_cuda.launches += 1
-        return outs
+        return out
     if board.device.type == "cpu":
-        return lowered_chunk_reference(*args)
+        if acc is None:
+            return lowered_chunk_reference(*args)
+        return _fold_on_host(bg, static, spec, t_inner, args[4:], acc,
+                             keep_rows)
     raise ValueError(f"no lowered-chunk path for device {board.device}")
 
 
@@ -519,25 +587,30 @@ run_lowered_chunk_cuda.launches = 0
 
 def run_chunk(bg: BoardGraph, spec: Spec, params: StepParams,
               state: BoardState, t_inner: int,
-              static: LoweredStatic | None = None):
+              static: LoweredStatic | None = None, acc=None,
+              keep_rows: bool = True):
     """``t_inner`` iterations of [split, complete wait, record, transition]
     on the lowered body, with the flip log replayed into part_sum /
     last_flipped / num_flips: the JAX package's ``run_board_chunk`` on
     this body. Returns (state, rows), rows {name: (T, C) tensor} with
     cut_count, b_count, wait, accepts and, under ``record_interface``,
-    slope and angle."""
+    slope and angle. With ``acc`` (a ``SummaryAcc``) the records are also
+    folded into it and the return is (state, rows, acc); with
+    ``keep_rows=False`` besides, rows is empty and the kernel writes none
+    of them (``run_lowered_chunk_cuda``)."""
     if static is None:
         static = make_static_inputs(bg, spec, params)
     t0 = state.t_yield
     key, dist_pop, scal, ints = pack_state(state, params)
     outs = run_lowered_chunk_cuda(bg, static, spec, t_inner, state.board,
-                                  key, dist_pop, scal, ints)
+                                  key, dist_pop, scal, ints, acc=acc,
+                                  keep_rows=keep_rows)
+    if acc is not None:
+        outs, acc = outs
     state = unpack_state(state, outs, t_inner)
     if spec.parity_metrics:
         ps, lf, nf = apply_flip_log(state.part_sum, state.last_flipped,
                                     state.num_flips, outs[5], outs[6], t0)
         state = state.replace(part_sum=ps, last_flipped=lf, num_flips=nf)
-    rows = dict(zip(("cut_count", "b_count", "wait", "accepts"), outs[7:11]))
-    if spec.record_interface:
-        rows["slope"], rows["angle"] = outs[11], outs[12]
-    return state, rows
+    rows = chunk_rows(spec, outs) if keep_rows else {}
+    return (state, rows) if acc is None else (state, rows, acc)

@@ -1,14 +1,24 @@
-"""The summary-fold kernel: its wrapper and its contract.
+"""The summary fold on the card: the standalone kernel's wrapper, and
+the fused fold that the chunk kernels run on their own records.
 
-``summary_fold(acc, rows)`` folds a chunk's (T, C) history rows into a
+``summary_fold(acc, rows)`` folds (T, C) rows that a caller holds into a
 ``stats.accumulators.SummaryAcc`` in step order: what the JAX package's
-``fold_out`` does inside every scan body, on the rows the port's chunk
-kernels write (``cuda_lowered.run_chunk``'s and ``cuda_dense.ROW_NAMES``'
-cut_count, wait, accepts and, under ``record_interface``, slope and
-angle). On CUDA tensors it launches the hand-written kernel of
+``fold_out`` does inside every scan body. The runners call it for their
+one-row records (the board runners' final yield, the general runner's
+initial one) and for the legacy general body's chunks, which no kernel
+makes yet. On CUDA tensors it launches the hand-written kernel of
 ``csrc/summary_fold.cu`` (built on first use by ``_build``; one thread a
 chain), on CPU tensors it runs ``stats.accumulators.fold_block``, the
 plain version; it never runs the plain version on the card.
+
+A chunk's own rows are folded inside the chunk kernel
+(``cuda_lowered.run_chunk`` and ``cuda_dense.run_general_dense_chunk_cuda``
+with ``acc=``): ``fused_fold`` makes that launch's accumulator arguments
+and counts it in ``fused_fold.launches``, and ``fold_chunk_rows`` is the
+plain version those wrappers run on CPU tensors. Both fold the same
+rows: the observable, the wait, the last accepts row and the series
+keys, each one of the chunk's record rows (every chunk kernel records a
+wait; rows without one are the standalone kernel's case).
 
     inputs:  rows[acc.observable] (T, C) int32 or float32; rows["wait"]
              (T, C) float32, optional (weight 1 without it);
@@ -109,6 +119,74 @@ def _launch(lib, acc: sacc.SummaryAcc, rows: dict, t_len: int):
     if err != 0:
         raise RuntimeError(f"summary_fold launch failed: CUDA error {err}")
     return acc.replace(n=nks[0], kept=nks[1], stride=nks[2])
+
+
+def fused_sources(acc: sacc.SummaryAcc, row_index: dict) -> tuple:
+    """(observable, series source 0, series source 1) as indexes into a
+    chunk kernel's record rows (``row_index``: {name: index} of the rows
+    the chunk makes; -1 for no series); raises naming a row it lacks."""
+    have = sorted(row_index)
+    if acc.observable not in row_index:
+        raise ValueError(f"the chunk's records lack the observable "
+                         f"{acc.observable!r} (they hold {have})")
+    if len(acc.series) > MAX_SERIES:
+        raise ValueError(f"the fold writes at most {MAX_SERIES} series")
+    for k in acc.series:
+        if k not in row_index:
+            raise ValueError(f"the chunk's records lack the series {k!r} "
+                             f"(they hold {have})")
+    src = [row_index[k] for k in acc.series]
+    src += [-1] * (MAX_SERIES - len(src))
+    return row_index[acc.observable], src[0], src[1]
+
+
+def fold_chunk_rows(acc: sacc.SummaryAcc, rows: dict,
+                    row_index: dict) -> sacc.SummaryAcc:
+    """The plain version of a fused fold: ``fold_block`` of the chunk's
+    ``rows`` that the kernel would fold (``fused_sources`` refuses what
+    the kernel refuses)."""
+    fused_sources(acc, row_index)
+    keep = {acc.observable, "wait", "accepts", *acc.series}
+    return sacc.fold_block(acc, {k: v for k, v in rows.items()
+                                 if k in keep})
+
+
+def fused_fold(acc: sacc.SummaryAcc, row_index: dict, n_chains: int,
+               launch, keep_rows: bool = True) -> sacc.SummaryAcc:
+    """One chunk launch with the fold of its records: ``launch(ptrs,
+    ints)`` calls the chunk kernel's C entry with the addresses of the two
+    host arrays that ``summary_fold.cuh::fold_args`` reads (the
+    accumulator's 14 pointers; cap, series_cap, the row indexes of
+    ``fused_sources`` and ``keep_rows``). Returns the accumulator with
+    fresh n, kept and stride. Asynchronous, like the chunk launch."""
+    obs, src0, src1 = fused_sources(acc, row_index)
+    dev = acc.mean.device
+    if acc.mean.shape[0] != n_chains:
+        raise ValueError(f"the chunk runs {n_chains} chains, the "
+                         f"accumulator {acc.mean.shape[0]}")
+    for v in (acc.mean, acc.m2, acc.wsum, acc.wmean, acc.wm2, acc.waits,
+              acc.accepts, acc.buf, acc.n, acc.kept, acc.stride,
+              *acc.series.values()):
+        if v.device != dev or not v.is_contiguous():
+            raise ValueError("the accumulator's tensors must be contiguous "
+                             "on one device")
+    keys = list(acc.series)
+    dsts = [acc.series[k] for k in keys] + [None] * (MAX_SERIES - len(keys))
+    scap = dsts[0].shape[0] if keys else 0
+    nks = torch.empty(3, dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * 14)(*(
+        None if v is None else v.data_ptr() for v in (
+            acc.mean, acc.m2, acc.wsum, acc.wmean, acc.wm2, acc.waits,
+            acc.accepts, acc.buf, acc.n, acc.kept, acc.stride, nks,
+            *dsts)))
+    ints = (ctypes.c_int * 6)(acc.buf.shape[1], scap, obs, src0, src1,
+                              int(keep_rows))
+    launch(ctypes.addressof(ptrs), ctypes.addressof(ints))
+    fused_fold.launches += 1
+    return acc.replace(n=nks[0], kept=nks[1], stride=nks[2])
+
+
+fused_fold.launches = 0
 
 
 def summary_fold(acc: sacc.SummaryAcc, rows: dict) -> sacc.SummaryAcc:

@@ -5,7 +5,7 @@ Port of ``init_board``, ``drain_waits``, ``_sum_pending``,
 ``finalize_board_run``, ``run_board_segment`` and ``run_board`` from
 ``flipcomplexityempirical_tpu/sampling/board_runner.py``, with the device
 analytics (``analytics=``, a ``stats.accumulators.DeviceAnalytics``: each
-chunk's rows, and the final record, folded on the card by
+chunk's records folded inside the chunk kernel, the final record by
 ``kernel.cuda_summary.summary_fold``) and without the observability and
 degradation hooks, which this package has not ported. Which graphs take
 which kernel:
@@ -123,11 +123,12 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
     ``history_device=True`` returns the history as tensors on the run's
     device, (C, T_recorded) per key, copied nowhere. ``analytics`` (a
     ``stats.accumulators.DeviceAnalytics`` on the run's device) folds
-    each chunk's rows, every step whatever ``record_every``, with one
-    ``summary_fold`` launch a chunk after the chunk kernel and no host
-    sync; pass ``record_history=False`` for summary mode, where no
-    history is kept. The chains draw the JAX package's threefry stream,
-    so a run equals the JAX package's draw for draw."""
+    each chunk's records, every step whatever ``record_every``, inside
+    the chunk's launch and with no host sync; pass
+    ``record_history=False`` for summary mode, where no history is kept
+    and the kernel writes no row that only the fold reads. The chains
+    draw the JAX package's threefry stream, so a run equals the JAX
+    package's draw for draw."""
     dev = resolve_device(device)
     check_on(dev, state.board, bg.pop, params.log_base)
     clow.body_for(bg, spec, bits)
@@ -146,10 +147,14 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
     done = 0
     while done < n_transitions:
         this = min(chunk, n_transitions - done)
-        state, rows = clow.run_chunk(bg, spec, params, state, this, static)
-        if analytics is not None:
-            analytics.update(cuda_summary.summary_fold(analytics.acc, rows),
-                             this)
+        if analytics is None:
+            state, rows = clow.run_chunk(bg, spec, params, state, this,
+                                         static)
+        else:
+            state, rows, acc = clow.run_chunk(
+                bg, spec, params, state, this, static, acc=analytics.acc,
+                keep_rows=record_history)
+            analytics.update(acc, this)
         if record_history:
             # records precede their transitions: row 0 is on the grid
             rows = maybe_host({k: v[::record_every] for k, v in rows.items()},
@@ -174,8 +179,9 @@ def run_board(bg: kboard.BoardGraph, spec: Spec, params: kstep.StepParams,
     """Run the batched chain for ``n_steps`` yields (yield 0 is the
     initial state): one ``run_board_segment`` of ``n_steps - 1``
     transitions, then the final record (``finalize_board_run``);
-    ``history_device`` and ``analytics`` as there (the fold launches
-    once a chunk and once for the final record)."""
+    ``history_device`` and ``analytics`` as there (the chunks fold
+    their own records; the final record takes one ``summary_fold``
+    launch)."""
     seg = run_board_segment(bg, spec, params, state, n_steps - 1,
                             record_history=record_history, chunk=chunk,
                             bits=bits, record_every=record_every,

@@ -133,16 +133,25 @@ def thin_outs(outs: dict, every: int, offset=None) -> dict:
 
 
 def _run_chunk(dg, spec, params, states, chunk: int, path: str,
-               static=None):
-    """``chunk`` rounds of transition and record: (states, {name: (T, C)}).
-    ``general_dense`` on the card is the kernel (``static`` its tables);
-    elsewhere the bodies run as torch ops (``kernel/dense.py``,
-    ``kernel/step.py``)."""
+               static=None, acc=None, keep_rows: bool = True):
+    """``chunk`` rounds of transition and record: (states, {name: (T, C)},
+    ``acc`` with the chunk's records folded in, or None).
+    ``general_dense`` on the card is the kernel (``static`` its tables),
+    which folds its own records; elsewhere the bodies run as torch ops
+    (``kernel/dense.py``, ``kernel/step.py``) and their rows go to
+    ``summary_fold`` (the legacy body has no kernel yet, ROADMAP B9)."""
     if static is not None:
+        if acc is None:
+            return (*cuda_dense.run_general_dense_chunk_cuda(
+                dg, static, spec, params, states, chunk), None)
         return cuda_dense.run_general_dense_chunk_cuda(
-            dg, static, spec, params, states, chunk)
+            dg, static, spec, params, states, chunk, acc=acc,
+            keep_rows=keep_rows)
     trans = dense.transition if path == "general_dense" else kstep.transition
-    return kstep.run_steps(trans, dg, spec, params, states, chunk)
+    states, outs = kstep.run_steps(trans, dg, spec, params, states, chunk)
+    if acc is not None:
+        acc = cuda_summary.summary_fold(acc, outs)
+    return states, outs, acc
 
 
 def resolve_kernel_path(dg, spec, kernel_path=None) -> str:
@@ -185,9 +194,11 @@ def run_chains(dg, spec, params, states, n_steps: int,
     runs as torch ops on the run's device. The conn planes are attached
     on entry (by the kernel itself on its first chunk) and stripped on
     exit. ``analytics`` (a ``stats.accumulators.DeviceAnalytics`` on the
-    run's device) folds the initial record and each chunk's rows, every
-    step whatever ``record_every``, with one ``summary_fold`` launch
-    each; pass ``record_history=False`` for summary mode. ``recorder``
+    run's device) folds the initial record (one ``summary_fold`` launch)
+    and each chunk's records, every step whatever ``record_every``: the
+    dense kernel folds them in its own launch, the legacy body's rows go
+    to ``summary_fold``; pass ``record_history=False`` for summary mode,
+    where the dense kernel writes no row. ``recorder``
     (obs events) waits for ROADMAP.md A11."""
     if recorder is not None:
         raise ValueError("run_chains(recorder=...): obs events wait for "
@@ -231,11 +242,12 @@ def run_chains(dg, spec, params, states, n_steps: int,
     states = states.replace(waits_sum=torch.zeros_like(states.waits_sum))
     while done < n_steps:
         this = min(chunk, n_steps - done)
-        states, outs = _run_chunk(dg, spec, params, states, this, path,
-                                  static)
+        states, outs, acc = _run_chunk(
+            dg, spec, params, states, this, path, static,
+            acc=None if analytics is None else analytics.acc,
+            keep_rows=record_history)
         if analytics is not None:
-            analytics.update(cuda_summary.summary_fold(analytics.acc, outs),
-                             this)
+            analytics.update(acc, this)
         if record_history:
             outs = maybe_host(thin_outs(outs, record_every), history_device)
             for k, v in outs.items():

@@ -9,7 +9,11 @@ the bodies its kernels equal.
 
 Within the port the trajectory is bit-identical with the fold on or off,
 and the accumulator equals ``fold_block`` of the history-mode rows bit
-for bit. Against the JAX runners (tolerance of
+for bit: on the CPU a chunk kernel's fused fold (``acc=`` on
+``cuda_lowered.run_chunk`` and ``cuda_dense.run_general_dense_chunk_cuda``)
+is the plain chunk and then ``fold_block``, so these runs hold it too,
+with small buffer caps that halve inside a chunk and end a chunk in the
+middle of a stride, and two series keys. Against the JAX runners (tolerance of
 ``test_torch_analytics.py``): n, kept, stride, accepts and the buffer
 bit-equal, mean rtol 1e-6 and m2 rtol 1e-5, the wait-weighted fields the
 same where no wait differs (``_parity``'s log-tie rule), the series
@@ -93,35 +97,40 @@ def board_pair(interface=False, chains=4):
     return spec, want, got
 
 
-def test_board_runner_summary_parity():
-    """29 yields in chunks of 8 (a partial final chunk)."""
+@pytest.mark.parametrize("cap,chunk", [(4096, 8), (8, 6)])
+def test_board_runner_summary_parity(cap, chunk):
+    """29 yields in chunks of 8 or 6 (a partial final chunk); at cap 8 the
+    buffer halves inside the second and third chunks (n=8, 16) and the
+    third ends in the middle of a stride of 4."""
     spec, (bg, st, params), (tbg, tst, tpar) = board_pair()
     tspec = spec_port(spec)
-    jana = jacc.DeviceAnalytics(4)
+    jana = jacc.DeviceAnalytics(4, cap=cap)
     jhist = fce.sampling.run_board(bg, spec, params, st, n_steps=29,
-                                   chunk=8, bits=False, analytics=jana)
-    hist = sampling.run_board(tbg, tspec, tpar, tst, n_steps=29, chunk=8,
-                              device="cpu")
-    ana = tacc.DeviceAnalytics(4)
-    summ = sampling.run_board(tbg, tspec, tpar, tst, n_steps=29, chunk=8,
+                                   chunk=chunk, bits=False, analytics=jana)
+    hist = sampling.run_board(tbg, tspec, tpar, tst, n_steps=29,
+                              chunk=chunk, device="cpu")
+    ana = tacc.DeviceAnalytics(4, cap=cap)
+    summ = sampling.run_board(tbg, tspec, tpar, tst, n_steps=29,
+                              chunk=chunk,
                               record_history=False, device="cpu",
                               analytics=ana)
     assert summ.history == {}
     assert torch.equal(summ.state.board, hist.state.board)
     np.testing.assert_array_equal(summ.waits_total, hist.waits_total)
     assert ana.mirror.n == int(ana.acc.n) == 29
-    assert_acc_equal(ana.acc, tacc.fold_block(tacc.init_summary(4),
+    assert int(ana.acc.stride) == (1 if cap == 4096 else 4)
+    assert_acc_equal(ana.acc, tacc.fold_block(tacc.init_summary(4, cap=cap),
                                               rows_of(hist.history)))
     n_bad = assert_waits_close(hist.history["wait"],
                                jhist.history["wait"]).sum()
     assert_acc_close_to_jax(ana.acc, jana.acc, n_bad)
 
 
-def general_pair(kernel_path, chains=6):
+def general_pair(kernel_path, chains=6, **spec_kw):
     if kernel_path == "general_dense":
         g, tg = fce.graphs.hex_lattice(4, 4), tgraphs.hex_lattice(4, 4)
         spec = fce.Spec(n_districts=2, proposal="bi", contiguity="patch",
-                        geom_waits=True, parity_metrics=False)
+                        geom_waits=True, parity_metrics=False, **spec_kw)
     else:
         g, tg = fce.graphs.square_grid(6), tgraphs.square_grid(6)
         spec = fce.Spec(contiguity="patch")
@@ -134,18 +143,27 @@ def general_pair(kernel_path, chains=6):
     return spec, want, got
 
 
-@pytest.mark.parametrize("kernel_path", ["general", "general_dense"])
-def test_general_runner_summary_parity(kernel_path):
+@pytest.mark.parametrize("kernel_path,cap,keys", [
+    ("general", 4096, ()),
+    ("general_dense", 4096, ()),
+    ("general_dense", 8, ("wait", "weight")),
+])
+def test_general_runner_summary_parity(kernel_path, cap, keys):
     """41 yields in chunks of 16 (a partial final chunk), the initial
-    record folded."""
-    spec, (dg, st, params), (tdg, tst, tpar) = general_pair(kernel_path)
+    record folded; at cap 8 (under lazy_uniform, which records the
+    weight) the buffer halves inside the first two chunks (n=8, 16, 32),
+    the second starts in the middle of a stride, and chain 0's series of
+    two keys is kept."""
+    spec, (dg, st, params), (tdg, tst, tpar) = general_pair(
+        kernel_path, **({"lazy_uniform": True} if keys else {}))
     tspec = spec_port(spec)
-    jana = jacc.DeviceAnalytics(6)
+    jana = jacc.DeviceAnalytics(6, cap=cap, series_keys=keys,
+                                series_cap=41)
     jhist = fce.run_chains(dg, spec, params, st, n_steps=41, chunk=16,
                            kernel_path=kernel_path, analytics=jana)
     hist = sampling.run_chains(tdg, tspec, tpar, tst, n_steps=41, chunk=16,
                                kernel_path=kernel_path)
-    ana = tacc.DeviceAnalytics(6)
+    ana = tacc.DeviceAnalytics(6, cap=cap, series_keys=keys, series_cap=41)
     summ = sampling.run_chains(tdg, tspec, tpar, tst, n_steps=41, chunk=16,
                                record_history=False,
                                kernel_path=kernel_path, analytics=ana)
@@ -153,11 +171,15 @@ def test_general_runner_summary_parity(kernel_path):
     assert torch.equal(summ.state.assignment, hist.state.assignment)
     assert torch.equal(ana.acc.accepts, summ.state.accept_count)
     assert int(ana.acc.n) == 41
-    assert_acc_equal(ana.acc, tacc.fold_block(tacc.init_summary(6),
-                                              rows_of(hist.history)))
+    assert_acc_equal(ana.acc, tacc.fold_block(
+        tacc.init_summary(6, cap=cap, series_keys=keys, series_cap=41),
+        rows_of(hist.history, ("cut_count", "wait", "accepts") + keys)))
     n_bad = assert_waits_close(hist.history["wait"],
                                jhist.history["wait"]).sum()
     assert_acc_close_to_jax(ana.acc, jana.acc, n_bad)
+    series, jseries = ana.series_host(), jana.series_host()
+    for k in keys:
+        np.testing.assert_array_equal(series[k], jseries[k], err_msg=k)
 
 
 def test_lowered_series_parity():

@@ -407,9 +407,13 @@ def test_summary_runs_go_through_the_fold_kernel(card):
     ana = sacc.DeviceAnalytics(8, series_keys=("slope", "angle"),
                                series_cap=101, device=card)
     n0 = cuda_summary.summary_fold.launches
+    f0 = cuda_summary.fused_fold.launches
     summ = run_board(bg, spec, params, st, n_steps=101, chunk=25,
                      record_history=False, device=card, analytics=ana)
-    assert cuda_summary.summary_fold.launches == n0 + 5   # 4 chunks + final
+    # the 4 chunks fold their own records; the final record is the one
+    # standalone launch
+    assert cuda_summary.summary_fold.launches == n0 + 1
+    assert cuda_summary.fused_fold.launches == f0 + 4
     assert torch.equal(summ.state.board, hist.state.board)
     rows = {k: torch.as_tensor(hist.history[k], device=card).T.contiguous()
             for k in ("cut_count", "wait", "accepts", "slope", "angle")}
@@ -417,3 +421,115 @@ def test_summary_runs_go_through_the_fold_kernel(card):
         8, series_keys=("slope", "angle"), series_cap=101, device=card),
         rows)
     _same_acc(ana.acc, want)
+    # the general runner: the initial record is its one standalone launch
+    dspec, dg, dst, dpar = _dense_inputs("hex_lattice", 14, 28, 8, 0.1, card)
+    dhist = run_chains(dg, dspec, dpar, dst, n_steps=121, chunk=40)
+    ana = sacc.DeviceAnalytics(8, device=card)
+    n0 = cuda_summary.summary_fold.launches
+    f0 = cuda_summary.fused_fold.launches
+    run_chains(dg, dspec, dpar, dst, n_steps=121, chunk=40,
+               record_history=False, analytics=ana)
+    assert cuda_summary.summary_fold.launches == n0 + 1
+    assert cuda_summary.fused_fold.launches == f0 + 3
+    rows = {k: torch.as_tensor(dhist.history[k], device=card).T.contiguous()
+            for k in ("cut_count", "wait", "accepts")}
+    _same_acc(ana.acc, sacc.fold_block(sacc.init_summary(8, device=card),
+                                       rows))
+
+
+# ---------------------------------------------------------------------------
+# The fold inside the chunk kernels (csrc/summary_fold.cuh)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b):
+    """Bit for bit, NaN for NaN."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains,t_len,cap,keep_rows", [
+    (8, 369, 4096, False),     # the experiment path
+    (8, 369, 8, True),         # halvings in a chunk, with the rows
+    (12, 100, 8, False),       # a block of 4 chains
+    (2048, 64, 8, False),      # 256 blocks, past the SMs
+])
+def test_lowered_fused_fold_matches_history_launch(card, chains, t_len, cap,
+                                                   keep_rows):
+    """Two chunks of sec11 with the interface: the fused launch's state,
+    flip log and rows bit-equal to the history-mode launch's, the rows
+    only the fold reads left out without a history, and its accumulator
+    bit-equal to the standalone fold of the history-mode rows."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary
+    from flipcomplexityempirical_tpu_torch.stats import accumulators as sacc
+    spec, bg, st, params = _lowered_inputs("sec11", chains, 0.1, card)
+    static = cl.make_static_inputs(bg, spec, params)
+    keys = ("slope", "angle")
+    acc = sacc.init_summary(chains, cap=cap, series_keys=keys,
+                            series_cap=2 * t_len - 5, device=card)
+    want = acc.clone()
+    for _ in range(2):
+        ins = (st.board, *cl.pack_state(st, params))
+        hist = cl.run_lowered_chunk_cuda(bg, static, spec, t_len, *ins)
+        f0 = cuda_summary.fused_fold.launches
+        got, acc = cl.run_lowered_chunk_cuda(
+            bg, static, spec, t_len, *ins, acc=acc, keep_rows=keep_rows)
+        torch.cuda.synchronize()
+        assert cuda_summary.fused_fold.launches == f0 + 1
+        for i, (a, b) in enumerate(zip(got, hist)):
+            if a is None:
+                assert not keep_rows and i in cl.FOLD_ONLY_OUTS
+            else:
+                assert _bits_equal(a, b), cl.OUT_NAMES[i]
+        rows = dict(zip(("cut_count", "b_count", "wait", "accepts", "slope",
+                         "angle"), hist[7:13]))
+        want = cuda_summary.summary_fold(want, rows)
+        torch.cuda.synchronize()
+        _same_acc(acc, want)
+        st = cl.unpack_state(st, hist, t_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains,t_len,cap,spec_kw,obs,keys,wide", [
+    (32, 2439, 4096, {}, "cut_count", (), True),  # the hex batch
+    (8, 300, 8, {}, "cut_count", (), True),
+    (16, 200, 16, {"lazy_uniform": True}, "b_count", ("wait", "weight"),
+     True),
+    (256, 100, 8, {}, "cut_count", ("wait",), False),  # 2 chains a block
+])
+def test_general_dense_fused_fold_matches_history_launch(card, chains, t_len,
+                                                         cap, spec_kw, obs,
+                                                         keys, wide):
+    """Two chunks of the hex lattice, with the rows and without, in the
+    wide form (a chain, its draws warp and the fold warp a block) or the
+    narrow one (the block's chains and the fold warp): the fused launch's
+    state and rows bit-equal to the history-mode launch's, its
+    accumulator bit-equal to the standalone fold of the history rows."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary
+    from flipcomplexityempirical_tpu_torch.stats import accumulators as sacc
+    spec, dg, st, params = _dense_inputs("hex_lattice", 14, 28, chains, 0.1,
+                                         card, **spec_kw)
+    static = cd.make_static_inputs(dg)
+    assert cd.launch_shape(dg, chains, fold=True)["producer"] == wide
+    acc = sacc.init_summary(chains, cap=cap, observable=obs,
+                            series_keys=keys, series_cap=2 * t_len - 5,
+                            device=card)
+    want = acc.clone()
+    for keep_rows in (True, False):
+        hist, rows = cd.run_general_dense_chunk_cuda(dg, static, spec,
+                                                     params, st, t_len)
+        f0 = cuda_summary.fused_fold.launches
+        got, got_rows, acc = cd.run_general_dense_chunk_cuda(
+            dg, static, spec, params, st, t_len, acc=acc,
+            keep_rows=keep_rows)
+        torch.cuda.synchronize()
+        assert cuda_summary.fused_fold.launches == f0 + 1
+        _same_states(got, hist)
+        assert set(got_rows) == (set(rows) if keep_rows else set())
+        for k, v in got_rows.items():
+            assert _bits_equal(v, rows[k]), k
+        want = cuda_summary.summary_fold(want, rows)
+        torch.cuda.synchronize()
+        _same_acc(acc, want)
+        st = hist

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``flipcomplexityempirical_tpu_torch``
-(nor ``chip_smoke.py`` and ``dense_turns.py``, nor ``tests/_parity.py`` and
-``tests/_torch_enumeration.py``, which it imports) imports
-jax, flax, the JAX package, matplotlib or networkx (the card's machine has
-neither plotting nor graph library), and importing the whole port with
-those made unimportable never loads the JAX package."""
+(nor ``chip_smoke.py``, ``dense_turns.py`` and ``fold_turns.py``, nor
+``tests/_parity.py`` and ``tests/_torch_enumeration.py``, which it
+imports) imports jax, flax, the JAX package, matplotlib or networkx (the
+card's machine has neither plotting nor graph library), and importing the
+whole port with those made unimportable never loads the JAX package."""
 
 import ast
 import pathlib
@@ -32,6 +32,7 @@ def _imported_roots(path: pathlib.Path):
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "dense_turns.py",
+        ROOT / "fold_turns.py",
         ROOT / "tests" / "_parity.py",
         ROOT / "tests" / "_torch_enumeration.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
