@@ -123,7 +123,9 @@ entry points a user calls, checks what comes out, and prints:
      version's ms and output from the same state (every state field and
      history row equal), its bound, the idle share of 1001 steps and the
      SM clock, its launch shape and cycles a step; the legacy body's ms a
-     step over 20 steps; then ``bench --graph hex --ess`` in a subprocess:
+     step over 20 steps; then ``bench --graph hex --ess --steps 1001``
+     in a subprocess (the bench's 3001 timed steps cut to 1001: the
+     legacy body's leg of its race would take most of the time limit):
      the dense body raced against the legacy one, the dense body winning,
      its kernel launched once a timed chunk, and its ``cut_ess_per_sec``
      record as phase 8's;
@@ -185,8 +187,41 @@ entry points a user calls, checks what comes out, and prints:
      launch (the run's one-row record), the seconds split, the readback
      bytes, and ``data["summary"]`` bit-equal to the plain fold of the
      history-mode run's history on the card;
-  16. one JSON line per kernel table (``{"kernels": [...]}``), then as the
-     last line ``{"ok": true, "device": {...}}``.
+  16. ``general_dense_chunk``'s interface form (``record_interface``:
+     the slope and angle rows from a wall bitset a chain) against its plain
+     version, every state field and row bit-equal, NaN for NaN, one launch
+     counted a call and timed beside its bound: sec11 with
+     ``nobacktrack`` and the Frankengraph with ``lazy_uniform`` at the
+     experiment path's shape (C=8, T=2439; the Frankengraph held to the
+     plain version over 1000 steps, its depth cut), sec11 at C=4096,
+     T=500 (``dense_turns.py`` times the hex instantiations, which have
+     no walls, in turns against an earlier kernel);
+  17. the pair walk's kernel, ``general_pair_chunk`` (the JAX package's
+     dense step under proposal 'pair', ``kernel/dense.py:257``), against
+     its plain version, bit-equal, one launch counted a call: the dual
+     sweep's K4 and K8 configs at their shape (144 nodes, C=8; held to the
+     plain version over 1000 steps, timed over the sweep's 2439),
+     hex 64x64 at k=4, C=4096, T=500 (timed beside its bound); then
+     ``run_chains`` at that shape with the count zeroed just before and
+     read just after (one launch a chunk): flips/s, peak memory, the
+     distinct-pair count against a recount, the idle share;
+  18. the pair kernel's chains against the exact stationary law of the
+     pair chain (``_torch_enumeration.build_pair_transition``): the 3x3
+     grid at k = 3 and a 12-node dual map at k = 3 with ``weighted_cut``,
+     phase 13's bars;
+  19. ``run_config`` at the paper's shape for dual-K4-0B263P25,
+     dual-K8-0B263P25 and sec11 0B263P10 with ``--variant
+     nobacktrack``, the counts zeroed before each (one launch a chunk),
+     seconds split into run, render and set-up, every artifact written;
+     the card's 401-step runs of dual-K4 and sec11 ``nobacktrack`` equal
+     to the JAX-made fixtures (``tests/test_torch_general_experiments.
+     py``); the dual sweep through ``SweepService`` (one batch a k), its
+     K4 and K8 tenants equal to their solo runs; sec11 with contiguity
+     'exact' (the legacy body, 8 chains, 250 steps) equal to its run on
+     the host;
+  20. the script's own total seconds, one JSON line per kernel table
+     (``{"kernels": [...]}``), then as the last line ``{"ok": true,
+     "device": {...}}``.
 
 ``--baseline PATH`` also builds an earlier ``board_chunk.cu`` (the first
 version's C interface), checks that its outputs equal the current
@@ -1833,6 +1868,10 @@ GEN_FAMILY_KW = {"tri": dict(family="tri"), "hex": dict(family="hex"),
 GEN_CKPT_FIXTURE = "tests/fixtures/torch/experiment_hex_ckpt"
 # the stationary check (phase 13): hex_lattice(1, 2), 10 nodes
 GEN_ENUM_BASES = (0.7, 1.0, 1.4)
+# bench --graph hex's timed steps here: the legacy body's leg of its race
+# takes ~31 s a 1000 steps, so the bench's 3001 are cut to 1001 to keep the
+# script's total under its limit
+GEN_BENCH_STEPS = 1001
 GEN_ENUM_TOL = 0.5
 # Operations the general-dense function needs, counted on this run's data
 # (a floor):
@@ -1869,10 +1908,11 @@ def general_inputs(port, sampling, builder, mn, chains, tol, base,
     return g, spec, dg, st, params
 
 
-def compare_general(cd, got, rows, want, wrows, label: str) -> float:
-    """The kernel's chunk against the plain version's: every state field
-    and history row, through the CPU tests' rule (waits equal up to
-    counted log ties). Returns the largest |difference|."""
+def compare_general(cd, got, rows, want, wrows, label: str,
+                    name: str = "general_dense_chunk") -> float:
+    """The kernel ``name``'s chunk against the plain version's: every
+    state field and history row, through the CPU tests' rule (waits equal
+    up to counted log ties). Returns the largest |difference|."""
     import numpy as np
     import _parity
     from flipcomplexityempirical_tpu_torch import convert
@@ -1884,14 +1924,13 @@ def compare_general(cd, got, rows, want, wrows, label: str) -> float:
             {k: v.T.cpu().numpy() for k, v in wrows.items()},
             np.zeros(want.n_chains))
     except AssertionError as exc:
-        fail(f"general_dense_chunk {label}: differs from the plain "
-             f"version: {exc}")
+        fail(f"{name} {label}: differs from the plain version: {exc}")
     err = max(float(np.abs(g_np[k].astype(np.float64)
                            - w_np[k].astype(np.float64)).max(initial=0))
               for k in w_np)
     err = max([err] + [float((rows[k].double() - wrows[k].double()).abs()
                              .max()) for k in wrows])
-    print(f"general_dense_chunk {label}: "
+    print(f"{name} {label}: "
           + ("bit-equal to the plain version" if not ties else
              f"equal to the plain version; waits off by a log tie {ties}")
           + f" (every state field, conn planes included, and "
@@ -2060,16 +2099,18 @@ def check_table_path(shape: dict, label: str) -> None:
 
 
 def general_bench(root) -> dict:
-    """``bench --graph hex --ess`` as a user runs it: the dense body
-    raced against the legacy one at 64 x 64, C=4096; the dense body must
-    win and its kernel launch once a timed chunk; its cut_ess_per_sec
-    record computed on the card."""
+    """``bench --graph hex --ess`` as a user runs it, cut to
+    GEN_BENCH_STEPS timed steps: the dense body raced against the legacy
+    one at 64 x 64, C=4096; the dense body must win and its kernel launch
+    once a timed chunk; its cut_ess_per_sec record computed on the
+    card."""
     import torch
     card = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m",
                           "flipcomplexityempirical_tpu_torch.bench",
-                          "--graph", "hex", "--ess"], cwd=root,
+                          "--graph", "hex", "--ess", "--steps",
+                          str(GEN_BENCH_STEPS)], cwd=root,
                          capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
@@ -2082,7 +2123,7 @@ def general_bench(root) -> dict:
     got = {k: head.get(k) for k in want}
     if len(lines) != 1 or got != want or not head["value"] > 0:
         fail(f"bench --graph hex: headline {head}, expected {want}")
-    chunks = meta["repeats"] * ((STEPS - 1) // CHUNK)
+    chunks = meta["repeats"] * ((GEN_BENCH_STEPS - 1) // CHUNK)
     if meta["launches"] != chunks or meta["chains"] != CHAINS:
         fail(f"bench --graph hex: {meta['launches']} launches for {chunks} "
              f"timed chunks at {meta['chains']} chains")
@@ -3147,6 +3188,487 @@ def summary_phase(port, ex, drv, gsampling, cl, cd, solo: dict,
     return {"cases": cases, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# The general path's new forms (phases 16-19): the dense kernel's interface
+# rows, the pair walk's kernel, their exact distributions, and the dual,
+# variant and exact-contiguity runs end to end
+# ---------------------------------------------------------------------------
+
+# (label, graph, plan, spec keywords, base, pop_tol, chains, chunk, the
+# steps held to the plain version) of the interface form's exactness and
+# timing cases: sec11 0B263P10 and the Frankengraph 0B30P50 with a
+# proposal variant, at the experiment path's shape (pick_chunk(100000,
+# 4096) = 2439) and at the main path's. The plain version takes ~13 ms a
+# step at C=8 on the card's host, so the Frankengraph's comparison is cut
+# to 1000 steps (so that the script's total stays under 1000 s)
+IFACE_CASES = (
+    ("sec11 nobacktrack, the experiment path's shape", "grid_sec11",
+     "sec11_plan", dict(nobacktrack=True), BASE, 0.1, 8, 2439, 2439),
+    ("frankengraph lazy_uniform, the experiment path's shape",
+     "frankengraph", "frank_plan", dict(lazy_uniform=True), 0.3, 0.5, 8,
+     2439, 1000),
+    ("sec11 nobacktrack, the main path's shape", "grid_sec11", "sec11_plan",
+     dict(nobacktrack=True), BASE, 0.1, CHAINS, CHUNK, CHUNK),
+)
+# the pair kernel's cases: the dual sweep's configs at the sweep's shape,
+# then the full-width 64 x 64 hex lattice at k = 4; the dual cases are
+# held to the plain version over PAIR_DUAL_CMP steps and timed over the
+# sweep's 2439 (the same depth cut as IFACE_CASES' Frankengraph)
+PAIR_DUAL = (("dual-K4-0B263P25", 4), ("dual-K8-0B263P25", 8))
+PAIR_DUAL_CMP = 1000
+PAIR_HEX = dict(m=64, k=4, chains=CHAINS, chunk=CHUNK, tol=0.1, steps=1001)
+# exact distributions: (label, graph maker, k, base, pop_tol, weighted)
+PAIR_ENUM = (("3x3 grid k=3", "grid", 3, 1.5, 0.5, False),
+             ("dual 3x4 k=3 weighted_cut", "dual", 3, 2.0, 0.3, True))
+PAIR_ENUM_BURN = 400
+# the runs of phase 19 at the paper's shape, and the JAX-made fixtures
+# (tests/test_torch_general_experiments.py) the card's short runs equal
+GEN_PAPER_RUNS = (("dual", "dual-K4-0B263P25", dict(n_districts=4)),
+                  ("dual", "dual-K8-0B263P25", dict(n_districts=8)),
+                  ("sec11", "0B263P10-NOBA", dict(variant="nobacktrack")))
+GEN_NEW_FIXTURES = {
+    "dual": dict(family="dual", alignment=0, base=BASE, pop_tol=0.25,
+                 n_districts=4),
+    "sec11_nobacktrack": dict(family="sec11", alignment=0, base=BASE,
+                              pop_tol=0.1, variant="nobacktrack"),
+}
+EXACT_LEGACY = dict(chains=8, steps=250, base=BASE, pop_tol=0.1)
+# Operations of an accepted pair move beyond general_bound's K_GMOVE: the
+# move changes the neighbouring-district sets of v and its D neighbours,
+# each rebuilt from its D neighbours (K_PNODE a read), and the distinct-
+# pair count by the change of those rows. No per-node term: the population
+# gates change only with the two tallies a move touches, and the nodes
+# that pass a gate can be counted from an order by population without a
+# visit to each node, so this kernel's rebuild of every node's valid pairs
+# after an accepted move is its design's cost, not the function's.
+K_PNODE = 6
+
+
+def rows_bit_equal(got: dict, want: dict, label: str) -> None:
+    """The interface rows equal value for value, NaN exactly where the
+    plain version's are (the kernel's NaN bits are its own)."""
+    import torch
+    for k in ("slope", "angle"):
+        if k not in want:
+            continue
+        g, w = got[k], want[k]
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            fail(f"{label}: {k} NaN where the plain version has none, or "
+                 "the other way")
+        ok = ~torch.isnan(w)
+        if not torch.equal(g[ok], w[ok]):
+            fail(f"{label}: {k} differs from the plain version")
+
+
+def pair_bound(dg, spec, state, t_len: int, accepted: int):
+    """(bound ms, by) of one pair chunk: the state read and written once,
+    the rows written once, the tables read once; the operations of this
+    run's data (general_bound's, and K_PNODE's rows of each accepted
+    move)."""
+    ms, by, nbytes, ops = general_bound(dg, spec, state, t_len, accepted)
+    c = state.assignment.shape[0]
+    d = dg.max_deg
+    ops += accepted * (1 + d) * d * K_PNODE + 4 * c * spec.n_districts
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def interface_phase(port, cd, sampling) -> dict:
+    """Phase 16: general_dense_chunk's interface form (record_interface)
+    against its plain version at IFACE_CASES, every state field and row
+    bit-equal, NaN for NaN, each launch counted and timed with CUDA
+    events beside its bound. (dense_turns.py times the hex history-mode
+    instantiations in turns against an older kernel.)"""
+    import torch
+    out = {"cases": []}
+    for (label, gname, planf, kw, base, tol, chains, t_len,
+         t_cmp) in IFACE_CASES:
+        g = getattr(port.graphs, gname)()
+        plan = getattr(port.graphs, planf)(g, 0)
+        spec = port.Spec(record_interface=True, **kw)
+        dg, st, params = sampling.init_batch(g, plan, n_chains=chains,
+                                             seed=16, spec=spec, base=base,
+                                             pop_tol=tol, device=DEVICE)
+        static = cd.make_static_inputs(dg, spec)
+        n0 = cd.run_general_dense_chunk_cuda.launches
+        got, rows = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                    st, t_cmp)
+        torch.cuda.synchronize()
+        if cd.run_general_dense_chunk_cuda.launches != n0 + 1:
+            fail(f"interface {label}: the wrapper did not count its launch")
+        t0 = time.perf_counter()
+        want, wrows = cd.general_dense_chunk_reference(dg, spec, params, st,
+                                                       t_cmp)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) * t_len / t_cmp
+        compare_general(cd, got, rows, want, wrows,
+                        f"interface form, {label} C={chains} T={t_cmp}")
+        rows_bit_equal(rows, wrows, f"interface {label}")
+        nan = int(torch.isnan(rows["slope"]).sum())
+        run = (lambda dg=dg, static=static, spec=spec, params=params,
+               got=got, t_len=t_len: cd.run_general_dense_chunk_cuda(
+                   dg, static, spec, params, got, t_len))
+        ms = event_ms(run, 3)
+        timed, _ = run()
+        bound_ms, bound_by, _, _ = general_bound(
+            dg, spec, timed, t_len,
+            int((timed.accept_count - got.accept_count).sum()))
+        shape = cd.launch_shape(dg, chains, iface=True)
+        print(f"general_dense_chunk interface form, {label} (C={chains}, "
+              f"T={t_len}): slope and angle bit-equal, {nan} NaN rows of "
+              f"{rows['slope'].numel()}; {ms:.4f} ms per chunk (CUDA "
+              f"events, mean of 3); plain version {plain_ms:.3f} ms (host "
+              f"clock, {t_cmp} steps scaled to {t_len}); bound "
+              f"{bound_ms:.4e} ms ({bound_by}); tables "
+              f"{'staged' if shape['staged'] else 'read through L1'}, "
+              f"{shape['chains_per_block']} chain(s) a block, "
+              f"{shape['blocks_per_sm']} block(s) an SM")
+        out["cases"].append({"case": label, "chains": chains, "chunk": t_len,
+                             "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "nan_rows": nan})
+    return out
+
+
+def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
+    """Phase 17: general_pair_chunk against its plain version at the dual
+    sweep's shape (k = 4 and 8, C=8; PAIR_DUAL_CMP steps compared, the
+    sweep's 2439 timed) and at the full-width hex
+    64 x 64, k = 4, C=4096, T=500 (timed beside its bound), each launch
+    counted; then run_chains at that shape with the count zeroed just
+    before: flips/s, launches a chunk, peak memory and idle share."""
+    import torch
+    err, cases = 0.0, []
+    for tag, k in PAIR_DUAL:
+        cfg = next(c for c in ex.SWEEPS["dual"](total_steps=EXP_STEPS,
+                                                 n_chains=EXP_CHAINS)
+                   if c.tag == tag)
+        g, plan, _ = drv.build_graph_and_plan(cfg)
+        spec = drv.spec_for(cfg)
+        dg, st, params = sampling.init_batch(
+            g, plan, n_chains=cfg.n_chains, seed=cfg.seed, spec=spec,
+            base=cfg.base, pop_tol=cfg.pop_tol, device=DEVICE)
+        t_len = sampling.runner.pick_chunk(EXP_STEPS, 4096)
+        cases.append((f"{tag} (the dual sweep's shape)", dg, spec, params,
+                      st, t_len, PAIR_DUAL_CMP))
+    m, k = PAIR_HEX["m"], PAIR_HEX["k"]
+    g = port.graphs.hex_lattice(m, m)
+    spec = port.Spec(n_districts=k, proposal="pair")
+    dg, st, params = sampling.init_batch(
+        g, port.graphs.stripes_plan(g, k), n_chains=PAIR_HEX["chains"],
+        seed=18, spec=spec, base=BASE, pop_tol=PAIR_HEX["tol"],
+        device=DEVICE)
+    st = sampling.run_chains(dg, spec, params, st, n_steps=CHUNK + 1,
+                             chunk=CHUNK, record_history=False).state
+    cases.append((f"hex {m}x{m} k={k} (the full-width path)", dg, spec,
+                  params, st, PAIR_HEX["chunk"], PAIR_HEX["chunk"]))
+    timing = {}
+    for label, dg, spec, params, st, t_len, t_cmp in cases:
+        static = cp.make_static_inputs(dg)
+        n0 = cp.run_general_pair_chunk_cuda.launches
+        got, rows = cp.run_general_pair_chunk_cuda(dg, static, spec, params,
+                                                   st, t_cmp)
+        torch.cuda.synchronize()
+        if cp.run_general_pair_chunk_cuda.launches != n0 + 1:
+            fail(f"pair {label}: the wrapper did not count its launch")
+        t0 = time.perf_counter()
+        want, wrows = cp.general_pair_chunk_reference(dg, spec, params, st,
+                                                      t_cmp)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) * t_len / t_cmp
+        err = max(err, compare_general(
+            cp, got, rows, want, wrows, f"{label} C={st.n_chains} T={t_cmp}",
+            name="general_pair_chunk"))
+        run = (lambda dg=dg, static=static, spec=spec, params=params,
+               got=got, t_len=t_len: cp.run_general_pair_chunk_cuda(
+                   dg, static, spec, params, got, t_len))
+        ms = event_ms(run, 3)
+        timed, _ = run()
+        accepted = int((timed.accept_count - got.accept_count).sum())
+        bound_ms, bound_by = pair_bound(dg, spec, timed, t_len, accepted)
+        shape = cp.launch_shape(dg, st.n_chains)
+        print(f"general_pair_chunk {label} (C={st.n_chains}, T={t_len}, "
+              f"{dg.n_nodes} nodes, {accepted} accepted moves): {ms:.4f} ms "
+              f"per chunk (CUDA events, mean of 3); plain version "
+              f"{plain_ms:.3f} ms (host clock, {t_cmp} steps scaled to "
+              f"{t_len}); bound {bound_ms:.4e} ms "
+              f"({bound_by}); {shape['smem_bytes']} B of shared memory a "
+              f"block, {shape['chains_per_block']} chain(s) a block, "
+              f"{shape['blocks_per_sm']} block(s) an SM")
+        timing[label] = {"chains": st.n_chains, "chunk": t_len, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "shape": shape}
+    # the full-width path through run_chains, the count zeroed just before
+    steps = PAIR_HEX["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cp.run_general_pair_chunk_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = sampling.run_chains(dg, spec, params, st, n_steps=steps,
+                              chunk=CHUNK, record_history=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cp.run_general_pair_chunk_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-(steps - 1) // CHUNK)
+    if launches != chunks:
+        fail(f"pair main path: general_pair_chunk launched {launches} times "
+             f"for {chunks} chunks")
+    fs = res.state
+    from flipcomplexityempirical_tpu_torch.state import chain_state
+    if not bool((fs.b_count == chain_state.b_nodes_count(
+            dg, fs.assignment, fs.cut_deg, k, "pair")).all()):
+        fail("pair main path: b_count disagrees with a recount")
+    fps = PAIR_HEX["chains"] * (steps - 1) / wall
+    prof = idle_share(lambda: sampling.run_chains(
+        dg, spec, params, fs, n_steps=steps, chunk=CHUNK,
+        record_history=False))
+    print(f"[{card}] pair main path: run_chains on hex {m}x{m}, k={k}, "
+          f"{PAIR_HEX['chains']} chains x {steps} steps in {wall:.3f} s, "
+          f"{fps:.6e} flips/s; general_pair_chunk launches {launches} for "
+          f"{chunks} chunks; peak memory {peak / 2 ** 20:.1f} MiB; profile: "
+          f"{prof}")
+    main = timing[cases[-1][0]]
+    return {"launches": launches, "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "cases": timing,
+            "main_path": {"flips_per_s": fps, "wall_s": wall,
+                          "peak_mib": peak / 2 ** 20, "profile": prof}}
+
+
+def pair_stationary(port, sampling) -> dict:
+    """Phase 18: the pair kernel's chains against the exact stationary law
+    of the rejection-free pair chain (``_torch_enumeration.
+    build_pair_transition``, its lazy iteration) on the 3 x 3 grid at
+    k = 3 (tests/test_enumeration.py:181, :248) and on a 12-node dual map
+    with the boundary-length score: en.CHAINS chains, PAIR_ENUM_BURN
+    steps, then en.SAMPLES one-step calls pooled; phase 13's bars."""
+    import numpy as np
+    import torch
+    import _torch_enumeration as en
+    from flipcomplexityempirical_tpu_torch.sampling.runner import pop_bounds
+    out = {}
+    for b, (label, kind, k, base, tol, weighted) in enumerate(PAIR_ENUM):
+        if kind == "grid":
+            g = port.graphs.square_grid(3, 3)
+        else:
+            g, _ = port.graphs.from_geojson(
+                port.graphs.synthetic_precincts(3, 4, seed=0),
+                pop_property="POP")
+        plan = port.graphs.stripes_plan(g, k)
+        lo, hi = pop_bounds(g, k, tol)
+        states, P, cuts = en.build_pair_transition(g, plan, k, base, lo, hi,
+                                                   weighted=weighted)
+        pi = en.stationary_lazy(P)
+        spec = port.Spec(n_districts=k, proposal="pair",
+                         weighted_cut=weighted)
+        dg, st, params = sampling.init_batch(
+            g, plan, n_chains=en.CHAINS, seed=300 + b, spec=spec, base=base,
+            pop_tol=tol, device=DEVICE)
+        t0 = time.perf_counter()
+        st = sampling.run_chains(dg, spec, params, st,
+                                 n_steps=PAIR_ENUM_BURN + 1,
+                                 record_history=False).state
+        boards = []
+        for _ in range(en.SAMPLES):
+            st = sampling.run_chains(dg, spec, params, st, n_steps=1,
+                                     record_initial=False,
+                                     record_history=False).state
+            boards.append(st.assignment)
+        rows = torch.cat(boards).cpu().numpy()
+        chain = np.tile(np.arange(en.CHAINS), len(boards))
+        try:
+            tv, cut_err, t = en.pair_pool_check(rows, chain, states, pi,
+                                                cuts)
+        except KeyError as exc:
+            fail(f"pair {label}: a chain left the closure ({exc})")
+        t_max = float(np.abs(t).max())
+        print(f"stationary general_pair {label} base {base}: TV {tv:.6f}, "
+              f"E|cut| relative error {cut_err:.6f}, t of E|cut| "
+              f"{t[0]:.3f}, max |t| {t_max:.3f} over E|cut| and the "
+              f"{g.n_nodes} nodes' mean districts ({len(rows)} assignments "
+              f"of {len(states)} states, {en.CHAINS} chains x {en.SAMPLES} "
+              f"steps after {PAIR_ENUM_BURN}; "
+              f"{time.perf_counter() - t0:.3f} s)")
+        if tv >= en.TV_POOL_TOL or cut_err >= en.CUT_TOL or \
+                not t_max < en.T_TOL:
+            fail(f"pair {label}: TV {tv:.4f} (bar {en.TV_POOL_TOL}), E|cut| "
+                 f"error {cut_err:.4f} (bar {en.CUT_TOL}) or max |t| "
+                 f"{t_max:.2f} (bar {en.T_TOL})")
+        out[label] = {"tv": tv, "cut_err": cut_err, "t_cut": float(t[0]),
+                      "t_max": t_max, "states": len(states)}
+    return out
+
+
+def new_runs_phase(ex, drv, cp, cd, sampling, out_dir: str,
+                   card: str) -> dict:
+    """Phase 19: run_config at the paper's shape for GEN_PAPER_RUNS (the
+    counts zeroed before each, one launch a chunk; seconds split into
+    run, render and set-up), the card's short runs held to the JAX-made
+    fixtures, the dual sweep through SweepService (one batch a k, each
+    named tenant equal to its solo run above), and sec11 with contiguity
+    'exact' on the legacy body against its CPU run."""
+    import os
+
+    import numpy as np
+    import torch
+    import _parity
+    from flipcomplexityempirical_tpu_torch import convert
+    from flipcomplexityempirical_tpu_torch.service import SweepService
+    out, solo = {}, {}
+    for family, tag, kw in GEN_PAPER_RUNS:
+        cfg = next(c for c in ex.SWEEPS[family](
+            total_steps=EXP_STEPS, n_chains=EXP_CHAINS, **(
+                {"variant": kw["variant"]} if "variant" in kw else {}))
+            if c.tag == tag)
+        pair = cfg.family == "dual"
+        wrapper = (cp.run_general_pair_chunk_cuda if pair
+                   else cd.run_general_dense_chunk_cuda)
+        wrapper.launches = 0
+        t0 = time.perf_counter()
+        data = drv.run_config(cfg, os.path.join(out_dir, "runs"),
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunks = -(-(EXP_STEPS - 1) // sampling.runner.pick_chunk(
+            EXP_STEPS, 4096))
+        if wrapper.launches != chunks:
+            fail(f"{tag}: {wrapper.launches} launches for {chunks} chunks")
+        n_art = sum(os.path.exists(os.path.join(out_dir, "runs", tag + a))
+                    for a in drv.artifact_kinds(cfg.family))
+        if n_art != len(drv.artifact_kinds(cfg.family)):
+            fail(f"{tag}: {n_art} artifacts written")
+        setup = wall - data["seconds"] - data["render_seconds"]
+        name = "general_pair_chunk" if pair else "general_dense_chunk"
+        label = tag
+        print(f"[{card}] run_config {cfg.family} {label} ({EXP_STEPS} steps, "
+              f"{EXP_CHAINS} chains): {wall:.3f} s wall, run "
+              f"{data['seconds']:.3f} s, render {data['render_seconds']:.3f} "
+              f"s, set-up {setup:.3f} s; {name} launches {wrapper.launches} "
+              f"for {chunks} chunks; {n_art} artifacts")
+        out[label] = {"wall_s": wall, "run_s": data["seconds"],
+                      "render_s": data["render_seconds"], "setup_s": setup,
+                      "launches": wrapper.launches, "chunks": chunks}
+        solo[tag] = data
+        if not pair:      # the variant in summary mode: the interface
+            # series folded inside the dense kernel's launches
+            import dataclasses
+            from flipcomplexityempirical_tpu_torch.kernel import cuda_summary
+            scfg = dataclasses.replace(cfg, analytics="summary")
+            cd.run_general_dense_chunk_cuda.launches = 0
+            cuda_summary.fused_fold.launches = 0
+            cuda_summary.summary_fold.launches = 0
+            t0 = time.perf_counter()
+            sdata = drv.run_config(scfg, os.path.join(out_dir, "summary"),
+                                   device=DEVICE)
+            torch.cuda.synchronize()
+            swall = time.perf_counter() - t0
+            if (artifact_digests(ex, scfg, os.path.join(out_dir, "summary"))
+                    != artifact_digests(ex, cfg, os.path.join(out_dir,
+                                                              "runs"))):
+                fail(f"{tag} in summary mode: an artifact differs from the "
+                     "history mode's")
+            fused = cuda_summary.fused_fold.launches
+            if (fused != chunks or cd.run_general_dense_chunk_cuda.launches
+                    != chunks or cuda_summary.summary_fold.launches != 1):
+                fail(f"{tag} in summary mode: {fused} fused launches, "
+                     f"{cuda_summary.summary_fold.launches} standalone for "
+                     f"{chunks} chunks")
+            print(f"[{card}] run_config {tag} in summary mode: {swall:.3f} s "
+                  f"wall, run {sdata['seconds']:.3f} s; {fused} chunks each "
+                  "folding its records and the slope and angle series "
+                  "inside general_dense_chunk, summary_fold launches 1; "
+                  "every artifact byte-equal to the history mode's")
+            out[label]["summary"] = {"wall_s": swall,
+                                     "run_s": sdata["seconds"],
+                                     "fused_launches": fused}
+    for which, kw in GEN_NEW_FIXTURES.items():
+        fx = dict(np.load(ROOT / "tests" / "fixtures" / "torch" /
+                          f"experiment_{which}.npz"))
+        cfg = ex.ExperimentConfig(**kw, total_steps=401, n_chains=2, seed=0)
+        fdir = os.path.join(out_dir, f"fixture_{which}")
+        data = drv.run_config(cfg, fdir, device=DEVICE)
+        got = _parity.experiment_arrays(data, open(os.path.join(
+            fdir, cfg.tag + "wait.txt")).read())
+        if cfg.family == "dual":
+            for kind in ("compactness.json", "partisan.json"):
+                got[kind.replace(".", "_")] = np.asarray(open(
+                    os.path.join(fdir, cfg.tag + kind)).read())
+        try:
+            ties = _parity.assert_experiment_matches(
+                got, fx, scaled_waits=cfg.family == "dual")
+        except AssertionError as exc:
+            fail(f"fixture {which}: {exc}")
+        print(f"fixture ({which}: the JAX package's run_config, {cfg.tag}, "
+              f"401 steps, 2 chains): equal in every array and artifact "
+              f"text; waits off by a log tie {ties}")
+    # the dual sweep through the service: one batch a k
+    svc = SweepService(os.path.join(out_dir, "svc"), device=DEVICE)
+    cfgs = list(ex.SWEEPS["dual"](total_steps=EXP_STEPS, n_chains=EXP_CHAINS))
+    jobs = [svc.submit(c) for c in cfgs]
+    cp.run_general_pair_chunk_cuda.launches = 0
+    t0 = time.perf_counter()
+    svc.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(j.tag, j.error) for j in jobs if j.status != "done"]
+    if bad or svc.exit_code != 0 or len(svc.batch_stats) != 2:
+        fail(f"service dual: {len(svc.batch_stats)} batches, failed {bad}")
+    for j in jobs:
+        if j.tag in solo:
+            same_result(j.result, solo[j.tag], f"service dual tenant {j.tag}")
+    stats = svc.batch_stats
+    print(f"[{card}] service dual: {len(cfgs)} configs as {len(stats)} "
+          f"batches of {[s.chains for s in stats]} chains x {EXP_STEPS} steps "
+          f"({stats[0].kernel_path}): {wall:.3f} s in all, prepare "
+          f"{sum(s.prepare_s for s in stats):.3f} s, run "
+          f"{sum(s.wall_s for s in stats):.3f} s, slice/assemble "
+          f"{sum(s.assemble_s for s in stats):.3f} s; general_pair_chunk "
+          f"launches {cp.run_general_pair_chunk_cuda.launches}; tenants "
+          f"{sorted(t for t in solo if t.startswith('dual'))} equal to their "
+          "solo runs in every state field, history key and result")
+    out["service_dual"] = {"wall_s": wall, "batches": len(stats),
+                           "launches": cp.run_general_pair_chunk_cuda.launches,
+                           "run_s": sum(s.wall_s for s in stats)}
+    # sec11 with contiguity 'exact': the legacy body on the card against
+    # the same run on the host
+    import flipcomplexityempirical_tpu_torch as port
+    g = port.graphs.grid_sec11()
+    plan = port.graphs.sec11_plan(g, 0)
+    spec = port.Spec(contiguity="exact", record_interface=True)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        dg, st, params = sampling.init_batch(
+            g, plan, n_chains=EXACT_LEGACY["chains"], seed=19, spec=spec,
+            base=EXACT_LEGACY["base"], pop_tol=EXACT_LEGACY["pop_tol"],
+            device=dev)
+        t0 = time.perf_counter()
+        runs[dev] = sampling.run_chains(dg, spec, params, st,
+                                        n_steps=EXACT_LEGACY["steps"],
+                                        kernel_path="general")
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        runs[dev + "_s"] = time.perf_counter() - t0
+    a, b = runs[DEVICE], runs["cpu"]
+    try:
+        ties = _parity.assert_chain_run_matches(
+            convert.to_numpy(a.state), a.history, a.waits_total,
+            convert.to_numpy(b.state), b.history, b.waits_total)
+    except AssertionError as exc:
+        fail(f"sec11 contiguity exact: the card's run differs from the "
+             f"host's: {exc}")
+    print(f"[{card}] sec11 contiguity exact (legacy body, "
+          f"{EXACT_LEGACY['chains']} chains x {EXACT_LEGACY['steps']} steps, "
+          f"record_interface): card {runs[DEVICE + '_s']:.3f} s, host "
+          f"{runs['cpu_s']:.3f} s; equal to the host's run, waits off by a "
+          f"log tie {ties}")
+    out["exact_legacy"] = {"card_s": runs[DEVICE + "_s"],
+                           "host_s": runs["cpu_s"], "ties": ties}
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3157,6 +3679,7 @@ def main() -> None:
                     help="an earlier csrc/lowered_chunk.cu (the same C "
                     "interface) to check and time beside the current one")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -3378,6 +3901,15 @@ def main() -> None:
     analytics = summary_phase(port, port.experiments, drv, gsampling,
                               cl, cd, solo, card)
     del solo
+    # ---- 16-19: the interface form, the pair walk's kernel, its exact
+    # distributions, the new families and variants end to end ------------
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_pair as cp
+    general["interface"] = interface_phase(port, cd, gsampling)
+    pair = pair_phase(port, cp, drv, port.experiments, gsampling, card)
+    pair["stationary"] = pair_stationary(port, gsampling)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        pair["runs"] = new_runs_phase(port.experiments, drv, cp, cd,
+                                      gsampling, tmp, card)
     sweeps = service["sweeps"]
     per_graph["service"] = {
         "launches": sum(sweeps[f]["launches"] for f in ("sec11", "frank",
@@ -3420,6 +3952,16 @@ def main() -> None:
                       "hex": general["bench"]["ess"]},
     })
     kernels.insert(0, {
+        "name": "general_pair_chunk", "route": "cuda",
+        "source": "flipcomplexityempirical_tpu_torch/csrc/"
+                  "general_pair_chunk.cu",
+        "replaces": "flipcomplexityempirical_tpu/kernel/dense.py:257",
+        "launches": pair.pop("launches"),
+        "max_abs_err": pair.pop("max_abs_err"), "ms": pair.pop("ms"),
+        "plain_ms": pair.pop("plain_ms"), "bound_ms": pair.pop("bound_ms"),
+        "bound_by": pair.pop("bound_by"), "library_ms": None, **pair,
+    })
+    kernels.insert(0, {
         "name": "general_dense_chunk", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/"
                   "general_dense_chunk.cu",
@@ -3453,6 +3995,7 @@ def main() -> None:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, "stationary": stationary,
     })
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

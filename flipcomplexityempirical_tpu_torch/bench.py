@@ -3,7 +3,7 @@ and general paths, on the card.
 
     python -m flipcomplexityempirical_tpu_torch.bench
         [--graph square|sec11|frank|hex] [--pallas] [--general] [--cpu]
-        [--grid N] [--chains C] [--steps S] [--warmup W] [--chunk T]
+        [--grid N] [--k K] [--chains C] [--steps S] [--warmup W] [--chunk T]
         [--base B] [--pop-tol P] [--repeats R] [--body bits]
         [--ess [--ess-host] [--record-every K]]
     or: ... --service [--tenants N] [--chains C] [--steps S]
@@ -31,6 +31,13 @@ lattice from a stripes start (``--graph hex``).
   re-propose body (torch ops) and reporting the faster, as ``bench.py``
   does; ``kernel_path`` names the body that won. ``--general`` alone runs
   the legacy body.
+- ``--k K`` (K > 2): the k-district pair walk from a K-stripe start, on
+  the general path as ``bench.py`` runs it: ``--graph hex --k 4`` races
+  the pair walk's kernel (``general_pair_chunk``) against the legacy body
+  under ``flips_per_sec_per_chip_hex``; ``--general --k 4`` runs the
+  legacy body alone on the rook grid under
+  ``flips_per_sec_per_chip_64x64_pair_k4``. The rook grid's board pair
+  body (``--k`` without ``--general`` on square) waits for ROADMAP.md A7b.
 - ``--cpu``: the same path through the kernels' plain PyTorch versions on
   the host, at 4096 chains, tagged ``device`` "cpu". Without a card and
   without ``--cpu`` the program exits 1: it never measures the host in
@@ -84,6 +91,7 @@ from .kernel import board as kboard
 from .kernel import cuda_board as cboard
 from .kernel import cuda_dense as cdense
 from .kernel import cuda_lowered as clow
+from .kernel import cuda_pair as cpair
 from .kernel import dense as kdense
 from .kernel.step import Spec
 from .sampling import (init_batch, init_board, run_board, run_board_cuda,
@@ -92,7 +100,6 @@ from .sampling import (init_batch, init_board, run_board, run_board_cuda,
 # bench.py's flags that this program does not port, by the ROADMAP.md item
 # that ports each; a "flag value" key refuses that value only
 _NOT_PORTED = {
-    "--k": "A7 (the k-district pair walk)",
     "--devstats": "A11 (the host layers: obs events)",
     "--mesh": "A10 (multiple GPUs)",
     "--adaptive": "A11 (the host layers: the control plane)",
@@ -109,12 +116,10 @@ _NOT_PORTED = {
 
 def _not_ported(argv) -> str | None:
     """Why ``argv`` asks for a flag of ``bench.py`` that this program does
-    not port (``--k 2``, bench.py's default, excepted), or None."""
+    not port, or None."""
     toks = [t for a in argv
             for t in (a.split("=", 1) if a.startswith("--") else [a])]
     for flag, value in zip(toks, toks[1:] + [""]):
-        if flag == "--k" and value == "2":
-            continue
         for key in (f"{flag} {value}", flag):
             if key in _NOT_PORTED:
                 return f"{key} is not ported: ROADMAP.md {_NOT_PORTED[key]}"
@@ -138,7 +143,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk", type=int, default=500)
     ap.add_argument("--base", type=float, default=2.63815853)
     ap.add_argument("--pop-tol", type=float, default=0.1)
-    ap.add_argument("--k", type=int, choices=[2], default=2)
+    ap.add_argument("--k", type=int, default=2,
+                    help="districts; k > 2 runs the k-district pair walk "
+                         "on the general path")
     ap.add_argument("--cpu", action="store_true",
                     help="run the kernels' plain versions on the host")
     ap.add_argument("--pallas", action="store_true",
@@ -187,6 +194,19 @@ def _refusal(args) -> str | None:
                 "with --pallas or --general")
     if args.pallas and args.general:
         return "--pallas runs the board path; drop --general"
+    if args.k < 2:
+        return f"--k {args.k}: at least 2 districts"
+    if args.k > 2:
+        if args.graph in ("sec11", "frank"):
+            return ("--graph sec11/frank runs the reference 2-district bi "
+                    "walk; drop --k")
+        if args.pallas:
+            return ("the board-chunk kernel serves the 2-district bi walk "
+                    "only; drop --pallas or --k")
+        if args.graph == "square" and not args.general:
+            return ("--k > 2 on the rook grid's board path (the board pair "
+                    "body) is not ported: ROADMAP.md A7b; --general runs "
+                    "the legacy body")
     if args.pallas and args.graph != "square":
         return ("the board-chunk kernel runs the plain rook grid; sec11 and "
                 "frank run the board path (drop --pallas)")
@@ -213,16 +233,18 @@ def _workload(args):
         return g, graphs.frank_plan(g, alignment=0)
     if args.graph == "hex":
         g = graphs.hex_lattice(args.grid, args.grid)
-        return g, graphs.stripes_plan(g, 2)
+        return g, graphs.stripes_plan(g, args.k)
     g = graphs.square_grid(args.grid, args.grid)
-    return g, graphs.stripes_plan(g, 2)
+    return g, graphs.stripes_plan(g, args.k)
 
 
-def _metric(graph: str) -> str:
-    """``bench.py``'s headline name for a 2-district run."""
+def _metric(graph: str, k: int = 2) -> str:
+    """``bench.py``'s headline name."""
     if graph != "square":
         return f"flips_per_sec_per_chip_{graph}"
-    return "flips_per_sec_per_chip_64x64"
+    if k == 2:
+        return "flips_per_sec_per_chip_64x64"
+    return f"flips_per_sec_per_chip_64x64_pair_k{k}"
 
 
 def main(argv=None) -> int:
@@ -241,7 +263,8 @@ def main(argv=None) -> int:
     if args.service:
         return _service_bench(args)
     dev = torch.device("cpu" if args.cpu else "cuda")
-    spec = Spec(n_districts=2, proposal="bi", contiguity="patch",
+    spec = Spec(n_districts=args.k, proposal="bi" if args.k == 2 else "pair",
+                contiguity="patch",
                 invalid="repropose", accept="cut", parity_metrics=True,
                 geom_waits=True, record_interface=False)
     g, plan = _workload(args)
@@ -292,7 +315,8 @@ def main(argv=None) -> int:
         kernel_path = best
     else:
         path, kernel_path = "general", best
-        kernel = "general_dense_chunk" if best == "general_dense" else None
+        kernel = (None if best != "general_dense" else "general_dense_chunk"
+                  if args.k == 2 else "general_pair_chunk")
     meta = {
         "device": device, "path": path, "kernel_path": kernel_path,
         "kernel": kernel, "graph": args.graph, "chains": args.chains,
@@ -314,7 +338,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
     print(json.dumps(meta), file=sys.stderr)
     headline = {
-        "metric": _metric(args.graph), "value": round(fps, 1),
+        "metric": _metric(args.graph, args.k), "value": round(fps, 1),
         "unit": "flips/s", "device": device, "path": path,
         "kernel_path": kernel_path, "kernel": kernel,
         "repeats": args.repeats, "repeat_policy": "best",
@@ -444,7 +468,8 @@ def _general_bench(args, g, plan, spec, dev):
     else:
         variants = ["general_dense", "general"]
         if dev.type == "cuda":
-            cdense.check(dg, spec, params)
+            (cpair if spec.proposal == "pair" else cdense).check(
+                dg, spec, params)
 
     def run(st, n_steps: int, variant, seed: int, record=False,
             device_hist=False):
@@ -452,8 +477,10 @@ def _general_bench(args, g, plan, spec, dev):
                           record_history=record, chunk=args.chunk,
                           record_every=args.record_every if record else 1,
                           history_device=device_hist, kernel_path=variant)
-    return run, state, variants, (cdense.run_general_dense_chunk_cuda
-                                  if "general_dense" in variants else None)
+    wrapper = (cpair.run_general_pair_chunk_cuda if spec.proposal == "pair"
+               else cdense.run_general_dense_chunk_cuda)
+    return run, state, variants, (wrapper if "general_dense" in variants
+                                  else None)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 // Device helpers shared by the chunk kernels that draw the JAX package's
-// threefry2x32 stream (lowered_chunk.cu, general_dense_chunk.cu): the
-// threefry block and the f32 uniform of jax.random (rng.py holds their
-// torch twins), the batched per-step draws of split(key, 4), small
-// bit-plane helpers, and the mbarrier operations of the hand-offs between
-// warps in shared memory (the dense kernel's draws ring and table copy,
-// summary_fold.cuh's fold ring).
+// threefry2x32 stream (lowered_chunk.cu, general_dense_chunk.cu,
+// general_pair_chunk.cu): the threefry block and the f32 uniform of
+// jax.random (rng.py holds their torch twins), the batched per-step draws
+// of split(key, 4), small bit-plane and warp helpers, the layout of the
+// packed graph tables the two general kernels read, and the mbarrier
+// operations of the hand-offs between warps in shared memory (the dense
+// kernel's draws ring and table copy, summary_fold.cuh's fold ring).
 
 #pragma once
 
@@ -72,6 +73,44 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int r) {
     }
   }
   return pos;
+}
+
+// inclusive prefix sum of x over the warp's lanes
+__device__ __forceinline__ int incl_scan(int x, int lane) {
+#pragma unroll
+  for (int dd = 1; dd < 32; dd <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, dd);
+    if (lane >= dd) x += y;
+  }
+  return x;
+}
+
+// The packed graph tables of kernel/cuda_dense.py::pack_tables, read by
+// general_dense_chunk.cu and general_pair_chunk.cu: patch adjacency
+// bitsets (N, Pp) as uint32 and patch slots (N, Pp) as uint16, rows of
+// Pp = P rounded up to 8 slots (16-byte aligned: a row is a few vector
+// loads; pads hold the node itself and no adjacency), then neighbour edges
+// (N, D) as uint32, each node's real patch slots (N,) as a uint32 mask,
+// neighbour slots (N, D) as uint16, degrees (N,) as uint8 and, for patch
+// slot s of u, the slot of u in the patch of that node (N, Pp) as uint8;
+// padded to 16 bytes. The byte offset of each table and the total.
+struct TableLayout {
+  size_t padj, pn, nedge, slots, nbr, deg, rev, bytes;
+  int pp;
+};
+
+__host__ __device__ inline TableLayout table_layout(int n, int d, int p) {
+  TableLayout l;
+  l.pp = (p + 7) & ~7;
+  l.padj = 0;
+  l.pn = l.padj + 4 * size_t(n) * l.pp;
+  l.nedge = l.pn + 2 * size_t(n) * l.pp;
+  l.slots = l.nedge + 4 * size_t(n) * d;
+  l.nbr = l.slots + 4 * size_t(n);
+  l.deg = l.nbr + 2 * size_t(n) * d;
+  l.rev = l.deg + size_t(n);
+  l.bytes = (l.rev + size_t(n) * l.pp + 15) & ~size_t(15);
+  return l;
 }
 
 // ---- mbarriers in shared memory ----------------------------------------

@@ -74,7 +74,19 @@
 //      (wide form), then grows the reach over the slots' adjacency words
 //      (a worklist, or every slot at once in registers);
 //   4. the (T, C) rows cut_count, b_count, wait, accepts and weight (1 +
-//      wait, under lazy_uniform), plain stores.
+//      wait, under lazy_uniform), plain stores, and under record_interface
+//      (kIface) slope and angle.
+// The interface metrics (kernel/step.py:576 interface_metrics: the two
+// wall-cut edges of smallest edge index, the slope of their midpoints and
+// the angle they subtend at the center) keep, per chain in shared memory,
+// a bitset W of the graph's wall edges by rank (the wall edges in edge
+// order, at most 1024) that are cut. An accepted flip toggles the bits of
+// v's wall edges whose cut state changes; the two lowest set bits are found
+// by a warp ballot over W's words, and the metrics are recomputed only when
+// one of the two changes, from the edges' f32 midpoints (the wrapper's
+// table, (p0 + p1) / 2 as the plain version computes it) in the plain
+// version's float order. The hex and tri lattices have no walls and run
+// the kIface = false instantiations, which hold none of this.
 // The records nothing in the step reads back are fire-and-forget global
 // reductions (the second of the two ways the redesign allows; no flip log):
 //   - cut_times: the reference adds the cut plane every yield. An edge's
@@ -147,33 +159,8 @@ constexpr size_t kFoldChainBytes =
     32 * sizeof(float4) + ((sizeof(FoldState) + 15) & ~size_t(15));
 constexpr size_t kFoldRingBytes = (sizeof(FoldRing<1>) + 15) & ~size_t(15);
 
-// The packed graph tables (kernel/cuda_dense.py::pack_tables builds the
-// same layout): patch adjacency bitsets (N, Pp) as uint32 and patch slots
-// (N, Pp) as uint16, rows of Pp = P rounded up to 8 slots (16-byte
-// aligned: a row is a few vector loads; pads hold the node itself and no
-// adjacency), then neighbour edges (N, D) as uint32, each node's real
-// patch slots (N,) as a uint32 mask, neighbour slots (N, D) as uint16,
-// degrees (N,) as uint8 and, for patch slot s of u, the slot of u in the
-// patch of that node (N, Pp) as uint8; padded to 16 bytes.
-struct Layout {
-  size_t padj, pn, nedge, slots, nbr, deg, rev, bytes;
-  int pp;
-};
-
-__host__ __device__ inline Layout table_layout(int n, int d, int p) {
-  Layout l;
-  l.pp = (p + 7) & ~7;
-  l.padj = 0;
-  l.pn = l.padj + 4 * size_t(n) * l.pp;
-  l.nedge = l.pn + 2 * size_t(n) * l.pp;
-  l.slots = l.nedge + 4 * size_t(n) * d;
-  l.nbr = l.slots + 4 * size_t(n);
-  l.deg = l.nbr + 2 * size_t(n) * d;
-  l.rev = l.deg + size_t(n);
-  l.bytes = (l.rev + size_t(n) * l.pp + 15) & ~size_t(15);
-  return l;
-}
-
+// the packed tables (chain_common.cuh::table_layout), staged or in global
+// memory
 struct Tables {
   const uint32_t* padj;
   const uint16_t* pn;
@@ -240,7 +227,63 @@ struct Args {
   // chain's shared memory
   int cpb, chain_bytes;
   FoldArgs fold;                // the summary accumulator (kFold only)
+  // the interface metrics (kIface only)
+  const int32_t* wall_rank;     // (E,) an edge's rank among the wall
+                                //   edges, -1 off the walls
+  const int32_t* wall_edges;    // (n_wall,) the wall edges in edge order
+  const float2* wall_mid;       // (n_wall,) their f32 midpoints
+  float* h_slope;               // (T, C) rows
+  float* h_angle;
+  int n_wall, nww;              // wall edges, their words (0: no kIface)
+  float cx, cy;                 // the angle's center
 };
+
+// the ranks of the two lowest set bits of a chain's wall bitset W (nww <=
+// 32 words, lane k reading word k), -1 where there are fewer; the whole
+// warp, every lane gets the same answer
+__device__ __forceinline__ void wall_pair(const uint32_t* W, int nww,
+                                          int& first, int& second) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t w = lane < nww ? W[lane] : 0u;
+  const uint32_t nz = __ballot_sync(kFull, w != 0u);
+  first = second = -1;
+  if (nz == 0u) return;
+  const int f = __ffs(nz) - 1;
+  const uint32_t wf = __shfl_sync(kFull, w, f);
+  first = 32 * f + __ffs(wf) - 1;
+  const uint32_t rest = wf & (wf - 1u);
+  if (rest != 0u) {
+    second = 32 * f + __ffs(rest) - 1;
+    return;
+  }
+  const uint32_t above = nz & ~((2u << f) - 1u);  // f = 31: none above
+  if (above == 0u) return;
+  const int g = __ffs(above) - 1;
+  second = 32 * g + __ffs(__shfl_sync(kFull, w, g)) - 1;
+}
+
+// slope and angle of the wall edges of ranks first < second (the plain
+// version's float steps, kernel/step.py::interface_metrics); NaN with
+// fewer than two cut wall edges
+__device__ __noinline__ void wall_metrics(const float2* mid, int first,
+                                          int second, float cx, float cy,
+                                          float& slope, float& angle) {
+  if (second < 0) {
+    slope = angle = NAN;
+    return;
+  }
+  const float2 pa = __ldg(mid + first), pb = __ldg(mid + second);
+  const float ax = pa.x, ay = pa.y, ex = pb.x, ey = pb.y;
+  const float dx = ex - ax, dy = ey - ay;
+  slope = dx != 0.f ? dy / dx : INFINITY;
+  const float vax = ax - cx, vay = ay - cy;
+  const float vbx = ex - cx, vby = ey - cy;
+  const float norm =
+      sqrtf(vax * vax + vay * vay) * sqrtf(vbx * vbx + vby * vby);
+  const float cosang =
+      fminf(fmaxf((vax * vbx + vay * vby) / fmaxf(norm, 1e-12f), -1.f), 1.f);
+  angle = acosf(cosang);
+}
 
 // ---- the bulk copy ---------------------------------------------------
 // one thread: copy `bytes` (a multiple of 16) from global to shared memory,
@@ -259,16 +302,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
         "l"(static_cast<const char*>(src) + o), "r"(len), "r"(smem_u32(bar))
         : "memory");
   }
-}
-
-// ---- warp helpers ---------------------------------------------------------
-__device__ __forceinline__ int incl_scan(int x, int lane) {
-#pragma unroll
-  for (int dd = 1; dd < 32; dd <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, dd);
-    if (lane >= dd) x += y;
-  }
-  return x;
 }
 
 // kernel/contiguity.py::patch_connected of node u against the assignment
@@ -429,7 +462,7 @@ __device__ void produce_draws(const Args& a, Ring* ring, int c) {
 // summary fold of the records (summary_fold.cuh), on a third warp of the
 // block in the wide form, on the chain's own warp every 32 steps in the
 // narrow one; without it, the history-mode kernel.
-template <bool kStaged, bool kWide, bool kFold>
+template <bool kStaged, bool kWide, bool kFold, bool kIface>
 __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
                                         : 32 * kMaxChainsPerBlock,
                                   kWide ? 1 : 4)
@@ -438,7 +471,7 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
   const int n = a.n, E = a.e, D = a.d, P = a.p, C = a.n_chains, T = a.t_inner;
   const int nw = (n + 31) >> 5, ng = (nw + 31) >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Layout lay = table_layout(n, D, P);
+  const TableLayout lay = table_layout(n, D, P);
   // shared memory: [table barrier | tables if staged | ring if producer |
   //                 the block's chains]
   uint64_t* tbar = reinterpret_cast<uint64_t*>(smem);
@@ -495,7 +528,8 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
   uint32_t* Y = Cn + nw;
   uint32_t* R = Y + nw;
   int* G = reinterpret_cast<int*>(R + nw);  // G[d * ng + j], district d
-  uint32_t* M = reinterpret_cast<uint32_t*>(G + 2 * ng);  // wide: (N,)
+  uint32_t* W = reinterpret_cast<uint32_t*>(G + 2 * ng);  // kIface: (nww,)
+  uint32_t* M = W + a.nww;                                // wide: (N,)
   // the fold's packet of step 32 q + lane, kept in that lane's registers
   // until its batch ends (no shared store in the step), then stored at
   // fpk[lane]; in the narrow form fpk and the chain's FoldState lie from a
@@ -506,7 +540,7 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
   if constexpr (kFold && !kWide) {
     fpk = reinterpret_cast<float4*>(
         reinterpret_cast<unsigned char*>(A) +
-        ((4 * (size_t(kPlanes) * nw + 2 * ng) + 15) & ~size_t(15)));
+        ((4 * (size_t(kPlanes) * nw + 2 * ng + a.nww) + 15) & ~size_t(15)));
     fst = reinterpret_cast<FoldState*>(fpk + 32);
   }
   const size_t bn = (size_t)c * n, be = (size_t)c * E;
@@ -569,6 +603,20 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
     const int i = h < eh ? h : h + 4 * e4;
     a.cut_times_out[be + i] =
         a.cut_times_in[be + i] + int(a.cut_in[be + i]) * T;
+  }
+  // the interface: the cut wall edges, and the metrics of the state in
+  int w_first = -1, w_second = -1;
+  float slope = NAN, angle = NAN;
+  if constexpr (kIface) {
+    for (int k = 0; k < a.nww; ++k) {
+      const int r = 32 * k + lane;
+      const uint32_t w = __ballot_sync(
+          kFull, r < a.n_wall && a.cut_in[be + a.wall_edges[r]] != 0);
+      if (lane == 0) W[k] = w;
+    }
+    __syncwarp();
+    wall_pair(W, a.nww, w_first, w_second);
+    wall_metrics(a.wall_mid, w_first, w_second, a.cx, a.cy, slope, angle);
   }
   if constexpr (kStaged) mbar_wait(tbar, 0);
   __syncwarp();
@@ -834,10 +882,24 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
     const bool accept = valid && (log_acc < log_bound);
     if (accept) {
       // cut_times: v's edges change state now, seen by T - t yields
+      const int eid = msk ? int(ld<kStaged>(tab.nedge + (size_t)v * D + lane))
+                          : 0;
       if (msk)
-        atomicAdd(a.cut_times_out + be +
-                      ld<kStaged>(tab.nedge + (size_t)v * D + lane),
-                  (int(nc) - int(oc)) * (T - t));
+        atomicAdd(a.cut_times_out + be + eid, (int(nc) - int(oc)) * (T - t));
+      if constexpr (kIface) {  // v's wall edges whose cut state changes
+        const int r = msk && nc != oc ? __ldg(a.wall_rank + eid) : -1;
+        if (r >= 0) atomicXor(W + (r >> 5), 1u << (r & 31));
+        if (__ballot_sync(kFull, r >= 0)) {
+          __syncwarp();
+          int f, s2;
+          wall_pair(W, a.nww, f, s2);
+          if (f != w_first || s2 != w_second) {
+            w_first = f;
+            w_second = s2;
+            wall_metrics(a.wall_mid, f, s2, a.cx, a.cy, slope, angle);
+          }
+        }
+      }
       // neighbour nb's boundary bit after the flip: a neighbour slot of nb
       // in the other district, v's district flipped (pads hold nb itself)
       bool bd_nb = false;
@@ -951,16 +1013,24 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
       if (lane == 2) a.h_wait[row] = cur_wait;
       if (lane == 3) a.h_acc[row] = acc_cnt;
       if (lane == 4 && a.lazy) a.h_weight[row] = 1.0f + cur_wait;
+      if constexpr (kIface) {
+        if (lane == 5) a.h_slope[row] = slope;
+        if (lane == 6) a.h_angle[row] = angle;
+      }
     }
     waits_sum += cur_wait;
     if constexpr (kFold) {
       // the fold's packet: the record's rows as floats, as fold_block
       // converts them (selects, not a switch: no branch in the step; row
-      // 4, the weight, exists under lazy_uniform)
+      // 4, the weight, exists under lazy_uniform, rows 5 and 6, slope and
+      // angle, under kIface)
       auto rowf = [&](int r) -> float {
         const float fi = __int2float_rn(
             r == 0 ? cut_count : r == 1 ? b_count : acc_cnt);
-        return r == 2 ? cur_wait : r == 4 ? __fadd_rn(1.0f, cur_wait) : fi;
+        const float fl =
+            r == 2 ? cur_wait : r == 4 ? __fadd_rn(1.0f, cur_wait) : fi;
+        if constexpr (kIface) return r == 5 ? slope : r == 6 ? angle : fl;
+        return fl;
       };
       const FoldArgs& f = a.fold;
       const float4 p = make_float4(rowf(f.obs), cur_wait,
@@ -1061,10 +1131,12 @@ int sm_count() {
 
 // A fold launch (kFold) adds a fold warp and its ring to the wide form,
 // a chain's fold area to the narrow one.
-Shape launch_shape(int n, int d, int p, int n_chains, bool fold = false) {
+// The interface's wall bitset (nww words) adds to a chain's bytes.
+Shape launch_shape(int n, int d, int p, int n_chains, bool fold = false,
+                   int nww = 0) {
   Shape s;
   const int nw = (n + 31) >> 5, ng = (nw + 31) >> 5;
-  s.chain_bytes = ((4 * (kPlanes * nw + 2 * ng)) + 15) & ~15;
+  s.chain_bytes = ((4 * (kPlanes * nw + 2 * ng + nww)) + 15) & ~15;
   const int sms = sm_count();
   const size_t wide_chain = ((size_t(s.chain_bytes) + 4 * size_t(n)) + 15) &
                             ~size_t(15);
@@ -1090,9 +1162,9 @@ Shape launch_shape(int n, int d, int p, int n_chains, bool fold = false) {
   return s;
 }
 
-template <bool kStaged, bool kWide, bool kFold>
+template <bool kStaged, bool kWide, bool kFold, bool kIface>
 int launch(const Args& a, const Shape& s, cudaStream_t stream) {
-  auto kern = general_dense_kernel<kStaged, kWide, kFold>;
+  auto kern = general_dense_kernel<kStaged, kWide, kFold, kIface>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(s.smem));
   if (err != cudaSuccess) return int(err);
@@ -1100,9 +1172,9 @@ int launch(const Args& a, const Shape& s, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <bool kStaged, bool kWide, bool kFold>
+template <bool kStaged, bool kWide, bool kFold, bool kIface>
 int occupancy(const Shape& s) {
-  auto kern = general_dense_kernel<kStaged, kWide, kFold>;
+  auto kern = general_dense_kernel<kStaged, kWide, kFold, kIface>;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            int(s.smem)) != cudaSuccess)
     return -1;
@@ -1124,9 +1196,9 @@ bool shape_ok(int n_chains, int n, int e, int d, int p, int t_inner,
          d <= 32 && p >= 1 && p <= 32 && t_inner >= 1 && s.smem <= kSmemLimit;
 }
 
-template <bool kFold>
+template <bool kFold, bool kIface>
 int run(Args& a, cudaStream_t st) {
-  const Shape s = launch_shape(a.n, a.d, a.p, a.n_chains, kFold);
+  const Shape s = launch_shape(a.n, a.d, a.p, a.n_chains, kFold, a.nww);
   if (!shape_ok(a.n_chains, a.n, a.e, a.d, a.p, a.t_inner, s) ||
       !aligned16(a.tables) || !aligned16(a.cut_in) ||
       !aligned16(a.part_sum_in) || !aligned16(a.last_flipped_in) ||
@@ -1137,39 +1209,45 @@ int run(Args& a, cudaStream_t st) {
   a.cpb = s.cpb;
   a.chain_bytes = s.chain_bytes;
   if (s.staged)
-    return s.wide ? launch<true, true, kFold>(a, s, st)
-                  : launch<true, false, kFold>(a, s, st);
-  return s.wide ? launch<false, true, kFold>(a, s, st)
-                : launch<false, false, kFold>(a, s, st);
+    return s.wide ? launch<true, true, kFold, kIface>(a, s, st)
+                  : launch<true, false, kFold, kIface>(a, s, st);
+  return s.wide ? launch<false, true, kFold, kIface>(a, s, st)
+                : launch<false, false, kFold, kIface>(a, s, st);
 }
 
-template <bool kFold>
+template <bool kFold, bool kIface>
 int shape_occupancy(const Shape& s) {
-  return s.staged ? (s.wide ? occupancy<true, true, kFold>(s)
-                            : occupancy<true, false, kFold>(s))
-                  : (s.wide ? occupancy<false, true, kFold>(s)
-                            : occupancy<false, false, kFold>(s));
+  return s.staged ? (s.wide ? occupancy<true, true, kFold, kIface>(s)
+                            : occupancy<true, false, kFold, kIface>(s))
+                  : (s.wide ? occupancy<false, true, kFold, kIface>(s)
+                            : occupancy<false, false, kFold, kIface>(s));
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch shape of a chunk (fold != 0: of its fold instantiation):
+// The launch shape of a chunk (fold != 0: of its fold instantiation;
+// n_wall > 0: of its interface instantiation over that many wall edges):
 // out[0] 1 if the tables are staged in shared memory (0: read through
 // L1), out[1] the shared memory of a block in bytes, out[2] chains a
 // block, out[3] 1 in the wide form (a producer warp a chain), out[4]
 // resident blocks an SM (cudaOccupancy...), out[5] threads a block.
 // Returns a cudaError_t.
 int fce_general_dense_shape(int n_chains, int n, int e, int d, int p,
-                            int fold, int* out) {
-  const Shape s = launch_shape(n, d, p, n_chains, fold != 0);
+                            int fold, int n_wall, int* out) {
+  const int nww = (n_wall + 31) >> 5;
+  if (nww > 32) return int(cudaErrorInvalidValue);
+  const Shape s = launch_shape(n, d, p, n_chains, fold != 0, nww);
   if (!shape_ok(n_chains, n, e, d, p, 1, s)) return int(cudaErrorInvalidValue);
   out[0] = s.staged;
   out[1] = int(s.smem);
   out[2] = s.cpb;
   out[3] = s.wide;
-  out[4] = fold ? shape_occupancy<true>(s) : shape_occupancy<false>(s);
+  out[4] = fold ? (nww ? shape_occupancy<true, true>(s)
+                       : shape_occupancy<true, false>(s))
+                : (nww ? shape_occupancy<false, true>(s)
+                       : shape_occupancy<false, false>(s));
   out[5] = s.threads;
   return out[4] < 0 ? int(cudaErrorInvalidValue) : 0;
 }
@@ -1177,7 +1255,9 @@ int fce_general_dense_shape(int n_chains, int n, int e, int d, int p,
 // One chunk for every chain; returns a cudaError_t (0 on success). With
 // fold_ptrs (not null) the chunk also folds its records into the summary
 // accumulator (summary_fold.cuh's fold_args: 14 pointers, 6 ints), and
-// the rows that keep_rows leaves unwritten may be null.
+// the rows that keep_rows leaves unwritten may be null. With n_wall > 0
+// (at most 1024 wall edges) it records the interface metrics into
+// h_slope and h_angle.
 int fce_general_dense_chunk(
     const uint8_t* tables, const int32_t* edges, const int32_t* pop,
     const int32_t* key_in, const int8_t* assign_in, const int8_t* cut_in,
@@ -1193,7 +1273,9 @@ int fce_general_dense_chunk(
     int32_t* h_acc, float* h_weight, int n_chains, int n, int e, int d,
     int p, int t_inner, int patch, int geom_waits, int nobacktrack, int lazy,
     int parity, int fill_conn, int unit_pop, int label0, int label1,
-    void* const* fold_ptrs, const int* fold_ints, void* stream) {
+    void* const* fold_ptrs, const int* fold_ints, const int32_t* wall_rank,
+    const int32_t* wall_edges, const float* wall_mid, float* h_slope,
+    float* h_angle, int n_wall, float cx, float cy, void* stream) {
   Args a;
   a.tables = tables; a.edges = edges; a.pop = pop;
   a.key_in = key_in; a.assign_in = assign_in; a.cut_in = cut_in;
@@ -1214,13 +1296,19 @@ int fce_general_dense_chunk(
   a.fill_conn = fill_conn;
   a.unit_pop = unit_pop; a.label0 = label0; a.label1 = label1;
   a.cpb = 0; a.chain_bytes = 0;
+  a.wall_rank = wall_rank; a.wall_edges = wall_edges;
+  a.wall_mid = reinterpret_cast<const float2*>(wall_mid);
+  a.h_slope = h_slope; a.h_angle = h_angle;
+  a.n_wall = n_wall; a.nww = (n_wall + 31) >> 5; a.cx = cx; a.cy = cy;
+  if (a.nww > 32) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool iface = n_wall > 0;
   if (fold_ptrs == nullptr) {
     a.fold = FoldArgs{};
-    return run<false>(a, st);
+    return iface ? run<false, true>(a, st) : run<false, false>(a, st);
   }
   a.fold = fold_args(fold_ptrs, fold_ints);
-  return run<true>(a, st);
+  return iface ? run<true, true>(a, st) : run<true, false>(a, st);
 }
 
 }  // extern "C"

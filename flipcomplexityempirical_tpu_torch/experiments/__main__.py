@@ -1,11 +1,13 @@
 """CLI: python -m flipcomplexityempirical_tpu_torch.experiments
-         --family sec11|frank|tri|hex --out plots/sec11 [--steps N]
+         --family sec11|frank|tri|hex|dual --out plots/sec11 [--steps N]
          [--chains C] [--only 2B30P10 ...] [--variant nobacktrack|lazy]
          [--contiguity patch|exact] [--analytics history|summary]
          [--device cuda|cpu]
 
 Runs the sweep grid of a family (150 sec11 configs, 24 Frankengraph
-configs, 4 triangular- and 4 hexagonal-lattice configs) on the card, with
+configs, 4 triangular- and 4 hexagonal-lattice configs, 4 dual-graph
+configs: k = 4 and 8 districts on a 12 x 12 synthetic precinct map) on
+the card, with
 skip-if-done resume, writing each config's artifacts under the
 reference's file names (``--analytics summary``: the same files, with
 the history folded on the card instead of copied to the host). The bare
@@ -21,7 +23,7 @@ from ..device import resolve_device
 from .config import SWEEPS
 from .driver import run_sweep
 
-FAMILIES = ("sec11", "frank", "tri", "hex")
+FAMILIES = ("sec11", "frank", "tri", "hex", "dual")
 
 
 def main(argv=None) -> None:
@@ -49,10 +51,11 @@ def main(argv=None) -> None:
                     default="patch",
                     help="the radius-r patch check, or the exact "
                          "whole-graph check (the general path's legacy "
-                         "body; tri and hex only)")
+                         "body)")
     ap.add_argument("--variant", choices=["none", "nobacktrack", "lazy"],
                     default="none",
-                    help="proposal variant (tri and hex only)")
+                    help="proposal variant (the general path; "
+                         "nobacktrack needs the 2-district walk)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0,

@@ -1,12 +1,14 @@
 """The per-config artifacts, with the reference's file names.
 
 Port of ``flipcomplexityempirical_tpu/experiments/artifacts.py`` for the
-sec11, Frankengraph, triangular and hexagonal families: for sec11 and the
+sec11, Frankengraph, triangular, hexagonal and dual families: for sec11 and the
 Frankengraph, per config {tag}start / edges / end / end2 / wca / wca2 /
 slope / angle / flip / flip2 / logflip / logflip2 .png and {tag}wait.txt
 (grid_chain_sec11.py:321-324,410-411,427-528;
 Frankenstein_chain.py:349-352,438-439,455-556); for the tri and hex
-families the seven of ``FAMILY_ARTIFACTS`` (``render_generic``).
+families the seven of ``FAMILY_ARTIFACTS`` (``render_generic``), for
+the dual family its node and edge maps at the precincts' centroids (the
+driver writes its compactness.json and partisan.json).
 
 The images are drawn with the package's own PNG writer (``png.py``), not
 matplotlib, so they show what the reference's show without its pixels:
@@ -51,9 +53,18 @@ LINE_BOX = (58, 80, 427, 576)          # top, left, bottom, right
 ANGLE_YLIM = (0.0, 6.3)
 
 
-def node_pixels(graph: LatticeGraph):
+def node_pixels(graph: LatticeGraph, pos=None):
     """(rows, cols, (height, width)): each node's block centre in a node
-    map and the image's size. Labels are integer (x, y) pairs."""
+    map and the image's size. Labels are integer (x, y) pairs, or
+    ``pos`` gives each node's planar position (the dual graphs'
+    centroids), rounded to the nearest pixel at ``PITCH`` a unit."""
+    if pos is not None:
+        p = np.asarray(pos, np.float64)
+        x = np.rint((p[:, 0] - p[:, 0].min()) * PITCH).astype(np.int64)
+        y = np.rint((p[:, 1] - p[:, 1].min()) * PITCH).astype(np.int64)
+        base = MARGIN + PITCH // 2
+        return (base + y.max() - y, base + x,
+                (2 * MARGIN + y.max() + PITCH, 2 * MARGIN + x.max() + PITCH))
     lab = np.asarray(graph.labels, np.int64)
     x, y = lab[:, 0], lab[:, 1]
     base = MARGIN + PITCH // 2
@@ -64,15 +75,16 @@ def node_pixels(graph: LatticeGraph):
     return rows, cols, size
 
 
-def node_image(graph: LatticeGraph, values, cmap: str) -> np.ndarray:
-    rows, cols, (h, w) = node_pixels(graph)
+def node_image(graph: LatticeGraph, values, cmap: str,
+               pos=None) -> np.ndarray:
+    rows, cols, (h, w) = node_pixels(graph, pos)
     img = png.blank(h, w)
     png.fill_blocks(img, rows, cols, NODE_HALF, png.colorize(values, cmap))
     return img
 
 
-def edge_image(graph: LatticeGraph, edge_values) -> np.ndarray:
-    rows, cols, (h, w) = node_pixels(graph)
+def edge_image(graph: LatticeGraph, edge_values, pos=None) -> np.ndarray:
+    rows, cols, (h, w) = node_pixels(graph, pos)
     img = png.blank(h, w)
     u, v = graph.edges[:, 0], graph.edges[:, 1]
     png.draw_segments(img, rows[u], cols[u], rows[v], cols[v],
@@ -146,10 +158,10 @@ def line_image(series, ylim=None) -> np.ndarray:
     return img
 
 
-def render_start(graph, outdir, tag, start_signed) -> None:
+def render_start(graph, outdir, tag, start_signed, pos=None) -> None:
     os.makedirs(outdir, exist_ok=True)
     png.write_png(os.path.join(outdir, tag + "start.png"),
-                  node_image(graph, start_signed, "tab20"))
+                  node_image(graph, start_signed, "tab20", pos))
 
 
 def render_all(graph: LatticeGraph, family: str, outdir: str, tag: str, *,
@@ -185,8 +197,8 @@ ARTIFACT_KINDS = ["start.png", "edges.png", "end.png", "end2.png",
 
 # Per-family artifact manifests, the JAX package's: sec11/frank keep the
 # reference's 13-artifact set; the other families emit the subset their
-# walk defines plus family-specific diagnostics (kpair, temper and dual
-# are not ported here).
+# walk defines plus family-specific diagnostics (kpair and temper are not
+# ported here).
 FAMILY_ARTIFACTS = {
     "sec11": ARTIFACT_KINDS,
     "frank": ARTIFACT_KINDS,
@@ -211,26 +223,27 @@ def artifact_kinds(family: str):
 
 def render_generic(graph: LatticeGraph, outdir: str, tag: str, *, kinds,
                    end_signed, cut_times, num_flips, waits_sum,
-                   part_sum=None) -> None:
+                   part_sum=None, pos=None) -> None:
     """The widened families' post-run artifacts: the node maps, the edge
     map and wait.txt among ``kinds`` (start.png is rendered before the
-    run). The imshow kinds and the families' own diagnostics belong to
-    families not ported here, and are refused."""
+    run; the dual family's json files are the driver's; ``pos`` places
+    the nodes). The imshow kinds and the other families' own diagnostics
+    belong to families not ported here, and are refused."""
     os.makedirs(outdir, exist_ok=True)
     j = lambda kind: os.path.join(outdir, tag + kind)
     lognum = np.log(np.asarray(num_flips, np.float64) + 1.0)
     maps = {"end.png": (end_signed, "tab20"), "wca.png": (part_sum, "jet"),
             "flip.png": (num_flips, "jet"), "logflip.png": (lognum, "jet")}
     for kind in kinds:
-        if kind == "start.png":
+        if kind in ("start.png", "compactness.json", "partisan.json"):
             continue
         if kind == "wait.txt":
             with open(j(kind), "w") as f:
                 f.write(str(int(round(waits_sum))))
         elif kind == "edges.png":
-            png.write_png(j(kind), edge_image(graph, cut_times))
+            png.write_png(j(kind), edge_image(graph, cut_times, pos))
         elif kind in maps:
             values, cmap = maps[kind]
-            png.write_png(j(kind), node_image(graph, values, cmap))
+            png.write_png(j(kind), node_image(graph, values, cmap, pos))
         else:
             raise ValueError(f"artifact {kind!r} is not ported here")

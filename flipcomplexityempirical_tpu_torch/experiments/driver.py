@@ -1,5 +1,6 @@
 """Per-config experiment driver: the reference's measurement loop and its
-artifacts, for the sec11, Frankengraph, triangular and hexagonal families.
+artifacts, for the sec11, Frankengraph, triangular, hexagonal and
+precinct dual-graph families.
 
 Port of ``flipcomplexityempirical_tpu/experiments/driver.py`` (its JAX
 backend's board and general branches, the checkpoints and the bare sweep
@@ -11,10 +12,11 @@ checkpoint segments when ``cfg.checkpoint_every > 0``:
   Frankengraph, the triangular lattice without a variant), through
   ``run_board_segment`` on the lowered-chunk kernel, then
   ``finalize_board_run``;
-- elsewhere (the hexagonal lattice, a proposal variant, contiguity
+- elsewhere (the hexagonal lattice, the dual graphs' k-district pair
+  walk, a proposal variant of sec11 or the Frankengraph, contiguity
   'exact') through the general runner ``run_chains``: the dense body on
-  the general-dense kernel where the JAX package would take it, else the
-  legacy body.
+  the general-dense kernel (the pair kernel for the pair walk) where the
+  JAX package would take it, else the legacy body.
 
 ``cfg.analytics == 'summary'`` runs either path in summary mode, as the
 JAX package's driver does: no history is kept, each chunk's rows are
@@ -51,9 +53,10 @@ import torch
 
 from ..convert import to_numpy
 from ..device import resolve_device
-from ..graphs import (PARITY_LABELS, frank_plan, frankengraph, grid_sec11,
-                      hex_lattice, sec11_plan, stripes_plan,
-                      triangular_lattice)
+from ..graphs import (PARITY_LABELS, frank_plan, frankengraph,
+                      from_geojson, grid_sec11, hex_lattice, sec11_plan,
+                      stripes_plan, synthetic_precincts, triangular_lattice,
+                      voronoi_precincts)
 from ..graphs.votes import seed_votes, validate_votes
 from ..kernel import board as kboard
 from ..kernel import cuda_lowered as clow
@@ -62,6 +65,7 @@ from ..sampling.board_runner import (finalize_board_run, init_board,
                                      run_board_segment)
 from ..sampling.runner import init_batch, run_chains
 from ..stats import partisan
+from ..stats.compactness import polsby_popper
 from ..stats.accumulators import DeviceAnalytics, summary_host
 from .artifacts import (artifact_kinds, render_all, render_generic,
                         render_start)
@@ -69,8 +73,7 @@ from .config import ExperimentConfig
 
 # what each family not ported here waits for (ROADMAP.md section A)
 _UNPORTED_FAMILIES = {
-    "kpair": "A7 (the k-district pair walk)",
-    "dual": "A7 (the dual graphs and the pair walk)",
+    "kpair": "A7b (the k-district pair walk on the rook board)",
     "temper": "A8 (tempering)",
 }
 
@@ -118,21 +121,15 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.family in _UNPORTED_FAMILIES:
         raise ValueError(
             f"family {cfg.family!r} is not ported: it waits for ROADMAP.md "
-            f"{_UNPORTED_FAMILIES[cfg.family]}; sec11, frank, tri and hex "
-            "run here")
-    if cfg.family not in ("sec11", "frank", "tri", "hex"):
+            f"{_UNPORTED_FAMILIES[cfg.family]}; sec11, frank, tri, hex "
+            "and dual run here")
+    if cfg.family not in ("sec11", "frank", "tri", "hex", "dual"):
         raise ValueError(f"family {cfg.family!r}")
     if cfg.chain != "flip":
         raise ValueError(f"chain {cfg.chain!r} is not ported: it waits for "
                          "ROADMAP.md A9 (ReCom)")
     if cfg.analytics not in ("history", "summary"):
         raise ValueError(f"analytics {cfg.analytics!r}")
-    if cfg.family in ("sec11", "frank") and (cfg.variant != "none"
-                                             or cfg.contiguity == "exact"):
-        raise ValueError(
-            f"{cfg.family} with variant {cfg.variant!r} / contiguity "
-            f"{cfg.contiguity!r} runs the general path with the interface "
-            "metrics, which wait for ROADMAP.md A6b")
 
 
 def _check_summary(cfg: ExperimentConfig, checkpoint_dir) -> None:
@@ -159,8 +156,8 @@ def _check_summary(cfg: ExperimentConfig, checkpoint_dir) -> None:
 
 
 def build_graph_and_plan(cfg: ExperimentConfig):
-    """(graph, initial plan, None) for a config: the JAX package's
-    triple, whose geometry slot only the dual family fills."""
+    """(graph, initial plan, GeoAttributes or None) for a config: the JAX
+    package's triple, whose geometry slot only the dual family fills."""
     if cfg.family == "sec11":
         g = grid_sec11()
         return g, sec11_plan(g, cfg.alignment), None
@@ -173,6 +170,19 @@ def build_graph_and_plan(cfg: ExperimentConfig):
     if cfg.family == "hex":
         g = hex_lattice(cfg.lattice_m, cfg.lattice_n)
         return g, stripes_plan(g, 2, axis=cfg.alignment), None
+    if cfg.family == "dual":
+        if cfg.dual_source == "voronoi":
+            fc = voronoi_precincts(cfg.dual_nx * cfg.dual_ny, seed=cfg.seed)
+        elif cfg.dual_source == "quads":
+            fc = synthetic_precincts(cfg.dual_nx, cfg.dual_ny,
+                                     seed=cfg.seed)
+        elif cfg.dual_source == "fixture":
+            from ..workloads.data import load_fixture
+            fc = load_fixture()
+        else:
+            raise ValueError(f"dual_source {cfg.dual_source!r}")
+        g, geo = from_geojson(fc, pop_property="POP")
+        return g, stripes_plan(g, cfg.n_districts, axis=cfg.alignment), geo
     _check_ported(cfg)          # raises, naming the ROADMAP item
     raise ValueError(f"family {cfg.family!r}")
 
@@ -180,17 +190,31 @@ def build_graph_and_plan(cfg: ExperimentConfig):
 def spec_for(cfg: ExperimentConfig) -> Spec:
     """The kernel Spec a family's walk runs under: sec11 and frank keep
     the reference's full metric set, the wall-interface slopes included;
-    tri and hex record no interface. ``cfg.variant`` maps onto the
-    Spec's proposal-variant flags last."""
+    tri and hex record no interface; dual runs the k-district pair walk
+    (the 2-district 'bi' walk at k = 2) on boundary length
+    (``weighted_cut``). ``cfg.variant`` maps onto the Spec's
+    proposal-variant flags last."""
     _check_ported(cfg)
-    spec = Spec(n_districts=2, proposal="bi", accept=cfg.accept,
-                record_interface=cfg.family in ("sec11", "frank"),
-                contiguity=cfg.contiguity, invalid="repropose",
-                parity_metrics=True, geom_waits=True,
-                propose_parallel=cfg.propose_parallel)
+    common = dict(contiguity=cfg.contiguity, invalid="repropose",
+                  parity_metrics=True, geom_waits=True,
+                  propose_parallel=cfg.propose_parallel)
+    if cfg.family == "dual":
+        spec = Spec(n_districts=cfg.n_districts,
+                    proposal="pair" if cfg.n_districts > 2 else "bi",
+                    accept="cut", weighted_cut=True,
+                    record_interface=False, **common)
+    else:
+        spec = Spec(n_districts=2, proposal="bi", accept=cfg.accept,
+                    record_interface=cfg.family in ("sec11", "frank"),
+                    **common)
     if cfg.variant == "none":
         return spec
     if cfg.variant == "nobacktrack":
+        if spec.proposal != "bi":
+            raise ValueError(
+                f"variant 'nobacktrack' needs the 2-district 'bi' walk; "
+                f"family {cfg.family!r} with k={cfg.n_districts} runs "
+                f"{spec.proposal!r}")
         return dataclasses.replace(spec, nobacktrack=True)
     if cfg.variant == "lazy":
         return dataclasses.replace(spec, lazy_uniform=True)
@@ -198,8 +222,11 @@ def spec_for(cfg: ExperimentConfig) -> Spec:
 
 
 def _labels_for(cfg: ExperimentConfig) -> np.ndarray:
-    """District -> rendered value: the reference's +1/-1."""
-    return np.asarray(PARITY_LABELS)
+    """District -> rendered value: the reference's +1/-1 for 2 districts,
+    district ids for k > 2."""
+    if cfg.n_districts == 2:
+        return np.asarray(PARITY_LABELS)
+    return np.arange(cfg.n_districts, dtype=np.int32)
 
 
 def is_done(cfg: ExperimentConfig, outdir: str) -> bool:
@@ -242,12 +269,13 @@ def run_config(cfg: ExperimentConfig, outdir: str,
     dev = resolve_device(device)
     _check_summary(cfg, checkpoint_dir)
     _check_ported(cfg)
-    g, plan, _ = build_graph_and_plan(cfg)
+    g, plan, geo = build_graph_and_plan(cfg)
     spec = spec_for(cfg)
     run = _init_run(cfg, g, plan, spec, dev)
     os.makedirs(outdir, exist_ok=True)
+    pos = geo.centroid if geo is not None else None
     t_r = time.monotonic()
-    render_start(g, outdir, cfg.tag, _labels_for(cfg)[plan])
+    render_start(g, outdir, cfg.tag, _labels_for(cfg)[plan], pos=pos)
     render_s = time.monotonic() - t_r
     t0 = time.monotonic()
     data = _run_torch(cfg, g, plan, checkpoint_dir, device=dev, run=run)
@@ -266,9 +294,36 @@ def run_config(cfg: ExperimentConfig, outdir: str,
                        cut_times=data["cut_times"],
                        num_flips=data["num_flips"],
                        part_sum=data["part_sum"],
-                       waits_sum=data["waits_sum"])
+                       waits_sum=data["waits_sum"], pos=pos)
+    if cfg.family == "dual":
+        _write_dual_scores(cfg, g, geo, plan, data, outdir)
     data["render_seconds"] = render_s + time.monotonic() - t_r
     return data
+
+
+def _write_dual_scores(cfg: ExperimentConfig, g, geo, plan, data,
+                       outdir: str) -> None:
+    """The dual family's own artifacts, as the JAX driver writes them:
+    Polsby-Popper compactness of every chain's final plan and of the
+    initial plan (``compactness.json``), and the partisan summary
+    (``partisan.json``)."""
+    j = lambda kind: os.path.join(outdir, cfg.tag + kind)
+    geom = dict(edges=g.edges, shared_perim=geo.shared_perim,
+                node_area=geo.area, node_exterior_perim=geo.exterior_perim)
+    pp = polsby_popper(np.asarray(data["assignments"]), cfg.n_districts,
+                       **geom)
+    data["polsby_popper"] = pp
+    with open(j("compactness.json"), "w") as f:
+        json.dump({
+            "polsby_popper_per_chain_mean": pp.mean(axis=1).tolist(),
+            "polsby_popper_batch_mean": float(pp.mean()),
+            "initial": polsby_popper(np.asarray(plan)[None],
+                                     cfg.n_districts, **geom
+                                     ).mean(axis=1).tolist(),
+        }, f, indent=1)
+    with open(j("partisan.json"), "w") as f:
+        json.dump({k: (v.tolist() if hasattr(v, "tolist") else v)
+                   for k, v in data["partisan"].items()}, f, indent=1)
 
 
 def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,

@@ -1,3 +1,5 @@
+from .dualgraph import (GeoAttributes, from_geojson, from_shapefile,
+                        synthetic_precincts, voronoi_precincts)
 from .lattice import DeviceGraph, LatticeGraph, build_lattice
 from .builders import (PARITY_LABELS, frank_plan, frankengraph, grid_sec11,
                        hex_lattice, sec11_plan, square_grid, stripes_plan,
@@ -6,4 +8,5 @@ from .builders import (PARITY_LABELS, frank_plan, frankengraph, grid_sec11,
 __all__ = ["DeviceGraph", "LatticeGraph", "build_lattice", "square_grid",
            "stripes_plan", "grid_sec11", "frankengraph",
            "triangular_lattice", "hex_lattice", "sec11_plan", "frank_plan",
-           "PARITY_LABELS"]
+           "PARITY_LABELS", "GeoAttributes", "from_geojson",
+           "from_shapefile", "synthetic_precincts", "voronoi_precincts"]

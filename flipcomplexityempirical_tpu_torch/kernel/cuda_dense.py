@@ -17,7 +17,9 @@ JAX package draw for draw.
 The kernel's scope (``supports``): the 2-district 'bi' proposal under
 re-propose semantics, accept 'cut', no annealing, contiguity 'patch' or
 'none' on a graph whose patches fit 32 slots, ``nobacktrack``,
-``lazy_uniform``, ``parity_metrics``, ``geom_waits``. ``check`` refuses
+``lazy_uniform``, ``parity_metrics``, ``geom_waits`` and
+``record_interface`` on a graph of at most ``MAX_WALL_EDGES`` wall edges
+(the k-district pair walk has a kernel of its own, ``cuda_pair``). ``check`` refuses
 the rest, naming the ROADMAP.md item that ports it; the runner never
 runs the plain version in the kernel's place on the card.
 
@@ -35,7 +37,10 @@ runs the plain version in the kernel's place on the card.
     kernel outputs: the same per-chain fields after the chunk (scal as
         [cur_wait, waits_sum]; cut and cut_deg recounted from the
         assignment), and the (T, C) rows cut_count, b_count, wait, accepts
-        and, under ``lazy_uniform``, weight.
+        and, under ``lazy_uniform``, weight and, under
+        ``record_interface``, slope and angle (the interface form, whose
+        inputs add each edge's wall rank, the wall edges and their f32
+        midpoints, ``interface_inputs``).
 
 With ``acc=`` (a ``stats.accumulators.SummaryAcc``) the chunk also folds
 its records into the run's summary accumulator: on the card inside the
@@ -61,15 +66,20 @@ from .step import Spec, StepParams, geom_denom_finite
 
 # node ids are uint16 in the packed tables
 MAX_NODES = 1 << 16
+# the interface form's wall bitset is at most 32 words, read a word a lane
+MAX_WALL_EDGES = 1024
 
-ROW_NAMES = ("cut_count", "b_count", "wait", "accepts", "weight")
+ROW_NAMES = ("cut_count", "b_count", "wait", "accepts", "weight", "slope",
+             "angle")
 
 
 def fold_row_index(spec: Spec) -> dict:
-    """{name: lane} of the record rows a chunk's fold may read (the
-    weight under ``lazy_uniform``)."""
-    return {k: i for i, k in enumerate(ROW_NAMES)
-            if k != "weight" or spec.lazy_uniform}
+    """{name: lane} of the record rows a chunk writes and its fold may
+    read (the weight under ``lazy_uniform``, slope and angle under
+    ``record_interface``)."""
+    extra = {"weight": spec.lazy_uniform, "slope": spec.record_interface,
+             "angle": spec.record_interface}
+    return {k: i for i, k in enumerate(ROW_NAMES) if extra.get(k, True)}
 
 
 @dataclasses.dataclass
@@ -80,18 +90,48 @@ class DenseStatic:
     edges: torch.Tensor        # (E, 2) int32
     pop: torch.Tensor          # (N,) int32
     unit_pop: int              # every node's population, or 0 if it varies
+    iface: object = None       # ``interface_inputs`` under record_interface
+
+
+@dataclasses.dataclass
+class InterfaceInputs:
+    """The interface form's tables: each edge's rank among the wall edges
+    (-1 off the walls), the wall edges in edge order and their f32
+    midpoints (``step.interface_midpoints``, the plain version's values),
+    and the angle's center."""
+
+    wall_rank: torch.Tensor    # (E,) int32
+    wall_edges: torch.Tensor   # (n_wall,) int32
+    wall_mid: torch.Tensor     # (n_wall, 2) f32
+    cx: float
+    cy: float
+
+
+def interface_inputs(dg) -> InterfaceInputs:
+    walls = torch.nonzero(dg.wall_id >= 0)[:, 0]
+    rank = torch.full((dg.n_edges,), -1, dtype=torch.int32, device=dg.device)
+    rank[walls] = torch.arange(walls.numel(), dtype=torch.int32,
+                               device=dg.device)
+    mid = kstep.interface_midpoints(dg)[walls].contiguous()
+    cx, cy = (float(x) for x in dg.center.to(torch.float32).cpu())
+    return InterfaceInputs(wall_rank=rank,
+                           wall_edges=walls.to(torch.int32).contiguous(),
+                           wall_mid=mid, cx=cx, cy=cy)
 
 
 def _refusal(dg, spec: Spec):
     """Why the kernel does not run (dg, spec), or None."""
     if spec.proposal == "pair":
-        return ("proposal 'pair' waits for ROADMAP.md A7 (the pair walk "
-                "and its dense kernel)")
-    if spec.record_interface:
-        return "record_interface on the general path waits for ROADMAP.md A6b"
+        return ("proposal 'pair' runs in the pair walk's own kernel "
+                "(kernel/cuda_pair.py)")
     if spec.weighted_cut:
-        return ("weighted_cut (the dual graphs' boundary length) waits for "
-                "ROADMAP.md A7")
+        return ("weighted_cut in the 2-district dense kernel waits for "
+                "ROADMAP.md B4 (the step tail's accept rules); the pair "
+                "kernel serves it")
+    if spec.record_interface and int((dg.wall_id >= 0).sum()) > \
+            MAX_WALL_EDGES:
+        return (f"record_interface: the kernel's wall bitset holds at most "
+                f"{MAX_WALL_EDGES} wall edges")
     if spec.accept != "cut" or spec.anneal != "none":
         return (f"accept {spec.accept!r} / anneal {spec.anneal!r} in the "
                 "dense kernel waits for ROADMAP.md B4 (the step tail's "
@@ -135,8 +175,8 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def table_layout(n: int, d: int, p: int) -> dict:
-    """Byte offsets of the packed tables (``csrc/general_dense_chunk.cu``'s
-    ``table_layout``): patch adjacency bitsets and patch slots in rows of
+    """Byte offsets of the packed tables (``csrc/chain_common.cuh``'s
+    ``table_layout``, which both general kernels read): patch adjacency bitsets and patch slots in rows of
     ``pp`` = P rounded up to 8 slots (uint32, then uint16), neighbour edges
     (N, D) as uint32, each node's real patch slots (N,) as a uint32 mask,
     neighbour slots (N, D) as uint16, degrees (N,) as uint8 and, for patch
@@ -191,12 +231,16 @@ def pack_tables(dg) -> torch.Tensor:
     return buf
 
 
-def make_static_inputs(dg) -> DenseStatic:
+def make_static_inputs(dg, spec: Spec = None) -> DenseStatic:
+    """The tables of ``dg`` (with the interface form's under ``spec``'s
+    ``record_interface``)."""
     pop = dg.pop
     unit = int(pop[0]) if bool((pop == pop[0]).all()) and int(pop[0]) > 0 \
         else 0
+    iface = (interface_inputs(dg) if spec is not None
+             and spec.record_interface else None)
     return DenseStatic(tables=pack_tables(dg), edges=_i32(dg.edges),
-                       pop=_i32(pop), unit_pop=unit)
+                       pop=_i32(pop), unit_pop=unit, iface=iface)
 
 
 def general_dense_chunk_reference(dg, spec: Spec, params: StepParams, state,
@@ -212,28 +256,33 @@ def general_dense_chunk_reference(dg, spec: Spec, params: StepParams, state,
 def _entry(lib):
     """``lib``'s ``fce_general_dense_chunk`` with its C signature: 32
     pointers, 15 ints, the fold's two host arrays (null in history mode),
-    the stream."""
+    the interface form's five pointers (null without it), its wall edges'
+    count and center, the stream."""
     fn = lib.fce_general_dense_chunk
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 32 + [ctypes.c_int] * 15
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch_shape(dg, n_chains: int, fold: bool = False) -> dict:
+def launch_shape(dg, n_chains: int, fold: bool = False,
+                 iface: bool = False) -> dict:
     """How the kernel runs ``n_chains`` chains of ``dg`` on this card (with
-    ``fold``, its summary-fold instantiation): ``staged`` (the tables in
+    ``fold``, its summary-fold instantiation; with ``iface``, its
+    interface form): ``staged`` (the tables in
     shared memory; False: read through L1), ``smem_bytes`` a block,
     ``chains_per_block``, ``producer`` (a draws warp a chain),
     ``blocks_per_sm`` resident, ``threads`` a block."""
     from . import _build
     fn = _build.load("general_dense_chunk").fce_general_dense_shape
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
+    n_wall = int((dg.wall_id >= 0).sum()) if iface else 0
     err = fn(n_chains, dg.n_nodes, dg.n_edges, dg.max_deg, dg.max_patch,
-             int(fold), ctypes.addressof(out))
+             int(fold), n_wall, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"general_dense_chunk shape query failed: CUDA "
                            f"error {err}")
@@ -249,70 +298,62 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
-            state, t_inner: int, acc=None, keep_rows: bool = True):
+def chunk_io(state, params: StepParams, n_edges: int, row_names):
+    """The per-chain inputs and output buffers of the general path's chunk
+    kernels (this one and ``cuda_pair``'s), in their C entries' order:
+    (ins {name: tensor}, outs {name: tensor}, rows {name: (T, C)} of
+    ``row_names``' (name, T) pairs, fill: whether the kernel fills the
+    conn planes first). The row fields are 16-byte aligned."""
     c, n = state.assignment.shape
-    e = dg.n_edges
+    k = state.dist_pop.shape[1]
     dev = state.assignment.device
     i32, f32 = torch.int32, torch.float32
-    nw = dense.n_words(n)
-    key = _i32(state.key).T.contiguous()
-    dist_pop = state.dist_pop.to(i32).T.contiguous()
     fill = state.conn_bits is None
-    conn = (torch.empty((c, 0), dtype=i32, device=dev) if fill
-            else _i32(state.conn_bits))
-    scal = torch.stack([x.expand(c) for x in (
-        params.log_base, params.beta, params.pop_lo, params.pop_hi,
-        state.cur_wait, state.waits_sum)]).to(f32).contiguous()
-    ints = torch.stack([state.cut_count, state.b_count, state.cur_flip_node,
-                        state.t_yield, state.move_clock, state.accept_count,
-                        state.tries_sum,
-                        state.exhausted_count]).to(i32).contiguous()
-    ins = [state.assignment.contiguous(), _aligned(state.cut),
-           state.cut_deg.contiguous(), dist_pop, conn, scal, ints,
-           _aligned(state.part_sum), _aligned(state.last_flipped),
-           _aligned(state.num_flips), _aligned(state.cut_times)]
-    for x, dtype in zip(ins[:3], (torch.int8,) * 3):
-        if x.dtype != dtype:
-            raise ValueError(f"expected {dtype}, got {x.dtype}")
+    ins = dict(
+        key=_i32(state.key).T.contiguous(),
+        assignment=state.assignment.contiguous(), cut=_aligned(state.cut),
+        cut_deg=state.cut_deg.contiguous(),
+        dist_pop=state.dist_pop.to(i32).T.contiguous(),
+        conn=(torch.empty((c, 0), dtype=i32, device=dev) if fill
+              else _i32(state.conn_bits)),
+        scal=torch.stack([x.expand(c) for x in (
+            params.log_base, params.beta, params.pop_lo, params.pop_hi,
+            state.cur_wait, state.waits_sum)]).to(f32).contiguous(),
+        ints=torch.stack([state.cut_count, state.b_count,
+                          state.cur_flip_node, state.t_yield,
+                          state.move_clock, state.accept_count,
+                          state.tries_sum,
+                          state.exhausted_count]).to(i32).contiguous(),
+        part_sum=_aligned(state.part_sum),
+        last_flipped=_aligned(state.last_flipped),
+        num_flips=_aligned(state.num_flips),
+        cut_times=_aligned(state.cut_times))
+    for name in ("assignment", "cut", "cut_deg"):
+        if ins[name].dtype != torch.int8:
+            raise ValueError(f"{name}: expected torch.int8, got "
+                             f"{ins[name].dtype}")
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     outs = dict(
         key=empty((2, c), i32), assignment=empty((c, n), torch.int8),
-        cut=empty((c, e), torch.int8), cut_deg=empty((c, n), torch.int8),
-        dist_pop=empty((2, c), i32), conn=empty((c, nw), i32),
-        scal=empty((2, c), f32), ints=empty((8, c), i32),
-        part_sum=empty((c, n), i32), last_flipped=empty((c, n), i32),
-        num_flips=empty((c, n), i32), cut_times=empty((c, e), i32))
-    rows = {k: empty((t_inner, c), f32 if k in ("wait", "weight") else i32)
-            for k in fold_row_index(spec)} if keep_rows else {}
-    ptrs = [static.tables, static.edges, static.pop, key, *ins,
-            *outs.values(), *(rows.get(k) for k in ROW_NAMES)]
-    ptrs = [None if x is None else x.data_ptr() for x in ptrs]
-    labels = [int(x) for x in params.label_values.cpu()]
+        cut=empty((c, n_edges), torch.int8),
+        cut_deg=empty((c, n), torch.int8), dist_pop=empty((k, c), i32),
+        conn=empty((c, dense.n_words(n)), i32), scal=empty((2, c), f32),
+        ints=empty((8, c), i32), part_sum=empty((c, n), i32),
+        last_flipped=empty((c, n), i32), num_flips=empty((c, n), i32),
+        cut_times=empty((c, n_edges), i32))
+    rows = {nm: empty((t, c), i32 if nm in ("cut_count", "b_count",
+                                            "accepts") else f32)
+            for nm, t in row_names}
+    return ins, outs, rows, fill
 
-    def launch(fold_ptrs=None, fold_ints=None):
-        with torch.cuda.device(dev):
-            err = _entry(lib)(
-                *ptrs, c, n, e, dg.max_deg, dg.max_patch, t_inner,
-                int(spec.contiguity == "patch"), int(spec.geom_waits),
-                int(spec.nobacktrack), int(spec.lazy_uniform),
-                int(spec.parity_metrics), int(fill), static.unit_pop,
-                labels[0], labels[1], fold_ptrs, fold_ints,
-                torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"general_dense_chunk launch failed: CUDA "
-                               f"error {err}")
 
-    if acc is None:
-        launch()
-    else:
-        acc = cuda_summary.fused_fold(acc, fold_row_index(spec), c, launch,
-                                      keep_rows)
+def chunk_state(state, outs: dict):
+    """The chain state after a chunk, from ``chunk_io``'s outputs."""
     ints_o, scal_o = outs["ints"], outs["scal"]
-    new = state.replace(
+    return state.replace(
         key=outs["key"].T.to(torch.int64) & rng.MASK32,
         assignment=outs["assignment"], cut=outs["cut"],
         cut_deg=outs["cut_deg"], dist_pop=outs["dist_pop"].T.contiguous(),
@@ -323,7 +364,50 @@ def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
         waits_sum=scal_o[1], accept_count=ints_o[5], tries_sum=ints_o[6],
         exhausted_count=ints_o[7],
         conn_bits=outs["conn"].to(torch.int64) & rng.MASK32)
-    return new, rows, acc
+
+
+def _launch(lib, dg, static: DenseStatic, spec: Spec, params: StepParams,
+            state, t_inner: int, acc=None, keep_rows: bool = True):
+    c, n = state.assignment.shape
+    e = dg.n_edges
+    dev = state.assignment.device
+    ins, outs, rows, fill = chunk_io(
+        state, params, e,
+        [(k, t_inner) for k in fold_row_index(spec)] if keep_rows else [])
+    ptrs = [static.tables, static.edges, static.pop, *ins.values(),
+            *outs.values(), *(rows.get(k) for k in ROW_NAMES[:5])]
+    ptrs = [None if x is None else x.data_ptr() for x in ptrs]
+    labels = [int(x) for x in params.label_values.cpu()]
+    fi = static.iface if spec.record_interface else None
+    if spec.record_interface and fi is None:
+        raise ValueError("record_interface needs the interface tables: "
+                         "make_static_inputs(dg, spec)")
+    iptrs = [None] * 5 if fi is None else [
+        x.data_ptr() for x in (fi.wall_rank, fi.wall_edges, fi.wall_mid)] + [
+        None if rows.get(k) is None else rows[k].data_ptr()
+        for k in ("slope", "angle")]
+    n_wall = 0 if fi is None else fi.wall_edges.numel()
+    cxy = (0.0, 0.0) if fi is None else (fi.cx, fi.cy)
+
+    def launch(fold_ptrs=None, fold_ints=None):
+        with torch.cuda.device(dev):
+            err = _entry(lib)(
+                *ptrs, c, n, e, dg.max_deg, dg.max_patch, t_inner,
+                int(spec.contiguity == "patch"), int(spec.geom_waits),
+                int(spec.nobacktrack), int(spec.lazy_uniform),
+                int(spec.parity_metrics), int(fill), static.unit_pop,
+                labels[0], labels[1], fold_ptrs, fold_ints, *iptrs,
+                n_wall, *cxy, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"general_dense_chunk launch failed: CUDA "
+                               f"error {err}")
+
+    if acc is None:
+        launch()
+    else:
+        acc = cuda_summary.fused_fold(acc, fold_row_index(spec), c, launch,
+                                      keep_rows)
+    return chunk_state(state, outs), rows, acc
 
 
 def run_general_dense_chunk_cuda(dg, static: DenseStatic, spec: Spec,

@@ -1,8 +1,10 @@
 """The rejection-free dense body over bit-packed node sets: the plain
 version of ``csrc/general_dense_chunk.cu``.
 
-Port of ``flipcomplexityempirical_tpu/kernel/dense.py`` ('bi' proposal),
-batched over chains. Each step builds the packed validity plane once,
+Port of ``flipcomplexityempirical_tpu/kernel/dense.py``, batched over
+chains; its 'pair' branch (the k-district walk over the node-major (N, K)
+plane) is the plain version of ``csrc/general_pair_chunk.cu``. Each step
+builds the packed validity plane once,
 ``pack(boundary & population-feasible) & conn_bits``, and selects the
 m-th valid node directly, with one uniform: conditioned on the state,
 "uniform over the move set, re-propose until valid" is "uniform over the
@@ -17,7 +19,7 @@ the legacy body.
 
 Packed planes are (..., ceil(M / 32)) uint32 words held in int64 (the
 convention of ``rng.py``): bit j of word w is element 32 * w + j, pad
-bits zero. The pair walk waits for ROADMAP.md A7.
+bits zero.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import rng
+from ..state import chain_state
 from . import contiguity
 from . import step as kstep
 from .step import Spec, StepParams
@@ -34,7 +37,7 @@ def supported(graph, spec: Spec) -> bool:
     """True iff ``general_dense`` runs this (graph, spec): the 'bi' or
     'pair' walk under re-propose semantics, no frame interface, contiguity
     'patch' (on a graph whose patches fit 32 slots) or 'none'. The JAX
-    package's rule; this package runs its 'bi' half."""
+    package's rule."""
     if spec.proposal not in ("bi", "pair"):
         return False
     if spec.proposal == "bi" and spec.n_districts != 2:
@@ -154,6 +157,18 @@ def _pop_plane_bi(dg, params: StepParams, a: torch.Tensor,
                <= params.pop_hi[:, None]))
 
 
+def _pop_planes(dg, params: StepParams, a: torch.Tensor,
+                dist_pop: torch.Tensor):
+    """The pair walk's population gates in f32: ``from_ok`` bool (C, N)
+    (the donor district stays >= pop_lo without node i) and ``to_ok``
+    bool (C, N, K) (district d stays <= pop_hi with node i)."""
+    popv = dg.pop.to(torch.float32)
+    from_ok = (torch.gather(dist_pop, 1, a) - popv) >= params.pop_lo[:, None]
+    to_ok = ((dist_pop[:, None, :] + popv[None, :, None])
+             <= params.pop_hi[:, None, None])
+    return from_ok, to_ok
+
+
 def propose_dense(dg, spec: Spec, params: StepParams, state,
                   keys: torch.Tensor, u=None):
     """Rejection-free proposal from each chain's (C, 2) key (``u``: its
@@ -162,26 +177,38 @@ def propose_dense(dg, spec: Spec, params: StepParams, state,
     always 1; a chain with no valid move gets valid False."""
     kstep.check_general(spec)
     c, n = state.assignment.shape
+    k = spec.n_districts
     a = state.assignment.to(torch.int64)
     dist_pop = state.dist_pop.to(torch.float32)
-    cand = state.cut_deg > 0
-    if spec.nobacktrack:
-        ar = torch.arange(c, device=a.device)
-        f = state.cur_flip_node.to(torch.int64)
-        fi = torch.clamp_min(f, 0)
-        excl = (f >= 0) & cand[ar, fi] & (state.b_count > 1)
-        cols = torch.arange(n, device=a.device)
-        cand = cand & ~((cols[None, :] == fi[:, None]) & excl[:, None])
-    pop_ok = _pop_plane_bi(dg, params, a, dist_pop)
-    words = pack_mask(cand & pop_ok) & state.conn_bits
+    if spec.proposal == "pair":
+        from_ok, to_ok = _pop_planes(dg, params, a, dist_pop)
+        pm = chain_state.pair_move_mask(dg, a, k)            # (C, N, K)
+        conn = unpack_mask(state.conn_bits, n)
+        plane = pm & from_ok[..., None] & to_ok & conn[..., None]
+        words = pack_mask(plane.reshape(c, n * k))
+    else:
+        cand = state.cut_deg > 0
+        if spec.nobacktrack:
+            ar = torch.arange(c, device=a.device)
+            f = state.cur_flip_node.to(torch.int64)
+            fi = torch.clamp_min(f, 0)
+            excl = (f >= 0) & cand[ar, fi] & (state.b_count > 1)
+            cols = torch.arange(n, device=a.device)
+            cand = cand & ~((cols[None, :] == fi[:, None]) & excl[:, None])
+        pop_ok = _pop_plane_bi(dg, params, a, dist_pop)
+        words = pack_mask(cand & pop_ok) & state.conn_bits
     total = popcount(words).sum(dim=1)
     if u is None:
         u = rng.uniform(keys)
     m = torch.minimum((u * total.to(torch.float32)).to(torch.int64),
                       torch.clamp_min(total - 1, 0))
     idx = select_nth_set(words, m)
-    v = torch.clamp_max(idx, n - 1)
-    d_to = 1 - torch.gather(a, 1, v[:, None])[:, 0]
+    if spec.proposal == "pair":
+        v = torch.clamp_max(idx // k, n - 1)
+        d_to = idx % k
+    else:
+        v = torch.clamp_max(idx, n - 1)
+        d_to = 1 - torch.gather(a, 1, v[:, None])[:, 0]
     valid = total > 0
     return v, d_to, valid, torch.ones(c, dtype=torch.int32, device=a.device)
 

@@ -4,10 +4,12 @@ general path's step: propose, commit, record.
 Port of ``flipcomplexityempirical_tpu/kernel/step.py``: ``Spec``,
 ``StepParams``, ``make_params``, ``sample_geom_minus1``, ``finalize_host``
 and the general half, ``propose`` (the re-propose loop, with
-``propose_parallel`` candidates a round), ``transition`` (the legacy
-body), ``commit`` (the accept rules 'cut', 'corrected' and 'always', the
-linear anneal, boundary-length scores) and ``record``, batched over
-chains as (C, ...) tensors. The semantics notes there hold unchanged:
+``propose_parallel`` candidates a round; the 2-district 'bi' draw and the
+k-district 'pair' draw), ``transition`` (the legacy body), ``commit``
+(the accept rules 'cut', 'corrected' and 'always', the linear anneal,
+boundary-length scores, the pair walk's distinct-pair count) and
+``record`` with the wall-interface metrics, batched over chains as (C,
+...) tensors. The semantics notes there hold unchanged:
 invalid proposals re-propose, the accept is the literal
 ``base**(-dcut)``, waits are memoized per state with the literal
 ``n**k - 1`` denominator, and the last flip's bookkeeping is re-applied
@@ -16,8 +18,8 @@ move or has spent ``max_tries``; a chain that is done keeps its draw, as
 the JAX package's vmapped while loop does, so each chain draws exactly
 its own stream.
 
-The 'pair' proposal waits for ROADMAP.md A7 and ``record_interface`` on
-the general path for A6b; both raise.
+Float sums that the kernels must reproduce run in one fixed order: the
+boundary-length score adds v's neighbour slots in slot order.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from .. import rng
 from ..device import resolve_device
+from ..state import chain_state
 from . import contiguity
 
 
@@ -130,16 +133,17 @@ def sample_geom_minus1(keys: torch.Tensor, b_count: torch.Tensor,
 
 def check_general(spec: Spec) -> None:
     """Raise for what the general path of this package does not run."""
-    if spec.proposal == "pair":
-        raise ValueError("proposal 'pair' is not ported: the k-district "
-                         "pair walk waits for ROADMAP.md A7")
-    if spec.proposal != "bi":
+    if spec.proposal == "bi":
+        if spec.n_districts != 2:
+            raise ValueError("proposal 'bi' requires n_districts == 2")
+    elif spec.proposal == "pair":
+        if spec.n_districts < 2:
+            raise ValueError("proposal 'pair' requires n_districts >= 2")
+        if spec.nobacktrack:
+            raise ValueError("nobacktrack requires proposal 'bi' (the pair "
+                             "walk has no single excluded reverse move)")
+    else:
         raise ValueError(f"proposal {spec.proposal!r}")
-    if spec.n_districts != 2:
-        raise ValueError("proposal 'bi' requires n_districts == 2")
-    if spec.record_interface:
-        raise ValueError("record_interface on the general path is not "
-                         "ported: it waits for ROADMAP.md A6b")
     if spec.anneal not in ("none", "linear"):
         raise ValueError(f"anneal mode {spec.anneal!r}")
     if spec.accept not in ("cut", "corrected", "always"):
@@ -205,6 +209,20 @@ def _sample_bi(u: torch.Tensor, state, nobacktrack: bool = False):
     return v, 1 - d_from, _rows(b_mask, v)
 
 
+def _sample_pair(u: torch.Tensor, dg, state, k: int):
+    """Uniform over each chain's distinct (boundary node, neighbouring
+    district) pairs (grid_chain_sec11.py:117-130), for (C, R) uniforms
+    ``u``: one prefix-sum selection over the node-major flattened (N, K)
+    pair plane. Returns (v, d_to, sampled_ok), each (C, R)."""
+    c = u.shape[0]
+    pm = chain_state.pair_move_mask(dg, state.assignment, k).reshape(c, -1)
+    total = pm.sum(dim=1, dtype=torch.int32)[:, None]
+    m = torch.minimum((u * total.to(torch.float32)).to(torch.int32),
+                      torch.clamp_min(total - 1, 0))
+    idx = select_nth_true(pm, m)
+    return idx // k, idx % k, _rows(pm, idx)
+
+
 def _frame_counts(dg, spec: Spec, state) -> torch.Tensor:
     """(C, K) counts of outer-frame nodes per district."""
     a_f = state.assignment[:, dg.frame_idx].to(torch.int64)
@@ -264,7 +282,10 @@ def propose(dg, spec: Spec, params: StepParams, state, keys: torch.Tensor,
                     else None)
 
     def draw(u):                      # u: (C, R) -> each (C, R)
-        v, d_to, ok = _sample_bi(u, state, spec.nobacktrack)
+        if spec.proposal == "pair":
+            v, d_to, ok = _sample_pair(u, dg, state, spec.n_districts)
+        else:
+            v, d_to, ok = _sample_bi(u, state, spec.nobacktrack)
         return v, d_to, _validate(dg, spec, params, state, v, d_to, ok,
                                   frame_counts)
 
@@ -345,19 +366,26 @@ def commit(dg, spec: Spec, params: StepParams, state, key, kacc, kwait,
     new_cut = (na != d_to[:, None]) & nbm
     delta = new_cut.to(i32) - old_cut.to(i32)
     dcut = delta.sum(dim=1, dtype=i32)
+    if spec.proposal == "pair":
+        d_pairs = _pair_delta(dg, spec.n_districts, a, v, d_to, nb, nbm)
 
     beta = effective_beta(spec, params, state)
     if spec.weighted_cut:
-        dscore = torch.where(nbm, delta.to(f32) * dg.edge_len[eids],
-                             0.0).sum(dim=1)
+        terms = torch.where(nbm, delta.to(f32) * dg.edge_len[eids], 0.0)
+        dscore = terms[:, 0]
+        for j in range(1, terms.shape[1]):    # slot order, as the kernels
+            dscore = dscore + terms[:, j]
     else:
         dscore = dcut.to(f32)
     log_bound = -beta * dscore * params.log_base
     if spec.accept == "corrected":
-        cd_new = state.cut_deg.to(i32).scatter_add(
-            1, nb, torch.where(nbm, delta, 0))
-        cd_new[ar, v] = new_cut.sum(dim=1, dtype=i32)
-        b_new = (cd_new > 0).sum(dim=1)
+        if spec.proposal == "pair":
+            b_new = state.b_count + d_pairs
+        else:
+            cd_new = state.cut_deg.to(i32).scatter_add(
+                1, nb, torch.where(nbm, delta, 0))
+            cd_new[ar, v] = new_cut.sum(dim=1, dtype=i32)
+            b_new = (cd_new > 0).sum(dim=1)
         log_bound = log_bound + (
             torch.log(state.b_count.to(f32))
             - torch.log(torch.clamp_min(b_new, 1).to(f32)))
@@ -383,7 +411,10 @@ def commit(dg, spec: Spec, params: StepParams, state, key, kacc, kwait,
     dist_pop[ar, d_from] -= popv
     dist_pop[ar, d_to] += popv
     cut_count = state.cut_count + torch.where(accept, dcut, 0)
-    b_count = (cut_deg > 0).sum(dim=1).to(i32)
+    if spec.proposal == "pair":
+        b_count = state.b_count + torch.where(accept, d_pairs, 0).to(i32)
+    else:
+        b_count = (cut_deg > 0).sum(dim=1).to(i32)
     cur_wait = state.cur_wait
     if spec.geom_waits:
         if u_wait is None:
@@ -402,12 +433,67 @@ def commit(dg, spec: Spec, params: StepParams, state, key, kacc, kwait,
         exhausted_count=state.exhausted_count + (~valid).to(i32))
 
 
+def _pair_delta(dg, k: int, a: torch.Tensor, v, d_to, nb, nbm):
+    """The change of the distinct-pair count if v moves to d_to: only the
+    rows of v and of its true neighbours of the (N, K) pair plane change
+    (step.py:430-445 of the JAX package), (C,) int32."""
+    aff = torch.cat([v[:, None], nb], dim=1)
+    live = torch.cat([torch.ones_like(nbm[:, :1]), nbm], dim=1)
+    a_tent = a.clone()
+    a_tent[torch.arange(a.shape[0], device=a.device), v] = d_to.to(a.dtype)
+
+    def rows(x):
+        pm = chain_state.pair_move_mask(dg, x, k, nodes=aff)
+        return (pm & live[..., None]).sum(dim=(1, 2), dtype=torch.int32)
+
+    return rows(a_tent) - rows(a)
+
+
+def interface_midpoints(dg) -> torch.Tensor:
+    """(E, 2) f32 midpoints of every edge, ``(p0 + p1) / 2`` of its ends'
+    f32 coordinates, as the JAX package's ``interface_metrics`` computes
+    them (the dense kernel reads its wall edges' rows of this table)."""
+    pts = dg.coords[dg.edges]                            # (E, 2, 2)
+    return (pts[:, 0] + pts[:, 1]) / 2.0
+
+
+def interface_metrics(dg, cut: torch.Tensor, mid=None):
+    """f32 (slope, angle) per chain of the (C, E) cut planes: the two
+    wall-cut edges of smallest edge index, their midpoints' slope and the
+    angle they subtend at the graph's center (kernel/step.py:576 of the
+    JAX package, float step for float step); NaN with fewer than two.
+    ``mid`` is ``interface_midpoints(dg)`` where already made."""
+    f32 = torch.float32
+    if mid is None:
+        mid = interface_midpoints(dg)
+    wc = (cut > 0) & (dg.wall_id >= 0)[None]
+    e_ids = torch.arange(wc.shape[1], device=cut.device)
+    first = torch.argmax(wc.to(torch.uint8), dim=1)
+    wc2 = wc & (e_ids[None] != first[:, None])
+    second = torch.argmax(wc2.to(torch.uint8), dim=1)
+    ok = wc.any(dim=1) & wc2.any(dim=1)
+    ax, ay = mid[first, 0], mid[first, 1]
+    ex, ey = mid[second, 0], mid[second, 1]
+    dx, dy = ex - ax, ey - ay
+    one = torch.ones_like(dx)
+    slope = torch.where(dx != 0, dy / torch.where(dx != 0, dx, one),
+                        torch.full_like(dx, float("inf")))
+    cx, cy = dg.center[0].to(f32), dg.center[1].to(f32)
+    vax, vay = ax - cx, ay - cy
+    vbx, vby = ex - cx, ey - cy
+    norm = (torch.sqrt(vax * vax + vay * vay)
+            * torch.sqrt(vbx * vbx + vby * vby))
+    tiny = torch.tensor(1e-12, dtype=f32, device=dx.device)
+    cosang = torch.clamp((vax * vbx + vay * vby) / torch.maximum(norm, tiny),
+                         -1.0, 1.0)
+    angle = torch.acos(cosang)
+    nan = torch.full_like(dx, float("nan"))
+    return torch.where(ok, slope, nan), torch.where(ok, angle, nan)
+
+
 def record(dg, spec: Spec, params: StepParams, state):
     """One yield of the measurement loop (grid_chain_sec11.py:366-402):
     (state with its accumulators advanced, {name: (C,) outputs})."""
-    if spec.record_interface:
-        raise ValueError("record_interface on the general path is not "
-                         "ported: it waits for ROADMAP.md A6b")
     i32 = torch.int32
     t = state.t_yield
     out = {"cut_count": state.cut_count, "b_count": state.b_count,
@@ -431,6 +517,8 @@ def record(dg, spec: Spec, params: StepParams, state):
         part_sum[ar, fi] += torch.where(has, -sign * (t - lf), 0).to(i32)
         last_flipped[ar, fi] = torch.where(has, t, lf)
         num_flips[ar, fi] += has.to(i32)
+    if spec.record_interface:
+        out["slope"], out["angle"] = interface_metrics(dg, state.cut)
     if spec.record_assignment_bits:
         bits = max(1, (spec.n_districts - 1).bit_length())
         if dg.n_nodes * bits > 32:

@@ -21,7 +21,7 @@ from .. import rng
 from ..convert import to_numpy
 from ..device import resolve_device
 from ..graphs.lattice import LatticeGraph
-from ..kernel import cuda_dense, cuda_summary, dense
+from ..kernel import cuda_dense, cuda_pair, cuda_summary, dense
 from ..kernel import step as kstep
 from ..state.chain_state import init_state
 
@@ -136,10 +136,17 @@ def _run_chunk(dg, spec, params, states, chunk: int, path: str,
                static=None, acc=None, keep_rows: bool = True):
     """``chunk`` rounds of transition and record: (states, {name: (T, C)},
     ``acc`` with the chunk's records folded in, or None).
-    ``general_dense`` on the card is the kernel (``static`` its tables),
-    which folds its own records; elsewhere the bodies run as torch ops
-    (``kernel/dense.py``, ``kernel/step.py``) and their rows go to
+    ``general_dense`` on the card is a kernel (``static`` its tables): the
+    2-district one folds its own records, the pair walk's rows go to the
+    standalone ``summary_fold`` launch; elsewhere the bodies run as torch
+    ops (``kernel/dense.py``, ``kernel/step.py``) and their rows go to
     ``summary_fold`` (the legacy body has no kernel yet, ROADMAP B9)."""
+    if isinstance(static, cuda_pair.PairStatic):
+        states, outs = cuda_pair.run_general_pair_chunk_cuda(
+            dg, static, spec, params, states, chunk)
+        if acc is not None:
+            acc = cuda_summary.summary_fold(acc, outs)
+        return states, outs, acc
     if static is not None:
         if acc is None:
             return (*cuda_dense.run_general_dense_chunk_cuda(
@@ -188,9 +195,10 @@ def run_chains(dg, spec, params, states, n_steps: int,
 
     ``kernel_path``: None resolves as the JAX package does
     (``resolve_kernel_path``). On the card the ``general_dense`` chunk is
-    the kernel of ``kernel/cuda_dense.py``, launched once a chunk; a spec
-    beyond its scope raises, naming the ROADMAP.md item, and the plain
-    dense version never runs in its place. The legacy body ('general')
+    the kernel of ``kernel/cuda_dense.py`` (the 2-district walk) or of
+    ``kernel/cuda_pair.py`` (the k-district pair walk), launched once a
+    chunk; a spec beyond its scope raises, naming the ROADMAP.md item, and
+    the plain dense version never runs in its place. The legacy body ('general')
     runs as torch ops on the run's device. The conn planes are attached
     on entry (by the kernel itself on its first chunk) and stripped on
     exit. ``analytics`` (a ``stats.accumulators.DeviceAnalytics`` on the
@@ -211,8 +219,12 @@ def run_chains(dg, spec, params, states, n_steps: int,
     dev = states.assignment.device
     static = None
     if path == "general_dense" and dev.type == "cuda":
-        cuda_dense.check(dg, spec, params)
-        static = cuda_dense.make_static_inputs(dg)
+        if spec.proposal == "pair":
+            cuda_pair.check(dg, spec, params)
+            static = cuda_pair.make_static_inputs(dg)
+        else:
+            cuda_dense.check(dg, spec, params)
+            static = cuda_dense.make_static_inputs(dg, spec)
     had_conn = states.conn_bits is not None
     if path == "general_dense" and static is None:
         states = dense.ensure_conn_bits(dg, spec, states)

@@ -49,7 +49,7 @@ import torch
 from ..device import resolve_device
 from ..experiments import driver as drv
 from ..experiments.config import ExperimentConfig
-from ..kernel import cuda_dense, cuda_lowered
+from ..kernel import cuda_dense, cuda_lowered, cuda_pair
 from ..sampling.board_runner import finalize_board_run, run_board_segment
 from ..sampling.runner import resolve_kernel_path, run_chains
 from . import queue as q
@@ -123,9 +123,10 @@ def _to_host(state):
 
 
 def _launch_count() -> int:
-    """Launches of the two chunk kernels a sweep runs, so far."""
+    """Launches of the chunk kernels a sweep runs, so far."""
     return (cuda_lowered.run_lowered_chunk_cuda.launches
-            + cuda_dense.run_general_dense_chunk_cuda.launches)
+            + cuda_dense.run_general_dense_chunk_cuda.launches
+            + cuda_pair.run_general_pair_chunk_cuda.launches)
 
 
 @dataclasses.dataclass

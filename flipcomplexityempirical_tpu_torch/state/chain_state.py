@@ -65,13 +65,36 @@ class ChainState:
         return dataclasses.replace(self, **kw)
 
 
-def b_nodes_count(cut_deg: torch.Tensor, proposal: str = "bi"):
-    """|b_nodes| of the 2-district 'bi' walk: the boundary nodes, per
-    chain. The pair walk's distinct (node, district) count waits for
-    ROADMAP.md A7."""
-    if proposal != "bi":
-        raise ValueError(f"proposal {proposal!r} is not ported: the pair "
-                         "walk waits for ROADMAP.md A7")
+def pair_move_mask(dg, assignment: torch.Tensor, k: int, nodes=None):
+    """bool (C, N, K) (or (C, R, K) for the (C, R) rows ``nodes``): the
+    k-district pair move set, district d present among node v's
+    neighbours and not v's own (the reference's b_nodes pair updater,
+    grid_chain_sec11.py:151-153: a set of distinct (node, district)
+    pairs)."""
+    a = assignment.to(torch.int64)
+    c, n = a.shape
+    if nodes is None:
+        nodes = torch.arange(n, device=a.device).expand(c, n)
+    nodes = nodes.to(torch.int64)
+    r = nodes.shape[1]
+    nbr = dg.nbr[nodes]                                  # (C, R, D)
+    nbm = dg.nbr_mask[nodes]
+    own = torch.gather(a, 1, nodes)                      # (C, R)
+    nbr_a = torch.gather(a, 1, nbr.reshape(c, -1)).reshape(nbr.shape)
+    ks = torch.arange(k, device=a.device)
+    has = ((nbr_a[..., None] == ks) & nbm[..., None]).any(dim=2)
+    return has & (ks != own[..., None]).reshape(c, r, k)
+
+
+def b_nodes_count(dg, assignment: torch.Tensor, cut_deg: torch.Tensor,
+                  k: int, proposal: str = "bi"):
+    """|b_nodes| per chain as the reference wires it for each walk:
+    boundary nodes for the 2-district 'bi' walk, distinct (node,
+    district) pairs for the k-district pair walk (the count geom_wait's
+    p = |b_nodes| / (n**k - 1) takes)."""
+    if proposal == "pair":
+        return pair_move_mask(dg, assignment, k).sum(
+            dim=(1, 2)).to(torch.int32)
     return (cut_deg > 0).sum(dim=-1).to(torch.int32)
 
 
@@ -87,7 +110,7 @@ def derive(dg, assignment: torch.Tensor, k: int, proposal: str = "bi"):
                            device=a.device)
     dist_pop.scatter_add_(1, a, dg.pop.expand_as(a).to(torch.int32))
     cut_count = cut.sum(dim=1).to(torch.int32)
-    b_count = b_nodes_count(cut_deg, proposal)
+    b_count = b_nodes_count(dg, a, cut_deg, k, proposal)
     return (cut.to(torch.int8), cut_deg.to(torch.int8), dist_pop, cut_count,
             b_count)
 

@@ -9,22 +9,35 @@ integer; such entries are counted, must be at most 1e-3 of all entries,
 and each must be off by exactly 1.0. A wait sum may differ by at most the
 number of such entries it contains. Interface metrics (slope, angle) are
 within 4 ulp, NaN exactly where the JAX value is NaN.
+
+The k-district walks' waits (``scaled``): the denominator n**k - 1 makes
+a wait large (~6e6 on the 144-node dual map at k = 4), and there four
+ulps of ``log``'s relative error move floor(log u / log1p(-p)) by
+|w| * 2**-21 or more, so a differing log crosses an integer on a share of
+the draws far above 1e-3, and the memoised wait repeats it on every
+yield until the next accept. There a differing entry must still be off
+by exactly 1.0, but entries whose reference wait is at least
+``WAIT_SCALED_FROM`` (2**21 * 1e-3) do not count toward the 1e-3 share;
+smaller ones do, as above.
 """
 
 import numpy as np
 
 WAIT_MISMATCH_SHARE = 1e-3
+WAIT_SCALED_FROM = 2 ** 21 * WAIT_MISMATCH_SHARE
 FLOAT_STATE = ("state_cur_wait", "state_waits_sum")
 
 
-def assert_waits_close(got, want, name="wait"):
-    """Per-entry wait comparison under the module's tolerance; returns
-    the boolean mask of differing entries."""
+def assert_waits_close(got, want, name="wait", scaled=False):
+    """Per-entry wait comparison under the module's tolerance (``scaled``:
+    the k-district walks' rule); returns the boolean mask of differing
+    entries."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape, (name, got.shape, want.shape)
     bad = got != want
-    n_bad = int(bad.sum())
+    counted = bad & (np.abs(want) < WAIT_SCALED_FROM) if scaled else bad
+    n_bad = int(counted.sum())
     assert n_bad <= WAIT_MISMATCH_SHARE * got.size, (
         f"{name}: {n_bad} of {got.size} entries differ")
     if n_bad:
@@ -83,17 +96,21 @@ def experiment_arrays(data: dict, wait_txt: str) -> dict:
     return out
 
 
-def assert_experiment_matches(got: dict, want: dict) -> int:
+def assert_experiment_matches(got: dict, want: dict,
+                              scaled_waits: bool = False) -> int:
     """Hold a run's arrays (``experiment_arrays``) against a fixture's:
-    the rules above, the wait totals and float state fields within the
-    number of differing waits of their chain, ``wait.txt`` equal unless a
-    tie was counted in chain 0. Returns the differing waits."""
+    the rules above (``scaled_waits``: the k-district walks' wait rule),
+    the wait totals and float state fields within the number of
+    differing waits of their chain, ``wait.txt`` equal unless a tie was
+    counted in chain 0. Returns the differing waits."""
     assert sorted(got) == sorted(want)
-    bad = assert_waits_close(got["hist_wait"], want["hist_wait"])
+    bad = assert_waits_close(got["hist_wait"], want["hist_wait"],
+                             scaled=scaled_waits)
     n_bad = bad.sum(axis=1)
     if "hist_weight" in want:                  # 1 + wait, lazy_uniform
         np.testing.assert_array_equal(assert_waits_close(
-            got["hist_weight"], want["hist_weight"], "weight"), bad)
+            got["hist_weight"], want["hist_weight"], "weight",
+            scaled=scaled_waits), bad)
     assert_wait_sums_close(got["waits_all"], want["waits_all"], n_bad)
     for k in ("slopes", "angles", "hist_slope", "hist_angle"):
         if k in want:
@@ -126,28 +143,35 @@ def state_dict(state) -> dict:
 
 
 def assert_chain_run_matches(got_state, got_hist: dict, got_waits,
-                             want_state, want_hist: dict, want_waits) -> int:
+                             want_state, want_hist: dict, want_waits,
+                             scaled: bool = False) -> int:
     """Hold a general-path run (final state, (C, T) history, f64 wait
     totals) against another under the module's rules: the waits (and the
-    lazy weights, 1 + wait) per the log-tie rule, the wait totals and the
+    lazy weights, 1 + wait) per the log-tie rule (``scaled``: the
+    k-district walks' rule), the wait totals and the
     float state fields within the number of differing waits of their
-    chain, every other field and history key equal in value. Returns the
-    differing waits."""
+    chain, the interface metrics (slope, angle) within 4 ulp with NaN
+    where the reference has NaN, every other field and history key equal
+    in value. Returns the differing waits."""
     got_state, want_state = state_dict(got_state), state_dict(want_state)
     assert sorted(got_hist) == sorted(want_hist)
     assert sorted(got_state) == sorted(want_state)
     n_bad = np.zeros(np.asarray(got_waits).shape[0], np.int64)
     if "wait" in want_hist:
-        bad = assert_waits_close(got_hist["wait"], want_hist["wait"])
+        bad = assert_waits_close(got_hist["wait"], want_hist["wait"],
+                                 scaled=scaled)
         n_bad = bad.sum(axis=1)
         if "weight" in want_hist:
             wbad = assert_waits_close(got_hist["weight"],
-                                      want_hist["weight"], "weight")
+                                      want_hist["weight"], "weight",
+                                      scaled=scaled)
             np.testing.assert_array_equal(wbad, bad)
     assert_wait_sums_close(got_waits, want_waits, n_bad)
     for k in ("cur_wait", "waits_sum"):
         assert_wait_sums_close(got_state[k], want_state[k], n_bad, name=k)
-    for k in sorted(set(want_hist) - {"wait", "weight"}):
+    for k in sorted(set(want_hist) & {"slope", "angle"}):
+        assert_ulps_close(got_hist[k], want_hist[k], name=k)
+    for k in sorted(set(want_hist) - {"wait", "weight", "slope", "angle"}):
         np.testing.assert_array_equal(np.asarray(got_hist[k]),
                                       np.asarray(want_hist[k]), err_msg=k)
     for k in sorted(set(want_state) - {"cur_wait", "waits_sum"}):

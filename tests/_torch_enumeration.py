@@ -20,7 +20,9 @@ chains, ``group_t`` holds E|cut| and every node's district-1 share to
 the sampling noise measured across groups of chains, and ``simulate``
 draws the exact chain itself, so that the CPU tests and
 ``python tests/_torch_enumeration.py`` show what that check passes and
-what it catches.
+what it catches. ``build_pair_transition`` and ``pair_pool_check`` do the
+same for the k-district pair walk (states as tuples of districts), with
+or without the boundary-length score.
 """
 
 import numpy as np
@@ -277,6 +279,93 @@ def build_dense_transition(graph, a0, base, pop_lo, pop_hi):
     if not np.allclose(P.sum(axis=1), 1.0):
         raise ValueError("transition rows do not sum to 1")
     return order, P, cuts
+
+
+def build_pair_transition(graph, a0, k, base, pop_lo, pop_hi,
+                          weighted=False):
+    """The states reachable from plan ``a0`` and the exact transition
+    matrix of the rejection-free k-district pair chain on ``graph``
+    (``kernel/dense.py``'s pair branch: uniform over the valid (node,
+    district) pairs, a district among the node's neighbours' and not its
+    own, both population bounds kept and the node's patch check passed;
+    then the literal accept ``base**(-score)``, the score the cut change
+    or, with ``weighted``, the change of the cut edges' ``edge_len``
+    sum). Returns (states as tuples of districts, P, cut counts)."""
+    n = graph.n_nodes
+    edges = np.asarray(graph.edges)
+    pop = np.asarray(graph.pop, np.float64)
+    elen = np.asarray(graph.edge_len, np.float64)
+
+    def score(a):
+        cut = a[edges[:, 0]] != a[edges[:, 1]]
+        return float(elen[cut].sum()) if weighted else float(cut.sum())
+
+    def valid(a):
+        dp = np.bincount(a, weights=pop, minlength=k)
+        out = []
+        for v in range(n):
+            nb = graph.nbr[v][graph.nbr_mask[v]]
+            if dp[a[v]] - pop[v] < pop_lo or not patch_ok(graph, a, v):
+                continue
+            for d in sorted(set(a[nb].tolist()) - {int(a[v])}):
+                if dp[d] + pop[v] <= pop_hi:
+                    out.append((v, d))
+        return out
+
+    s0 = tuple(int(x) for x in a0)
+    index, order, moves, todo = {s0: 0}, [s0], {}, [s0]
+    while todo:
+        m = todo.pop()
+        moves[m] = valid(np.array(m))
+        for v, d in moves[m]:
+            m2 = m[:v] + (d,) + m[v + 1:]
+            if m2 not in index:
+                index[m2] = len(order)
+                order.append(m2)
+                todo.append(m2)
+    arrs = [np.array(m) for m in order]
+    scores = np.array([score(a) for a in arrs])
+    cuts = np.array([int((a[edges[:, 0]] != a[edges[:, 1]]).sum())
+                     for a in arrs])
+    P = np.zeros((len(order), len(order)))
+    for i, m in enumerate(order):
+        mv = moves[m]
+        if not mv:
+            raise ValueError("an absorbing state in the closure")
+        for v, d in mv:
+            j = index[m[:v] + (d,) + m[v + 1:]]
+            acc = min(1.0, base ** float(scores[i] - scores[j]))
+            P[i, j] += acc / len(mv)
+            P[i, i] += (1.0 - acc) / len(mv)
+    if not np.allclose(P.sum(axis=1), 1.0):
+        raise ValueError("transition rows do not sum to 1")
+    return order, P, cuts
+
+
+def pair_pool_check(assignments, chain, states, pi, cuts, groups=GROUPS):
+    """(TV, relative E|cut| error, t statistics) of pooled k-district
+    assignments ((S, N) integer rows; ``chain`` each row's chain) against
+    the exact ``pi`` over ``states`` (tuples): the t of E|cut| (entry 0)
+    and of each node's mean district index, over ``groups`` disjoint sets
+    of chains, as ``group_t`` computes them. A row outside the state set
+    raises KeyError."""
+    index = {m: i for i, m in enumerate(states)}
+    idx = np.array([index[tuple(int(x) for x in r)] for r in assignments])
+    emp = np.bincount(idx, minlength=len(states)).astype(float)
+    emp /= emp.sum()
+    tv = 0.5 * np.abs(emp - pi).sum()
+    e_cut = float((pi * cuts).sum())
+    cut_err = abs(float((emp * cuts).sum()) - e_cut) / e_cut
+    chain = np.asarray(chain)
+    grp = chain * groups // (int(chain.max()) + 1)
+    counts = np.zeros((groups, len(states)))
+    np.add.at(counts, (grp, idx), 1.0)
+    gemp = counts / counts.sum(axis=1, keepdims=True)
+    obs = np.concatenate([np.asarray(cuts, float)[:, None],
+                          np.array(states, float)], axis=1)
+    means = gemp @ obs
+    se = means.std(axis=0, ddof=1) / np.sqrt(groups)
+    return tv, cut_err, (means.mean(axis=0) - pi @ obs) / se
 
 
 def simulate(P, start, chains=CHAINS, steps=SAMPLES, seed=0):

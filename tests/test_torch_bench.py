@@ -59,7 +59,12 @@ def _run(capsys, argv):
      ("general_dense", "general"), ("general_dense_chunk", None)),
     (["--grid", "6", "--general"], "flips_per_sec_per_chip_64x64",
      "general", None),
-], ids=["board", "pallas", "hex", "general"])
+    (["--grid", "4", "--graph", "hex", "--k", "4"],
+     "flips_per_sec_per_chip_hex", ("general_dense", "general"),
+     ("general_pair_chunk", None)),
+    (["--grid", "8", "--general", "--k", "4"],
+     "flips_per_sec_per_chip_64x64_pair_k4", "general", None),
+], ids=["board", "pallas", "hex", "general", "hex-k4", "general-k4"])
 def test_bench_cpu_headline(capsys, argv, metric, kernel_path, kernel):
     code, out, err = _run(capsys, TINY + argv)
     assert code == 0, err
@@ -106,7 +111,7 @@ def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--k", "3"], "A7"),
+    (["--k", "3"], "A7b"),
     (["--devstats"], "A11"), (["--mesh", "4"], "A10"),
     (["--service", "--events", "-"], "A11"), (["--adaptive"], "A11"),
     (["--workload-matrix"], "A11"), (["--workloads", "frank"], "A11"),
@@ -114,7 +119,7 @@ def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
     (["--profile", "p"], "A11"),
     (["--service", "--tenants", "8", "--profile", "p"], "A11"),
     (["--target-ess", "9"], "A11"), (["--target-rhat", "1.1"], "A11"),
-    (["--body", "int8"], "B7"), (["--k=3"], "A7"),
+    (["--body", "int8"], "B7"), (["--k=3"], "A7b"),
     (["--block-chains", "64"], "unrecognized arguments"),
 ])
 def test_bench_refuses_unported_flags(capsys, extra, item):

@@ -533,3 +533,98 @@ def test_general_dense_fused_fold_matches_history_launch(card, chains, t_len,
         torch.cuda.synchronize()
         _same_acc(acc, want)
         st = hist
+
+
+def _rows_equal(rows, wrows):
+    """Rows equal value for value, NaN where the plain version's are (the
+    kernel writes its own NaN bits)."""
+    assert sorted(rows) == sorted(wrows)
+    for k in rows:
+        a, b = rows[k], wrows[k]
+        if a.dtype.is_floating_point:
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+            ok = ~torch.isnan(b)
+            assert torch.equal(a[ok], b[ok]), k
+        else:
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder,planf,spec_kw,chains,t_len", [
+    ("grid_sec11", "sec11_plan", {"nobacktrack": True}, 8, 300),
+    ("frankengraph", "frank_plan", {"lazy_uniform": True}, 8, 300),
+    ("grid_sec11", "sec11_plan", {}, 300, 200),             # narrow form
+    ("frankengraph", "frank_plan", {"contiguity": "none"}, 64, 200),
+])
+def test_general_dense_interface_form_matches_plain_version(
+        card, builder, planf, spec_kw, chains, t_len):
+    """The interface form (record_interface): every state field and row,
+    slope and angle included, equal to the plain version, in two
+    chunks."""
+    g = getattr(graphs, builder)()
+    spec = Spec(record_interface=True, **spec_kw)
+    dg, st, params = init_batch(g, getattr(graphs, planf)(g, 0),
+                                n_chains=chains, seed=6, spec=spec,
+                                base=0.8, pop_tol=0.1, device=card)
+    static = cd.make_static_inputs(dg, spec)
+    for _ in range(2):
+        got, rows = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
+                                                    st, t_len)
+        want, wrows = cd.general_dense_chunk_reference(dg, spec, params, st,
+                                                       t_len)
+        torch.cuda.synchronize()
+        _same_states(got, want)
+        _rows_equal(rows, wrows)
+        st = got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,k,weighted,chains,t_len", [
+    (12, 4, True, 8, 400), (12, 8, True, 8, 400), (12, 3, False, 300, 200),
+    (6, 2, True, 64, 200)])
+def test_general_pair_kernel_matches_plain_version(card, side, k, weighted,
+                                                   chains, t_len):
+    """general_pair_chunk on a synthetic precinct map (populations that
+    vary by node, boundary lengths): every state field and row equal to
+    the plain version, in two chunks, one launch counted each."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_pair as cp
+    g, _ = graphs.from_geojson(graphs.synthetic_precincts(side, side, seed=1),
+                               pop_property="POP")
+    spec = Spec(n_districts=k, proposal="pair", weighted_cut=weighted)
+    dg, st, params = init_batch(g, graphs.stripes_plan(g, k),
+                                n_chains=chains, seed=7, spec=spec,
+                                base=2.0, pop_tol=0.3, device=card)
+    static = cp.make_static_inputs(dg)
+    for _ in range(2):
+        n0 = cp.run_general_pair_chunk_cuda.launches
+        got, rows = cp.run_general_pair_chunk_cuda(dg, static, spec, params,
+                                                   st, t_len)
+        assert cp.run_general_pair_chunk_cuda.launches == n0 + 1
+        want, wrows = cp.general_pair_chunk_reference(dg, spec, params, st,
+                                                      t_len)
+        torch.cuda.synchronize()
+        _same_states(got, want)
+        _rows_equal(rows, wrows)
+        st = got
+
+
+@pytest.mark.cuda
+def test_pair_runs_go_through_the_pair_kernel(card):
+    """run_chains on a 'pair' spec launches the pair kernel once a chunk
+    and, with analytics, folds each chunk's rows in one standalone fold
+    launch."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_pair as cp
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary as cs
+    from flipcomplexityempirical_tpu_torch.stats.accumulators import (
+        DeviceAnalytics)
+    g = graphs.hex_lattice(6, 8)
+    spec = Spec(n_districts=4, proposal="pair")
+    dg, st, params = init_batch(g, graphs.stripes_plan(g, 4), n_chains=16,
+                                seed=8, spec=spec, base=1.2, pop_tol=0.2,
+                                device=card)
+    an = DeviceAnalytics(16, observable="cut_count", device=card)
+    n0, f0 = cp.run_general_pair_chunk_cuda.launches, cs.summary_fold.launches
+    run_chains(dg, spec, params, st, n_steps=101, chunk=25,
+               record_history=False, analytics=an)
+    assert cp.run_general_pair_chunk_cuda.launches == n0 + 4
+    assert cs.summary_fold.launches == f0 + 5     # the initial record too

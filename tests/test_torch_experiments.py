@@ -7,6 +7,7 @@ every config of every sweep; everything else here is exact behaviour
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 
@@ -60,15 +61,16 @@ def test_sweep_sizes_and_constants():
 
 
 @pytest.mark.parametrize("kw, missing", [
-    (dict(family="kpair", n_districts=4), "A7"),
+    (dict(family="kpair", n_districts=4), "A7b"),
     (dict(family="tri", chain="recom"), "A9"),
-    (dict(family="dual", n_districts=4), "A7"),
+    (dict(family="kpair", n_districts=3), "A7b"),
     (dict(family="temper", betas=(1.0, 0.9), swap_every=10), "A8"),
-    (dict(family="frank", contiguity="exact"), "A6b"),
+    (dict(family="dual", n_districts=4, variant="nobacktrack"),
+     "2-district 'bi' walk"),
     (dict(family="frank", accept="corrected"), "B4"),
     (dict(family="sec11", chain="recom"), "A9"),
-    (dict(family="frank", variant="lazy"), "A6b"),
-    (dict(family="sec11", variant="nobacktrack"), "A6b"),
+    (dict(family="sec11", accept="corrected"), "B4"),
+    (dict(family="dual", n_districts=8, chain="recom"), "A9"),
 ], ids=lambda x: x if isinstance(x, str) else "-".join(
     f"{k}={v}" for k, v in x.items()))
 def test_unported_configs_are_refused(kw, missing, tmp_path):
@@ -140,15 +142,17 @@ def test_cli_refuses_unknown_tag(tmp_path):
 
 
 def test_cli_contiguity_is_patch_only(tmp_path, capsys):
-    """'exact' contiguity runs on the general path's legacy body: the CLI
-    offers it (tri and hex run it), but on the Frankengraph that path
-    would need the interface metrics, which wait for ROADMAP.md A6b, so
-    the sweep is refused before any config runs."""
+    """'exact' contiguity runs on the general path's legacy body, the
+    Frankengraph's with its interface metrics: the CLI runs a config of
+    it and writes its 13 artifacts; any other contiguity is refused by
+    the parser."""
     from flipcomplexityempirical_tpu_torch.experiments.__main__ import main
-    with pytest.raises(ValueError, match="A6b"):
-        main(["--family", "frank", "--contiguity", "exact", "--out",
-              str(tmp_path), "--device", "cpu"])
-    assert not os.listdir(tmp_path)
+    main(["--family", "frank", "--contiguity", "exact", "--only",
+          "0B30P50", "--steps", "30", "--chains", "1", "--out",
+          str(tmp_path), "--device", "cpu"])
+    assert len(os.listdir(tmp_path)) == 13
+    shutil.rmtree(tmp_path)
+    tmp_path.mkdir()
     with pytest.raises(SystemExit) as exc:
         main(["--family", "frank", "--contiguity", "ring", "--out",
               str(tmp_path), "--device", "cpu"])

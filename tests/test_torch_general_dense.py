@@ -193,12 +193,11 @@ def test_kernel_path_resolution_and_refusals():
     assert sampling.runner.resolve_kernel_path(dg, exact) == "general"
     with pytest.raises(ValueError, match="general_dense"):
         sampling.runner.resolve_kernel_path(dg, exact, "general_dense")
-    with pytest.raises(ValueError, match="A7"):
-        sampling.run_chains(dg, port.Spec(proposal="pair"), par, st, 3)
-    with pytest.raises(ValueError, match="A6b"):
-        sampling.run_chains(dg, port.Spec(record_interface=True), par, st, 3)
+    with pytest.raises(ValueError, match="cuda_pair"):
+        cuda_dense.check(dg, port.Spec(n_districts=3, proposal="pair"), par)
+    assert cuda_dense.supports(dg, port.Spec(record_interface=True))
     for kw, item in ((dict(accept="corrected"), "B4"),
-                     (dict(weighted_cut=True), "A7"),
+                     (dict(weighted_cut=True), "B4"),
                      (dict(record_assignment_bits=True), "B9")):
         assert not cuda_dense.supports(dg, port.Spec(**kw))
         with pytest.raises(ValueError, match=item):

@@ -154,10 +154,11 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
 def test_refusals_name_their_item():
     from flipcomplexityempirical_tpu_torch.experiments import (
         ExperimentConfig, driver)
-    for kw, item in ((dict(family="sec11", variant="lazy"), "A6b"),
-                     (dict(family="frank", contiguity="exact"), "A6b"),
-                     (dict(family="dual"), "A7"),
-                     (dict(family="kpair"), "A7")):
+    for kw, item in ((dict(family="dual", n_districts=4,
+                           variant="nobacktrack"), "2-district 'bi' walk"),
+                     (dict(family="temper"), "A8"),
+                     (dict(family="tri", chain="recom"), "A9"),
+                     (dict(family="kpair"), "A7b")):
         cfg = ExperimentConfig(alignment=0, base=1.0, pop_tol=0.1, **kw)
         with pytest.raises(ValueError, match=item):
             driver.spec_for(cfg)

@@ -107,10 +107,10 @@ def test_form_groups_is_the_jax_rule(tmp_path, max_chains, solo, want):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(family="temper", betas=(1.0, 0.9), swap_every=5), "A8"),
-    (dict(family="kpair", n_districts=4), "A7"),
-    (dict(family="dual", n_districts=4), "A7"),
+    (dict(family="kpair", n_districts=4), "A7b"),
+    (dict(family="dual", n_districts=4, chain="recom"), "A9"),
     (dict(family="frank", chain="recom"), "A9"),
-    (dict(family="frank", variant="nobacktrack"), "A6b"),
+    (dict(family="frank", variant="nobacktrack", chain="recom"), "A9"),
 ], ids=["temper", "kpair", "dual", "recom", "frank variant"])
 def test_submit_refuses_unported(tmp_path, kw, item):
     svc = SweepService(str(tmp_path), device="cpu")

@@ -6,12 +6,15 @@ runs, on the CPU (the kernels' plain versions).
   of chains): each tenant's rows equal the port's solo run of its config
   (``driver._run_torch``) bit for bit in every state field, history key,
   wait total and final accumulator, on the board path (frank,
-  ``lowered_bits``) and the general path (hex, ``general_dense``). The
+  ``lowered_bits``) and the general path (hex, ``general_dense``; the
+  dual graph's K4 pair walk, ``general_dense``). The
   first tenant is the config of a JAX-made fixture
   (``tests/fixtures/torch/experiment_frank.npz``: frank 0B30P50, 401
   steps, 2 chains, seed 0; ``experiment_hex.npz``: hex 6 x 10, 300 steps,
-  3 chains, seed 0) and equals it under ``_parity``'s rule (integers
-  bit-equal, waits under the log-tie rule).
+  3 chains, seed 0; ``experiment_dual.npz``: dual-K4-0B263P25, 401
+  steps, 2 chains, seed 0) and equals it under ``_parity``'s rule
+  (integers bit-equal, waits under the log-tie rule, the dual run's under
+  its ``scaled`` form).
 - A batch writes each tenant its own checkpoint, in the JAX package's
   format, from its sliced rows; a resubmission runs solo from it and ends
   where the batch ended.
@@ -48,6 +51,12 @@ RUNS = {
                  seed=0),
             dict(alignment=1, base=0.3, pop_tol=0.3, n_chains=2, seed=5),
             "general_dense"),
+    # the dual family's seed draws its map: tenants share it
+    "dual": (dict(family="dual", alignment=0, base=2.63815853,
+                  pop_tol=0.25, n_districts=4, total_steps=401, n_chains=2,
+                  seed=0),
+             dict(alignment=1, base=0.3, pop_tol=0.3, n_chains=3),
+             "general_dense"),
 }
 RESULT_KEYS = ("end_signed", "cut_times", "part_sum", "num_flips",
                "slopes", "angles", "waits_sum", "waits_all", "assignments")
@@ -120,9 +129,11 @@ def test_coalesced_batch_bit_identical_to_solo(which, tmp_path):
         assert len(job.result["waits_all"]) == cfg.n_chains
         assert_same_run(job.result, _solo(cfg))
     want = dict(np.load(FIXTURES / f"experiment_{which}.npz"))
-    want.pop("artifacts", None)
+    for k in ("artifacts", "compactness_json", "partisan_json"):
+        want.pop(k, None)
     assert_experiment_matches(
-        _fixture_arrays(cfgs[0], jobs[0].result, tmp_path), want)
+        _fixture_arrays(cfgs[0], jobs[0].result, tmp_path), want,
+        scaled_waits=which == "dual")
 
 
 @pytest.mark.parametrize("family", ["frank", "hex"])
