@@ -104,7 +104,8 @@ entry points a user calls, checks what comes out, and prints:
      against its plain version, every state field and history row equal
      (log ties counted) with one launch counted a call: hex 64x64 at
      C=256 after a 501-step warm-up, T=500; hex 14x28 at C=8 and the
-     experiment path's 2439-step chunk; tri 14x28 with ``nobacktrack``;
+     experiment path's 2439-step chunk (its plain version held after
+     phase 19); tri 14x28 with ``nobacktrack``;
      ``lazy_uniform``; contiguity 'none'; no valid move; a random
      population plane (the kernel's per-node population gate); the 1x2
      hex of phase 13; each case's launch shape (tables staged in shared
@@ -123,9 +124,10 @@ entry points a user calls, checks what comes out, and prints:
      version's ms and output from the same state (every state field and
      history row equal), its bound, the idle share of 1001 steps and the
      SM clock, its launch shape and cycles a step; the legacy body's ms a
-     step over 20 steps; then ``bench --graph hex --ess --steps 1001``
-     in a subprocess (the bench's 3001 timed steps cut to 1001: the
-     legacy body's leg of its race would take most of the time limit):
+     step over 20 steps; then ``bench --graph hex --ess --steps 1001
+     --repeats 1`` in a subprocess (the bench's two repeats of 3001 timed
+     steps cut to one of 1001: the legacy body's leg of its race would
+     take most of the time limit):
      the dense body raced against the legacy one, the dense body winning,
      its kernel launched once a timed chunk, and its ``cut_ess_per_sec``
      record as phase 8's;
@@ -158,10 +160,12 @@ entry points a user calls, checks what comes out, and prints:
      solo runs of the same configs; the idle share of each sweep's batch
      over 10,001 steps; lowered_chunk at the frank batch's shape (C=192,
      the 24 tenants' parameters, its 369-step chunk) and
-     general_dense_chunk at the hex batch's (C=32, its 2439-step chunk),
-     each against its plain version with one launch counted and timed
-     beside its bound, the dense kernel's launch shape and cycles a step; ``bench --service --steps 400`` in a subprocess,
-     its tenant_efficiency record;
+     general_dense_chunk at the hex batch's (C=32, its 2439-step chunk,
+     its plain version held after phase 19), each against its plain
+     version with one launch counted and timed beside its bound, the
+     dense kernel's
+     launch shape and cycles a step; ``bench --service --steps 400`` in
+     a subprocess, its tenant_efficiency record;
   15. the device analytics: ``summary_fold`` (``csrc/summary_fold.cu``)
      against its plain version (``stats/accumulators.py::fold_block``),
      every field, the buffer and the series bit-equal (NaN for NaN), one
@@ -186,22 +190,26 @@ entry points a user calls, checks what comes out, and prints:
      history-mode runs, one fused launch a chunk and one standalone fold
      launch (the run's one-row record), the seconds split, the readback
      bytes, and ``data["summary"]`` bit-equal to the plain fold of the
-     history-mode run's history on the card;
+     history-mode run's history on the card (held after phase 19);
   16. ``general_dense_chunk``'s interface form (``record_interface``:
      the slope and angle rows from a wall bitset a chain) against its plain
      version, every state field and row bit-equal, NaN for NaN, one launch
      counted a call and timed beside its bound: sec11 with
      ``nobacktrack`` and the Frankengraph with ``lazy_uniform`` at the
-     experiment path's shape (C=8, T=2439; the Frankengraph held to the
-     plain version over 1000 steps, its depth cut), sec11 at C=4096,
+     experiment path's shape (C=8, T=2439; their plain versions held
+     after phase 19), sec11 at C=4096,
      T=500 (``dense_turns.py`` times the hex instantiations, which have
      no walls, in turns against an earlier kernel);
   17. the pair walk's kernel, ``general_pair_chunk`` (the JAX package's
      dense step under proposal 'pair', ``kernel/dense.py:257``), against
      its plain version, bit-equal, one launch counted a call: the dual
-     sweep's K4 and K8 configs at their shape (144 nodes, C=8; held to the
-     plain version over 1000 steps, timed over the sweep's 2439),
-     hex 64x64 at k=4, C=4096, T=500 (timed beside its bound); then
+     sweep's K4 and K8 configs at their shape (144 nodes, C=8, T=2439;
+     their plain versions held after phase 19),
+     hex 64x64 at k=4, C=4096, T=500 (timed beside its bound), each with
+     its launch shape (tables staged or read through L1, bytes a chain,
+     chains a block, blocks an SM: more than 8 chains resident an SM at
+     hex 64x64), cycles a step at the SM clock under load and the full
+     recounts of its valid pairs in the chunk; then
      ``run_chains`` at that shape with the count zeroed just before and
      read just after (one launch a chunk): flips/s, peak memory, the
      distinct-pair count against a recount, the idle share;
@@ -219,7 +227,14 @@ entry points a user calls, checks what comes out, and prints:
      K4 and K8 tenants equal to their solo runs; sec11 with contiguity
      'exact' (the legacy body, 8 chains, 250 steps) equal to its run on
      the host;
-  20. the script's own total seconds, one JSON line per kernel table
+  20. the plain versions held in phases 10 and 14-17 (the experiment
+     path's 2439-step chunks at C=8 and C=32, whose plain versions take
+     ~13-18 ms a step on the host, and the plain folds of phase 15's
+     100,000-step histories), run at once after phase 19, one worker
+     process each (nothing is timed meanwhile; each plain time is a host
+     clock's beside the others'), each held to its kernel's output as in
+     its phase;
+  21. the script's own total seconds, one JSON line per kernel table
      (``{"kernels": [...]}``), then as the last line ``{"ok": true,
      "device": {...}}``.
 
@@ -238,6 +253,7 @@ prints no result.
 """
 
 import contextlib
+import io
 import json
 import pathlib
 import subprocess
@@ -316,6 +332,13 @@ FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
 # checkpoint after the first segment (tests/test_torch_experiments_
 # fixture.py), held under the CPU tests' tolerance.
 EXP_STEPS, EXP_CHAINS = 100_000, 8
+# The plain versions held (run in plain_jobs, all at once after phase 19,
+# one worker process each) rather than in their phase: those of the
+# experiment path's 2439-step chunks (phases 10, 14, 16 and 17), host-bound
+# at ~13-18 ms a step at C=8, and phase 15's plain folds of a 100,000-step
+# history; each is held to its kernel's output there
+PLAIN_JOBS = []
+PLAIN_JOB_TIMEOUT = 900
 EXP_RUNS = (("sec11", "0B263P10"), ("frank", "2B333P90"))
 EXP_CLI_TAG = "0B30P10"
 EXP_CKPT_EVERY = 25_000
@@ -440,6 +463,98 @@ def event_ms_once(fn) -> tuple:
     ev[1].record()
     torch.cuda.synchronize()
     return ev[0].elapsed_time(ev[1]), out
+
+
+def hold_plain(name: str, ref, args, check, defer: bool = False) -> float:
+    """The plain version ``ref(*args)`` (a module-level function of the
+    port) of kernel ``name`` and its host seconds handed to
+    ``check(want, seconds)``, which holds it to the kernel's output and
+    returns the largest difference: here and now, returning that, or with
+    ``defer`` queued for plain_jobs, the inputs saved as they are now
+    (returning 0.0; plain_jobs returns the difference)."""
+    import torch
+    if defer:
+        buf = io.BytesIO()
+        torch.save({"module": ref.__module__, "name": ref.__name__,
+                    "args": args}, buf)
+        PLAIN_JOBS.append((name, ref.__name__, buf.getvalue(), check))
+        return 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref(*args)
+    torch.cuda.synchronize()
+    return check(want, time.perf_counter() - t0)
+
+
+def plain_jobs(card: str) -> dict:
+    """Run every queued plain version at once, one worker process each
+    (``chip_smoke.py --plain-job IN OUT``: the call and its output go
+    through ``torch.save`` files under build/), then hand each output to
+    its check. Nothing is timed while they run; each worker times its own
+    call on the host's clock, beside the others. Returns the largest
+    difference the checks found, by kernel name."""
+    import tempfile
+
+    import torch
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        procs, paths = [], []
+        t0 = time.perf_counter()
+        try:
+            for i, (_, _, job, _) in enumerate(PLAIN_JOBS):
+                base = pathlib.Path(tmp) / f"plain{i}"
+                pathlib.Path(f"{base}.in").write_bytes(job)
+                err = open(f"{base}.err", "w")
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--plain-job", f"{base}.in", f"{base}.out"],
+                    cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err))
+                err.close()
+                paths.append(base)
+            deadline = time.monotonic() + PLAIN_JOB_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            fail(f"the plain versions did not finish within "
+                 f"{PLAIN_JOB_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        print(f"[{card}] plain versions held after phase 19: "
+              f"{len(procs)} at once, one worker process each, in "
+              f"{wall:.3f} s wall")
+        out = {}
+        for (name, ref, _, check), p, base in zip(PLAIN_JOBS, procs, paths):
+            if p.returncode != 0:
+                tail = pathlib.Path(f"{base}.err").read_text()[-2000:]
+                fail(f"the plain version {ref} of {name} exited "
+                     f"{p.returncode}:\n{tail}")
+            res = torch.load(f"{base}.out", map_location=DEVICE,
+                             weights_only=False)
+            out[name] = max(out.get(name, 0.0),
+                            check(res["out"], res["seconds"]))
+    PLAIN_JOBS.clear()
+    return out
+
+
+def plain_job(inp: str, out: str) -> None:
+    """A plain_jobs worker: load the call, run it, save its output and
+    host seconds."""
+    import importlib
+
+    import torch
+    job = torch.load(inp, weights_only=False)
+    ref = getattr(importlib.import_module(job["module"]), job["name"])
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    res = ref(*job["args"])
+    sync()
+    torch.save({"out": res, "seconds": time.perf_counter() - t0}, out)
 
 
 def compare_chunk(cb, args, label: str) -> float:
@@ -1868,10 +1983,11 @@ GEN_FAMILY_KW = {"tri": dict(family="tri"), "hex": dict(family="hex"),
 GEN_CKPT_FIXTURE = "tests/fixtures/torch/experiment_hex_ckpt"
 # the stationary check (phase 13): hex_lattice(1, 2), 10 nodes
 GEN_ENUM_BASES = (0.7, 1.0, 1.4)
-# bench --graph hex's timed steps here: the legacy body's leg of its race
-# takes ~31 s a 1000 steps, so the bench's 3001 are cut to 1001 to keep the
-# script's total under its limit
-GEN_BENCH_STEPS = 1001
+# bench --graph hex's timed steps and repeats here: the legacy body's leg
+# of its race takes 31-47 s a 1000 steps on the card's host, so the
+# bench's two repeats of 3001 steps are cut to one of 1001 (two chunks) to
+# keep the script's total well under its limit
+GEN_BENCH_STEPS, GEN_BENCH_REPEATS = 1001, 1
 GEN_ENUM_TOL = 0.5
 # Operations the general-dense function needs, counted on this run's data
 # (a floor):
@@ -1967,37 +2083,42 @@ def general_exactness(port, cd, sampling) -> float:
         torch.cuda.synchronize()
         if cd.run_general_dense_chunk_cuda.launches != n0 + 1:
             fail(f"{label}: the wrapper did not count its launch")
-        t0 = time.perf_counter()
-        want, wrows = cd.general_dense_chunk_reference(dg, spec, params, st,
-                                                       t_len)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        err = max(err, compare_general(
-            cd, got, rows, want, wrows,
-            f"{label} C={chains} T={t_len} (exhausted "
-            f"{int(got.exhausted_count.sum())}, accepted "
-            f"{int(got.accept_count.sum() - st.accept_count.sum())}; "
-            f"plain {plain_s:.3f} s)"))
+        exp_path = "experiment path" in label
+        timing_c = {"chains": chains, "chunk": t_len}
+
+        def check(want, secs, got=got, rows=rows, st=st, label=label,
+                  chains=chains, t_len=t_len, timing_c=timing_c):
+            timing_c["plain_ms"] = 1e3 * secs
+            return compare_general(
+                cd, got, rows, *want,
+                f"{label} C={chains} T={t_len} (exhausted "
+                f"{int(got.exhausted_count.sum())}, accepted "
+                f"{int(got.accept_count.sum() - st.accept_count.sum())}; "
+                f"plain {secs:.3f} s, host clock)")
+        # the experiment path's chunk held after phase 19 (plain_jobs)
+        err = max(err, hold_plain(
+            "general_dense_chunk", cd.general_dense_chunk_reference,
+            (dg, spec, params, st, t_len), check, defer=exp_path))
         if "no valid move" in label and not bool(
                 (got.exhausted_count == st.exhausted_count + t_len).all()):
             fail(f"{label}: a chain moved")
         run = (lambda dg=dg, static=static, spec=spec, params=params,
                got=got, t_len=t_len: cd.run_general_dense_chunk_cuda(
                    dg, static, spec, params, got, t_len))
-        ms = event_ms(run, 3 if "experiment path" in label else 1)
+        ms = event_ms(run, 3 if exp_path else 1)
         shapes.append((label, dg, chains, ms, t_len, run))
-        if "experiment path" in label:
+        if exp_path:
+            timed, _ = run()
             bound_ms, bound_by, _, _ = general_bound(
-                dg, spec, got, t_len,
-                int((got.accept_count - st.accept_count).sum()))
-            timing = {"chains": chains, "chunk": t_len, "ms": ms,
-                      "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
+                dg, spec, timed, t_len,
+                int((timed.accept_count - got.accept_count).sum()))
+            timing = timing_c
+            timing.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
             print(f"general_dense_chunk at the experiment path's shape "
                   f"(C={chains}, T={t_len}): {ms:.3f} ms per chunk (CUDA "
                   f"events, mean of 3, conn planes carried); plain version "
-                  f"{1e3 * plain_s:.3f} ms (host clock); bound "
-                  f"{bound_ms:.4e} ms ({bound_by})")
+                  f"held after phase 19; bound {bound_ms:.4e} ms "
+                  f"({bound_by})")
     # the launch shape of each case, cycles a step at the SM clock read
     # under the experiment path's load
     clocks = clocks_under_load(next(r for lb, *_, r in shapes
@@ -2100,7 +2221,8 @@ def check_table_path(shape: dict, label: str) -> None:
 
 def general_bench(root) -> dict:
     """``bench --graph hex --ess`` as a user runs it, cut to
-    GEN_BENCH_STEPS timed steps: the dense body raced against the legacy
+    GEN_BENCH_REPEATS repeat of GEN_BENCH_STEPS timed steps: the dense
+    body raced against the legacy
     one at 64 x 64, C=4096; the dense body must win and its kernel launch
     once a timed chunk; its cut_ess_per_sec record computed on the
     card."""
@@ -2110,7 +2232,8 @@ def general_bench(root) -> dict:
     out = subprocess.run([sys.executable, "-m",
                           "flipcomplexityempirical_tpu_torch.bench",
                           "--graph", "hex", "--ess", "--steps",
-                          str(GEN_BENCH_STEPS)], cwd=root,
+                          str(GEN_BENCH_STEPS), "--repeats",
+                          str(GEN_BENCH_REPEATS)], cwd=root,
                          capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
@@ -2127,7 +2250,9 @@ def general_bench(root) -> dict:
     if meta["launches"] != chunks or meta["chains"] != CHAINS:
         fail(f"bench --graph hex: {meta['launches']} launches for {chunks} "
              f"timed chunks at {meta['chains']} chains")
-    print(f"bench hex ({wall:.3f} s wall): {lines[-1]}")
+    print(f"bench hex ({wall:.3f} s wall; {GEN_BENCH_REPEATS} repeat of "
+          f"{GEN_BENCH_STEPS} timed steps, not the bench's 2 of 3001): "
+          f"{lines[-1]}")
     print(f"bench hex meta: {json.dumps(meta)}")
     return {**head, "chains": meta["chains"], "seconds": meta["seconds"],
             "seconds_by_body": meta["seconds_by_body"],
@@ -2696,21 +2821,29 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
             if cd.run_general_dense_chunk_cuda.launches != n0 + 1:
                 fail("general_dense_chunk at the batched shape: the wrapper "
                      "did not count its launch")
-            t0 = time.perf_counter()
-            want, wrows = cd.general_dense_chunk_reference(
-                handle, spec, params, states, t_len)
-            torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - t0)
-            err = compare_general(cd, got, grows, want, wrows,
-                                  f"[{card}] at the hex sweep's batch C={c} "
-                                  f"T={t_len}")
+            row = rows["hex"] = {}
+
+            def check(want, secs, got=got, grows=grows, c=c, t_len=t_len,
+                      row=row):
+                row["plain_ms"] = 1e3 * secs
+                row["max_abs_err"] = compare_general(
+                    cd, got, grows, *want,
+                    f"[{card}] at the hex sweep's batch C={c} T={t_len} "
+                    f"(plain {secs:.3f} s, host clock)")
+                return row["max_abs_err"]
+            # held after phase 19 (plain_jobs)
+            hold_plain("general_dense_chunk", cd.general_dense_chunk_reference,
+                       (handle, spec, params, states, t_len), check,
+                       defer=True)
+            plain_ms, err = None, 0.0
             def run():
                 return cd.run_general_dense_chunk_cuda(
                     handle, static, spec, params, got, t_len)
             ms = event_ms(run, 3)
+            timed, _ = run()
             bound_ms, bound_by, _, _ = general_bound(
-                handle, spec, got, t_len,
-                int((got.accept_count - states.accept_count).sum()))
+                handle, spec, timed, t_len,
+                int((timed.accept_count - got.accept_count).sum()))
             name = "general_dense_chunk"
             clocks = clocks_under_load(run, 100)
             label = "at the hex sweep's batch (hex 14x28)"
@@ -2726,15 +2859,18 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
         if n_base < 2 or (family == "frank" and n_lo < 2):
             fail(f"{name} at the {family} batch: the tenants' parameters do "
                  f"not differ ({n_lo} pop_lo, {n_base} log_base values)")
+        plain = (f"plain version {plain_ms:.3f} ms (host clock)"
+                 if plain_ms is not None else "plain version held after "
+                 "phase 19")
         print(f"[{card}] {name} at the {family} sweep's batch (C={c}, "
               f"{len(prepared)} tenants: {n_lo} pop_lo and {n_base} "
               f"log_base values, T={t_len}): {ms:.4f} ms per chunk (CUDA "
-              f"events); plain version {plain_ms:.3f} ms (host clock); "
-              f"bound {bound_ms:.4e} ms ({bound_by})")
-        rows[family] = {"chains": c, "chunk": t_len, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "max_abs_err": err,
-                        "launches": 1}
+              f"events); {plain}; bound {bound_ms:.4e} ms ({bound_by})")
+        rows.setdefault(family, {}).update(
+            {"chains": c, "chunk": t_len, "ms": ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "launches": 1})
+        if plain_ms is not None:
+            rows[family].update(plain_ms=plain_ms, max_abs_err=err)
         if family == "hex":
             rows[family]["shape"] = shape
     return rows
@@ -3129,16 +3265,26 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                     fail(f"summary {tag}: series {k} differs")
             rows = {k: torch.as_tensor(hist[k], device=DEVICE).T.contiguous()
                     for k in ("cut_count", "wait", "accepts")}
-            t1 = time.perf_counter()
-            ref = sacc.summary_host(sacc.fold_block(
-                sacc.init_summary(cfg.n_chains, device=DEVICE), rows))
-            plain_s = time.perf_counter() - t1
-            for k in sacc.SUMMARY_FIELDS:
-                a, b = np.asarray(data["summary"][k]), ref[k]
-                if a.dtype != b.dtype or not np.array_equal(
-                        a.view(np.int32), b.view(np.int32)):
-                    fail(f"summary {tag}: data['summary'][{k!r}] differs "
-                         "from the plain fold of the history")
+            result = results[tag] = {}
+
+            def check(want, secs, tag=tag, family=family,
+                      summary=data["summary"], result=result):
+                ref = sacc.summary_host(want)
+                for k in sacc.SUMMARY_FIELDS:
+                    a, b = np.asarray(summary[k]), ref[k]
+                    if a.dtype != b.dtype or not np.array_equal(
+                            a.view(np.int32), b.view(np.int32)):
+                        fail(f"summary {tag}: data['summary'][{k!r}] "
+                             "differs from the plain fold of the history")
+                result["plain_fold_s"] = secs
+                print(f"[{card}] summary {family} {tag}: data['summary'] "
+                      f"bit-equal to the plain fold of the history-mode "
+                      f"run's history ({secs:.3f} s, host clock)")
+                return 0.0
+            # held after phase 19 (plain_jobs)
+            hold_plain("summary_fold", sacc.fold_block,
+                       (sacc.init_summary(cfg.n_chains, device=DEVICE),
+                        rows), check, defer=True)
             run_s, render_s = data["seconds"], data["render_seconds"]
             fps = cfg.n_chains * (cfg.total_steps - 1) / run_s
             print(f"[{card}] summary {family} {tag} ({cfg.n_chains} chains "
@@ -3151,13 +3297,13 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                   f"readback "
                   f"{data['readback_bytes']} bytes; "
                   f"{len(got)} artifacts byte-equal to the history mode's; "
-                  f"data['summary'] bit-equal to the plain fold of the "
-                  f"history ({plain_s:.3f} s)")
-            results[tag] = dict(wall_s=wall, run_s=run_s, render_s=render_s,
-                                history_run_s=solo[tag]["seconds"],
-                                flips_per_s=fps, chunks=chunks,
-                                launches=folds, fused_launches=fused,
-                                readback_bytes=data["readback_bytes"])
+                  f"data['summary'] held to the plain fold of the history "
+                  f"after phase 19")
+            result.update(wall_s=wall, run_s=run_s, render_s=render_s,
+                          history_run_s=solo[tag]["seconds"],
+                          flips_per_s=fps, chunks=chunks, launches=folds,
+                          fused_launches=fused,
+                          readback_bytes=data["readback_bytes"])
     return results
 
 
@@ -3194,28 +3340,24 @@ def summary_phase(port, ex, drv, gsampling, cl, cd, solo: dict,
 # variant and exact-contiguity runs end to end
 # ---------------------------------------------------------------------------
 
-# (label, graph, plan, spec keywords, base, pop_tol, chains, chunk, the
-# steps held to the plain version) of the interface form's exactness and
-# timing cases: sec11 0B263P10 and the Frankengraph 0B30P50 with a
-# proposal variant, at the experiment path's shape (pick_chunk(100000,
-# 4096) = 2439) and at the main path's. The plain version takes ~13 ms a
-# step at C=8 on the card's host, so the Frankengraph's comparison is cut
-# to 1000 steps (so that the script's total stays under 1000 s)
+# (label, graph, plan, spec keywords, base, pop_tol, chains, chunk) of
+# the interface form's exactness and timing cases: sec11 0B263P10 and the
+# Frankengraph 0B30P50 with a proposal variant, at the experiment path's
+# shape (pick_chunk(100000, 4096) = 2439; their plain versions held after
+# phase 19) and at the main path's
 IFACE_CASES = (
     ("sec11 nobacktrack, the experiment path's shape", "grid_sec11",
-     "sec11_plan", dict(nobacktrack=True), BASE, 0.1, 8, 2439, 2439),
+     "sec11_plan", dict(nobacktrack=True), BASE, 0.1, 8, 2439),
     ("frankengraph lazy_uniform, the experiment path's shape",
      "frankengraph", "frank_plan", dict(lazy_uniform=True), 0.3, 0.5, 8,
-     2439, 1000),
+     2439),
     ("sec11 nobacktrack, the main path's shape", "grid_sec11", "sec11_plan",
-     dict(nobacktrack=True), BASE, 0.1, CHAINS, CHUNK, CHUNK),
+     dict(nobacktrack=True), BASE, 0.1, CHAINS, CHUNK),
 )
-# the pair kernel's cases: the dual sweep's configs at the sweep's shape,
-# then the full-width 64 x 64 hex lattice at k = 4; the dual cases are
-# held to the plain version over PAIR_DUAL_CMP steps and timed over the
-# sweep's 2439 (the same depth cut as IFACE_CASES' Frankengraph)
+# the pair kernel's cases: the dual sweep's configs at the sweep's shape
+# (C=8, T=2439; their plain versions held after phase 19), then the
+# full-width 64 x 64 hex lattice at k = 4
 PAIR_DUAL = (("dual-K4-0B263P25", 4), ("dual-K8-0B263P25", 8))
-PAIR_DUAL_CMP = 1000
 PAIR_HEX = dict(m=64, k=4, chains=CHAINS, chunk=CHUNK, tol=0.1, steps=1001)
 # exact distributions: (label, graph maker, k, base, pop_tol, weighted)
 PAIR_ENUM = (("3x3 grid k=3", "grid", 3, 1.5, 0.5, False),
@@ -3239,8 +3381,9 @@ EXACT_LEGACY = dict(chains=8, steps=250, base=BASE, pop_tol=0.1)
 # pair count by the change of those rows. No per-node term: the population
 # gates change only with the two tallies a move touches, and the nodes
 # that pass a gate can be counted from an order by population without a
-# visit to each node, so this kernel's rebuild of every node's valid pairs
-# after an accepted move is its design's cost, not the function's.
+# visit to each node, so a recount of every node's valid pairs after a
+# move (the kernel's under a population that varies by node) is a
+# design's cost, not the function's.
 K_PNODE = 6
 
 
@@ -3283,8 +3426,8 @@ def interface_phase(port, cd, sampling) -> dict:
     instantiations in turns against an older kernel.)"""
     import torch
     out = {"cases": []}
-    for (label, gname, planf, kw, base, tol, chains, t_len,
-         t_cmp) in IFACE_CASES:
+    for (label, gname, planf, kw, base, tol, chains,
+         t_len) in IFACE_CASES:
         g = getattr(port.graphs, gname)()
         plan = getattr(port.graphs, planf)(g, 0)
         spec = port.Spec(record_interface=True, **kw)
@@ -3294,18 +3437,25 @@ def interface_phase(port, cd, sampling) -> dict:
         static = cd.make_static_inputs(dg, spec)
         n0 = cd.run_general_dense_chunk_cuda.launches
         got, rows = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
-                                                    st, t_cmp)
+                                                    st, t_len)
         torch.cuda.synchronize()
         if cd.run_general_dense_chunk_cuda.launches != n0 + 1:
             fail(f"interface {label}: the wrapper did not count its launch")
-        t0 = time.perf_counter()
-        want, wrows = cd.general_dense_chunk_reference(dg, spec, params, st,
-                                                       t_cmp)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0) * t_len / t_cmp
-        compare_general(cd, got, rows, want, wrows,
-                        f"interface form, {label} C={chains} T={t_cmp}")
-        rows_bit_equal(rows, wrows, f"interface {label}")
+        case = {"case": label, "chains": chains, "chunk": t_len}
+
+        def check(want, secs, got=got, rows=rows, label=label,
+                  chains=chains, t_len=t_len, case=case):
+            case["plain_ms"] = 1e3 * secs
+            err = compare_general(cd, got, rows, *want,
+                                  f"interface form, {label} C={chains} "
+                                  f"T={t_len} (plain {secs:.3f} s, host "
+                                  f"clock)")
+            rows_bit_equal(rows, want[1], f"interface {label}")
+            return err
+        # the experiment path's chunks held after phase 19 (plain_jobs)
+        hold_plain("general_dense_chunk", cd.general_dense_chunk_reference,
+                   (dg, spec, params, st, t_len), check,
+                   defer=t_len > CHUNK)
         nan = int(torch.isnan(rows["slope"]).sum())
         run = (lambda dg=dg, static=static, spec=spec, params=params,
                got=got, t_len=t_len: cd.run_general_dense_chunk_cuda(
@@ -3317,30 +3467,25 @@ def interface_phase(port, cd, sampling) -> dict:
             int((timed.accept_count - got.accept_count).sum()))
         shape = cd.launch_shape(dg, chains, iface=True)
         print(f"general_dense_chunk interface form, {label} (C={chains}, "
-              f"T={t_len}): slope and angle bit-equal, {nan} NaN rows of "
+              f"T={t_len}): {nan} NaN slope rows of "
               f"{rows['slope'].numel()}; {ms:.4f} ms per chunk (CUDA "
-              f"events, mean of 3); plain version {plain_ms:.3f} ms (host "
-              f"clock, {t_cmp} steps scaled to {t_len}); bound "
-              f"{bound_ms:.4e} ms ({bound_by}); tables "
+              f"events, mean of 3); bound {bound_ms:.4e} ms ({bound_by}); "
+              f"tables "
               f"{'staged' if shape['staged'] else 'read through L1'}, "
               f"{shape['chains_per_block']} chain(s) a block, "
               f"{shape['blocks_per_sm']} block(s) an SM")
-        out["cases"].append({"case": label, "chains": chains, "chunk": t_len,
-                             "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by,
-                             "nan_rows": nan})
+        case.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                    nan_rows=nan)
+        out["cases"].append(case)
     return out
 
 
-def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
-    """Phase 17: general_pair_chunk against its plain version at the dual
-    sweep's shape (k = 4 and 8, C=8; PAIR_DUAL_CMP steps compared, the
-    sweep's 2439 timed) and at the full-width hex
-    64 x 64, k = 4, C=4096, T=500 (timed beside its bound), each launch
-    counted; then run_chains at that shape with the count zeroed just
-    before: flips/s, launches a chunk, peak memory and idle share."""
-    import torch
-    err, cases = 0.0, []
+def pair_cases(port, drv, ex, sampling) -> list:
+    """(label, graph handle, spec, params, state, T) of the pair kernel's
+    main-path shapes: the dual sweep's
+    K4 and K8 configs (144 nodes, C=8, T=2439) and hex 64 x 64, k = 4,
+    C=4096, T=500 after a 501-step warm-up (dense_turns.py times them too)."""
+    cases = []
     for tag, k in PAIR_DUAL:
         cfg = next(c for c in ex.SWEEPS["dual"](total_steps=EXP_STEPS,
                                                  n_chains=EXP_CHAINS)
@@ -3352,7 +3497,7 @@ def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
             base=cfg.base, pop_tol=cfg.pop_tol, device=DEVICE)
         t_len = sampling.runner.pick_chunk(EXP_STEPS, 4096)
         cases.append((f"{tag} (the dual sweep's shape)", dg, spec, params,
-                      st, t_len, PAIR_DUAL_CMP))
+                      st, t_len))
     m, k = PAIR_HEX["m"], PAIR_HEX["k"]
     g = port.graphs.hex_lattice(m, m)
     spec = port.Spec(n_districts=k, proposal="pair")
@@ -3363,43 +3508,79 @@ def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
     st = sampling.run_chains(dg, spec, params, st, n_steps=CHUNK + 1,
                              chunk=CHUNK, record_history=False).state
     cases.append((f"hex {m}x{m} k={k} (the full-width path)", dg, spec,
-                  params, st, PAIR_HEX["chunk"], PAIR_HEX["chunk"]))
+                  params, st, PAIR_HEX["chunk"]))
+    return cases
+
+
+def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
+    """Phase 17: general_pair_chunk against its plain version at the dual
+    sweep's shape (k = 4 and 8, C=8, T=2439; their plain versions held
+    after phase 19) and at the full-width hex
+    64 x 64, k = 4, C=4096, T=500 (timed beside its bound), each launch
+    counted; then run_chains at that shape with the count zeroed just
+    before: flips/s, launches a chunk, peak memory and idle share."""
+    import torch
+    err = 0.0
+    cases = pair_cases(port, drv, ex, sampling)
+    m, k = PAIR_HEX["m"], PAIR_HEX["k"]
     timing = {}
-    for label, dg, spec, params, st, t_len, t_cmp in cases:
+    for label, dg, spec, params, st, t_len in cases:
         static = cp.make_static_inputs(dg)
         n0 = cp.run_general_pair_chunk_cuda.launches
         got, rows = cp.run_general_pair_chunk_cuda(dg, static, spec, params,
-                                                   st, t_cmp)
+                                                   st, t_len)
         torch.cuda.synchronize()
         if cp.run_general_pair_chunk_cuda.launches != n0 + 1:
             fail(f"pair {label}: the wrapper did not count its launch")
-        t0 = time.perf_counter()
-        want, wrows = cp.general_pair_chunk_reference(dg, spec, params, st,
-                                                      t_cmp)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0) * t_len / t_cmp
-        err = max(err, compare_general(
-            cp, got, rows, want, wrows, f"{label} C={st.n_chains} T={t_cmp}",
-            name="general_pair_chunk"))
+        case = timing[label] = {"chains": st.n_chains, "chunk": t_len}
+
+        def check(want, secs, got=got, rows=rows, label=label, c=st.n_chains,
+                  t_len=t_len, case=case):
+            case["plain_ms"] = 1e3 * secs
+            return compare_general(
+                cp, got, rows, *want, f"{label} C={c} T={t_len} (plain "
+                f"{secs:.3f} s, host clock)", name="general_pair_chunk")
+        # the dual sweep's chunks held after phase 19 (plain_jobs)
+        err = max(err, hold_plain(
+            "general_pair_chunk", cp.general_pair_chunk_reference,
+            (dg, spec, params, st, t_len), check, defer=t_len > CHUNK))
         run = (lambda dg=dg, static=static, spec=spec, params=params,
                got=got, t_len=t_len: cp.run_general_pair_chunk_cuda(
                    dg, static, spec, params, got, t_len))
         ms = event_ms(run, 3)
-        timed, _ = run()
+        rc = torch.zeros(st.n_chains, dtype=torch.int32, device=DEVICE)
+        timed, _ = cp.run_general_pair_chunk_cuda(dg, static, spec, params,
+                                                  got, t_len, recounts=rc)
         accepted = int((timed.accept_count - got.accept_count).sum())
+        recounts = int(rc.sum())
         bound_ms, bound_by = pair_bound(dg, spec, timed, t_len, accepted)
-        shape = cp.launch_shape(dg, st.n_chains)
+        shape = cp.launch_shape(dg, st.n_chains, spec.n_districts)
+        resident = shape["chains_per_block"] * shape["blocks_per_sm"]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        mhz = sm_mhz(clocks_under_load(run, max(20, int(400 / ms))))
+        cyc = ms * 1e3 * mhz / t_len if mhz else None
         print(f"general_pair_chunk {label} (C={st.n_chains}, T={t_len}, "
               f"{dg.n_nodes} nodes, {accepted} accepted moves): {ms:.4f} ms "
-              f"per chunk (CUDA events, mean of 3); plain version "
-              f"{plain_ms:.3f} ms (host clock, {t_cmp} steps scaled to "
-              f"{t_len}); bound {bound_ms:.4e} ms "
-              f"({bound_by}); {shape['smem_bytes']} B of shared memory a "
-              f"block, {shape['chains_per_block']} chain(s) a block, "
-              f"{shape['blocks_per_sm']} block(s) an SM")
-        timing[label] = {"chains": st.n_chains, "chunk": t_len, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "shape": shape}
+              f"per chunk (CUDA events, mean of 3); bound "
+              f"{bound_ms:.4e} ms ({bound_by}); tables "
+              f"{'staged' if shape['staged'] else 'read through L1'}, "
+              f"{shape['chain_bytes']} B a chain, {shape['smem_bytes']} B "
+              f"of shared memory a block, {shape['chains_per_block']} "
+              f"chain(s) a block"
+              f"{' with a draws warp' if shape['producer'] else ''}, "
+              f"{shape['blocks_per_sm']} block(s) an SM ({resident} chains "
+              f"resident an SM, {-(-st.n_chains // (sms * resident))} "
+              f"wave(s) on {sms} SMs); "
+              + (f"{cyc:.1f} cycles a step at {mhz:.0f} MHz" if cyc else
+                 "cycles a step not measured (no SM clock read)")
+              + f"; {recounts} full recounts in the chunk "
+              f"({recounts / st.n_chains:.2f} a chain)")
+        if label.startswith("hex") and resident <= 8:
+            fail(f"general_pair_chunk {label}: {resident} chains resident "
+                 "an SM, not more than 8")
+        case.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                    shape=shape, cycles_per_step=cyc, sm_mhz=mhz,
+                    recounts=recounts, accepted=accepted)
     # the full-width path through run_chains, the count zeroed just before
     steps = PAIR_HEX["steps"]
     torch.cuda.synchronize()
@@ -3678,7 +3859,12 @@ def main() -> None:
     ap.add_argument("--baseline-lowered", metavar="LOWERED_CHUNK_CU",
                     help="an earlier csrc/lowered_chunk.cu (the same C "
                     "interface) to check and time beside the current one")
+    ap.add_argument("--plain-job", nargs=2, metavar=("IN", "OUT"),
+                    help=argparse.SUPPRESS)     # a plain_jobs worker
     opts = ap.parse_args()
+    if opts.plain_job:
+        plain_job(*opts.plain_job)
+        return
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -3910,6 +4096,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         pair["runs"] = new_runs_phase(port.experiments, drv, cp, cd,
                                       gsampling, tmp, card)
+    # the plain versions held in phases 10, 14, 15, 16 and 17
+    held = plain_jobs(card)
+    general["max_abs_err"] = max(general["max_abs_err"],
+                                 held.get("general_dense_chunk", 0.0))
+    pair["max_abs_err"] = max(pair["max_abs_err"],
+                              held.get("general_pair_chunk", 0.0))
     sweeps = service["sweeps"]
     per_graph["service"] = {
         "launches": sum(sweeps[f]["launches"] for f in ("sec11", "frank",

@@ -1,18 +1,22 @@
-"""Time ``general_dense_chunk`` against an earlier version of itself, in
-turns, on one card.
+"""Time ``general_dense_chunk`` and ``general_pair_chunk`` against earlier
+versions of themselves, in turns, on one card.
 
     git archive <commit> flipcomplexityempirical_tpu_torch | tar -x -C build/old
     python3 dense_turns.py --old build/old
 
 The earlier package is copied to ``build/turns/fce_old_torch`` and its
-kernel built from its own sources. At the kernel's three main-path shapes
-(``chip_smoke.py``'s: a hex config's chunk, hex 14x28, C=8, T=2439; the
-hex sweep's batch; the general main path's, hex 64x64, C=4096, T=500
-after a warm-up), both kernels run the same chunk from the same state and
-must give equal outputs; then each is timed with CUDA events, old, new,
-new, old, ``--rounds`` times. Prints the card's name and power limit, each
+kernels built from its own sources. At each kernel's main-path shapes
+(``chip_smoke.py``'s; the dense kernel: a hex config's chunk, hex 14x28,
+C=8, T=2439, the hex sweep's batch, and the general main path's, hex
+64x64, C=4096, T=500 after a warm-up; the pair kernel: the dual sweep's
+K4 and K8 configs, C=8, T=2439, and hex 64x64, k = 4, C=4096, T=500 after
+a warm-up), both versions run the same chunk from the same state and must
+give equal outputs; then each is timed with CUDA events, old, new, new,
+old, ``--rounds`` times. Prints the card's name and power limit, each
 round's ms a chunk, and the SM clock under the new kernel with its cycles
-a step. Needs a CUDA card; exits 1 without one.
+a step and launch shape.
+
+Needs a CUDA card; exits 1 without one.
 """
 
 import argparse
@@ -29,7 +33,8 @@ FIELDS = ("key", "assignment", "cut", "cut_deg", "dist_pop", "cut_count",
 
 
 def shapes(port, sampling, ex):
-    """(label, graph handle, spec, params, state, T) of the three shapes."""
+    """(label, graph handle, spec, params, state, T) of the dense kernel's
+    three shapes."""
     out = []
     for label, mn, chains, tol, base, t_len, warm in (
             ("hex 14x28 C=8", (14, 28), 8, 0.1, 1 / 0.3, 2439, 0),
@@ -48,6 +53,35 @@ def shapes(port, sampling, ex):
     return out
 
 
+def same_chunk(got, rows, want, wrows) -> bool:
+    import torch
+    return (all(torch.equal(getattr(got, f), getattr(want, f))
+                for f in FIELDS)
+            and all(torch.equal(rows[k], wrows[k]) for k in wrows))
+
+
+def in_turns(label, t_len, new, old, line_of, opts) -> None:
+    """Equal outputs, then old, new, new, old ``opts.rounds`` times."""
+    (got, rows), (want, wrows) = new(), old()
+    if not same_chunk(got, rows, want, wrows):
+        cs.fail(f"{label}: the two kernels' outputs differ")
+    times = {"old": [], "new": []}
+    for _ in range(opts.rounds):
+        for name, fn in (("old", old), ("new", new), ("new", new),
+                         ("old", old)):
+            fn()
+            times[name].append(cs.event_ms(fn, opts.reps))
+    ms = sorted(times["new"])[len(times["new"]) // 2]
+    clocks = cs.clocks_under_load(new, max(20, int(400 / ms)))
+    print(f"{label} T={t_len}: outputs equal; old "
+          + ", ".join(f"{x:.4f}" for x in times["old"]) + " ms; new "
+          + ", ".join(f"{x:.4f}" for x in times["new"])
+          + f" ms (CUDA events, {opts.reps} launches each, in turns "
+          f"old, new, new, old); SM clock, power under the new "
+          f"kernel: {clocks}; new {line_of(ms, cs.sm_mhz(clocks))}",
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, help="a directory holding an "
@@ -62,49 +96,51 @@ def main() -> None:
     import flipcomplexityempirical_tpu_torch as port
     from flipcomplexityempirical_tpu_torch import experiments as ex
     from flipcomplexityempirical_tpu_torch import sampling
+    from flipcomplexityempirical_tpu_torch.experiments import driver as drv
     from flipcomplexityempirical_tpu_torch.kernel import cuda_dense as cd
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_pair as cp
     dst = cs.ROOT / "build" / "turns" / "fce_old_torch"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(
         pathlib.Path(opts.old) / "flipcomplexityempirical_tpu_torch", dst)
     sys.path.insert(0, str(dst.parent))
     from fce_old_torch.kernel import cuda_dense as old_cd
+    from fce_old_torch.kernel import cuda_pair as old_cp
     print(cs.card_line())
     for label, dg, spec, params, st, t_len in shapes(port, sampling, ex):
         static, old_static = (cd.make_static_inputs(dg),
                               old_cd.make_static_inputs(dg))
         st, _ = cd.run_general_dense_chunk_cuda(dg, static, spec, params,
                                                 st, t_len)
+        in_turns(
+            label, t_len,
+            lambda: cd.run_general_dense_chunk_cuda(
+                dg, static, spec, params, st, t_len),
+            lambda: old_cd.run_general_dense_chunk_cuda(
+                dg, old_static, spec, params, st, t_len),
+            lambda ms, mhz: cs.dense_shape(cd, dg, st.key.shape[0], ms,
+                                           t_len, mhz)[1], opts)
+    cases = cs.pair_cases(port, drv, ex, sampling)
+    for label, dg, spec, params, st, t_len in cases:
+        static, old_static = (cp.make_static_inputs(dg),
+                              old_cp.make_static_inputs(dg))
+        k = spec.n_districts
 
-        def new():
-            return cd.run_general_dense_chunk_cuda(dg, static, spec, params,
-                                                   st, t_len)
+        def line(ms, mhz, dg=dg, c=st.key.shape[0], t_len=t_len, k=k):
+            shape = cp.launch_shape(dg, c, k)
+            cyc = (f"{ms * 1e3 * mhz / t_len:.1f} cycles a step at "
+                   f"{mhz:.0f} MHz" if mhz else "cycles a step not measured")
+            return (f"{shape['chain_bytes']} B a chain, "
+                    f"{shape['chains_per_block']} chain(s) a block, "
+                    f"{shape['blocks_per_sm']} block(s) an SM; {ms:.4f} ms, "
+                    f"{cyc}")
 
-        def old():
-            return old_cd.run_general_dense_chunk_cuda(
-                dg, old_static, spec, params, st, t_len)
-
-        (got, rows), (want, wrows) = new(), old()
-        if not (all(torch.equal(getattr(got, f), getattr(want, f))
-                    for f in FIELDS)
-                and all(torch.equal(rows[k], wrows[k]) for k in wrows)):
-            cs.fail(f"{label}: the two kernels' outputs differ")
-        times = {"old": [], "new": []}
-        for _ in range(opts.rounds):
-            for name, fn in (("old", old), ("new", new), ("new", new),
-                             ("old", old)):
-                fn()
-                times[name].append(cs.event_ms(fn, opts.reps))
-        ms = sorted(times["new"])[len(times["new"]) // 2]
-        clocks = cs.clocks_under_load(new, max(20, int(400 / ms)))
-        _, line = cs.dense_shape(cd, dg, st.key.shape[0], ms, t_len,
-                                 cs.sm_mhz(clocks))
-        print(f"{label} T={t_len}: outputs equal; old "
-              + ", ".join(f"{x:.4f}" for x in times["old"]) + " ms; new "
-              + ", ".join(f"{x:.4f}" for x in times["new"])
-              + f" ms (CUDA events, {opts.reps} launches each, in turns "
-              f"old, new, new, old); SM clock, power under the new "
-              f"kernel: {clocks}; new {line}", flush=True)
+        in_turns(
+            f"general_pair_chunk {label} C={st.key.shape[0]}", t_len,
+            lambda: cp.run_general_pair_chunk_cuda(dg, static, spec, params,
+                                                   st, t_len),
+            lambda: old_cp.run_general_pair_chunk_cuda(
+                dg, old_static, spec, params, st, t_len), line, opts)
 
 
 if __name__ == "__main__":

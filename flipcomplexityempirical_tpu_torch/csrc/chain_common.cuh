@@ -3,9 +3,11 @@
 // general_pair_chunk.cu): the threefry block and the f32 uniform of
 // jax.random (rng.py holds their torch twins), the batched per-step draws
 // of split(key, 4), small bit-plane and warp helpers, the layout of the
-// packed graph tables the two general kernels read, and the mbarrier
-// operations of the hand-offs between warps in shared memory (the dense
-// kernel's draws ring and table copy, summary_fold.cuh's fold ring).
+// packed graph tables the two general kernels read (staged into shared
+// memory by one bulk copy, or read through L1), the mbarrier operations of
+// the hand-offs between warps in shared memory (the draws ring of a chain's
+// producer warp, the table copy, summary_fold.cuh's fold ring), and the
+// chunk-start copy of the fields the general kernels update in place.
 
 #pragma once
 
@@ -113,6 +115,15 @@ __host__ __device__ inline TableLayout table_layout(int n, int d, int p) {
   return l;
 }
 
+// A table read: shared memory when staged, through L1 otherwise.
+template <bool kStaged, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kStaged)
+    return *p;
+  else
+    return __ldg(p);
+}
+
 // ---- mbarriers in shared memory ----------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -193,6 +204,126 @@ __device__ __noinline__ Draws draw_batch(uint32_t key0, uint32_t key1,
   return Draws{key0, key1, a0 ^ a1,
                logf(fmaxf(uniform_of(b0 ^ b1), 1e-12f)),
                logf(fmaxf(uniform_of(c0 ^ c1), 1e-12f))};
+}
+
+// ---- the bulk copy ---------------------------------------------------
+constexpr uint32_t kPiece = 32 * 1024;  // bytes a bulk copy
+
+// one thread: copy `bytes` (a multiple of 16) from global to shared memory,
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  for (uint32_t o = 0; o < bytes; o += kPiece) {
+    const uint32_t len = bytes - o < kPiece ? bytes - o : kPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(static_cast<char*>(dst) + o)),
+        "l"(static_cast<const char*>(src) + o), "r"(len), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+// ---- a chain's draws on a producer warp ------------------------------
+constexpr int kRing = 4;  // draw batches in flight
+
+// The draws ring of a producer-mode block: kRing batches of 32 steps'
+// (proposal bits, log accept uniform, log wait uniform), a full and an
+// empty barrier each (initialised to 32 arrivals).
+struct Ring {
+  uint64_t full[kRing], empty[kRing];
+  uint32_t prop[kRing][32];
+  float log_acc[kRing][32], log_wait[kRing][32];
+};
+
+// The producer warp: chain c's key chain and uniforms (keys (2, C) in,
+// the final key out), one batch of 32 steps after another, kRing batches
+// ahead of the chain.
+__device__ void produce_draws(const int32_t* key_in, int32_t* key_out, int C,
+                              int T, Ring* ring, int c) {
+  const int lane = threadIdx.x & 31;
+  uint32_t key0 = static_cast<uint32_t>(key_in[c]);
+  uint32_t key1 = static_cast<uint32_t>(key_in[C + c]);
+  for (int q = 0; 32 * q < T; ++q) {
+    const int slot = q % kRing;
+    const Draws dr = draw_batch(key0, key1, min(32, T - 32 * q));
+    key0 = dr.key0;
+    key1 = dr.key1;
+    // the producer runs ahead: it waits for a free slot with sleeps, so
+    // that its polling leaves the chain's shared-memory accesses alone
+    while (!mbar_test(&ring->empty[slot], ((q / kRing) & 1) ^ 1))
+      __nanosleep(512);
+    ring->prop[slot][lane] = dr.prop;
+    ring->log_acc[slot][lane] = dr.log_acc;
+    ring->log_wait[slot][lane] = dr.log_wait;
+    mbar_arrive(&ring->full[slot]);
+  }
+  if (lane == 0) {
+    key_out[c] = static_cast<int32_t>(key0);
+    key_out[C + c] = static_cast<int32_t>(key1);
+  }
+}
+
+// The chain's step t's draws from the ring (t a multiple of 32): lane i
+// gets step t + i's; the slot is handed back at once.
+__device__ __forceinline__ Draws take_draws(Ring* ring, int t) {
+  const int lane = threadIdx.x & 31, q = t >> 5, s = q % kRing;
+  mbar_wait(&ring->full[s], (q / kRing) & 1);
+  Draws d{0u, 0u, ring->prop[s][lane], ring->log_acc[s][lane],
+          ring->log_wait[s][lane]};
+  mbar_arrive(&ring->empty[s]);
+  return d;
+}
+
+// ---- the chunk start: the fields the general kernels update in place --
+// Chain rows bn (of n) and be (of E) of part_sum, last_flipped, num_flips
+// copied in to out, and cut_times + cut * T (each flip later adds its
+// change), 16 bytes a lane between a row's first and last 16-byte
+// boundaries (the arrays start on one) and the at most 3 + 3 fields either
+// side one at a time.
+__device__ __forceinline__ void copy_rows(
+    const int32_t* part_sum_in, const int32_t* last_flipped_in,
+    const int32_t* num_flips_in, const int32_t* cut_times_in,
+    const int8_t* cut_in, int32_t* part_sum_out, int32_t* last_flipped_out,
+    int32_t* num_flips_out, int32_t* cut_times_out, size_t bn, size_t be,
+    int n, int E, int T) {
+  const int lane = threadIdx.x & 31;
+  const int nh = int((4 - (bn & 3)) & 3) < n ? int((4 - (bn & 3)) & 3) : n;
+  const int n4 = (n - nh) >> 2;
+  for (int i = lane; i < n4; i += 32) {
+    const size_t at = ((bn + nh) >> 2) + i;
+    reinterpret_cast<int4*>(part_sum_out)[at] =
+        __ldg(reinterpret_cast<const int4*>(part_sum_in) + at);
+    reinterpret_cast<int4*>(last_flipped_out)[at] =
+        __ldg(reinterpret_cast<const int4*>(last_flipped_in) + at);
+    reinterpret_cast<int4*>(num_flips_out)[at] =
+        __ldg(reinterpret_cast<const int4*>(num_flips_in) + at);
+  }
+  for (int h = lane; h < nh + (n - nh - 4 * n4); h += 32) {
+    const int i = h < nh ? h : h + 4 * n4;
+    part_sum_out[bn + i] = part_sum_in[bn + i];
+    last_flipped_out[bn + i] = last_flipped_in[bn + i];
+    num_flips_out[bn + i] = num_flips_in[bn + i];
+  }
+  const int eh = int((4 - (be & 3)) & 3) < E ? int((4 - (be & 3)) & 3) : E;
+  const int e4 = (E - eh) >> 2;
+  for (int i = lane; i < e4; i += 32) {
+    const size_t at = ((be + eh) >> 2) + i;
+    int4 x = __ldg(reinterpret_cast<const int4*>(cut_times_in) + at);
+    const char4 k = __ldg(reinterpret_cast<const char4*>(cut_in) + at);
+    x.x += int(k.x) * T;
+    x.y += int(k.y) * T;
+    x.z += int(k.z) * T;
+    x.w += int(k.w) * T;
+    reinterpret_cast<int4*>(cut_times_out)[at] = x;
+  }
+  for (int h = lane; h < eh + (E - eh - 4 * e4); h += 32) {
+    const int i = h < eh ? h : h + 4 * e4;
+    cut_times_out[be + i] = cut_times_in[be + i] + int(cut_in[be + i]) * T;
+  }
 }
 
 }  // namespace fce

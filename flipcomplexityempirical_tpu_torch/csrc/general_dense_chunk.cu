@@ -150,10 +150,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxChainsPerBlock = 8;
 constexpr int kPlanes = 5;        // A, Bd, Cn, Y, R
 constexpr int kGroupShift = 10;   // 32 words, 1024 nodes, a count group
-constexpr int kRing = 4;          // draw batches in flight (producer mode)
 constexpr int kWidePp = 24;       // patch row slots the wide form holds
 constexpr size_t kSmemLimit = 227 * 1024;
-constexpr uint32_t kPiece = 32 * 1024;  // bytes a bulk copy
 // the narrow form's fold area a chain: 32 packets and its FoldState
 constexpr size_t kFoldChainBytes =
     32 * sizeof(float4) + ((sizeof(FoldState) + 15) & ~size_t(15));
@@ -171,15 +169,6 @@ struct Tables {
   const uint8_t* rev;
   int pp;  // a patch row's slots
 };
-
-// A table read: shared memory when staged, through L1 otherwise.
-template <bool kStaged, typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  if constexpr (kStaged)
-    return *p;
-  else
-    return __ldg(p);
-}
 
 struct Args {
   const uint8_t* tables;        // table_layout, 16-byte aligned
@@ -283,25 +272,6 @@ __device__ __noinline__ void wall_metrics(const float2* mid, int first,
   const float cosang =
       fminf(fmaxf((vax * vbx + vay * vby) / fmaxf(norm, 1e-12f), -1.f), 1.f);
   angle = acosf(cosang);
-}
-
-// ---- the bulk copy ---------------------------------------------------
-// one thread: copy `bytes` (a multiple of 16) from global to shared memory,
-// completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  for (uint32_t o = 0; o < bytes; o += kPiece) {
-    const uint32_t len = bytes - o < kPiece ? bytes - o : kPiece;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(static_cast<char*>(dst) + o)),
-        "l"(static_cast<const char*>(src) + o), "r"(len), "r"(smem_u32(bar))
-        : "memory");
-  }
 }
 
 // kernel/contiguity.py::patch_connected of node u against the assignment
@@ -421,41 +391,6 @@ __device__ __forceinline__ bool patch_connected_wide(const Tables& tab,
   }
 }
 
-// The draws ring of a producer-mode block: kRing batches of 32 steps'
-// (proposal bits, log accept uniform, log wait uniform), a full and an
-// empty barrier each.
-struct Ring {
-  uint64_t full[kRing], empty[kRing];
-  uint32_t prop[kRing][32];
-  float log_acc[kRing][32], log_wait[kRing][32];
-};
-
-// The producer warp: the chain's key chain and uniforms, one batch of 32
-// steps after another, kRing batches ahead of the chain; the final key.
-__device__ void produce_draws(const Args& a, Ring* ring, int c) {
-  const int lane = threadIdx.x & 31, C = a.n_chains, T = a.t_inner;
-  uint32_t key0 = static_cast<uint32_t>(a.key_in[c]);
-  uint32_t key1 = static_cast<uint32_t>(a.key_in[C + c]);
-  for (int q = 0; 32 * q < T; ++q) {
-    const int slot = q % kRing;
-    const Draws dr = draw_batch(key0, key1, min(32, T - 32 * q));
-    key0 = dr.key0;
-    key1 = dr.key1;
-    // the producer runs ahead: it waits for a free slot with sleeps, so
-    // that its polling leaves the chain's shared-memory accesses alone
-    while (!mbar_test(&ring->empty[slot], ((q / kRing) & 1) ^ 1))
-      __nanosleep(512);
-    ring->prop[slot][lane] = dr.prop;
-    ring->log_acc[slot][lane] = dr.log_acc;
-    ring->log_wait[slot][lane] = dr.log_wait;
-    mbar_arrive(&ring->full[slot]);
-  }
-  if (lane == 0) {
-    a.key_out[c] = static_cast<int32_t>(key0);
-    a.key_out[C + c] = static_cast<int32_t>(key1);
-  }
-}
-
 // kWide: one chain a block with its draws warp (C up to the SM count),
 // patch rows of at most kWidePp slots in registers; else up to
 // kMaxChainsPerBlock chains a block, 64 registers a thread. kFold: the
@@ -501,7 +436,7 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
       bulk_load(smem + 16, a.tables, static_cast<uint32_t>(lay.bytes), tbar);
   }
   if (kWide && warp == 1) {  // no block barrier below
-    produce_draws(a, ring, blockIdx.x);
+    produce_draws(a.key_in, a.key_out, C, T, ring, blockIdx.x);
     return;
   }
   if constexpr (kWide && kFold) {
@@ -567,43 +502,9 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
   if (!a.fill_conn)
     for (int k = lane; k < nw; k += 32)
       Cn[k] = static_cast<uint32_t>(a.conn_in[(size_t)c * nw + k]);
-  // the fields updated in place, 16 bytes a lane between a row's first
-  // and last 16-byte boundaries
-  const int nh = int((4 - (bn & 3)) & 3) < n ? int((4 - (bn & 3)) & 3) : n;
-  const int n4 = (n - nh) >> 2;
-  for (int i = lane; i < n4; i += 32) {
-    const size_t at = ((bn + nh) >> 2) + i;
-    reinterpret_cast<int4*>(a.part_sum_out)[at] =
-        __ldg(reinterpret_cast<const int4*>(a.part_sum_in) + at);
-    reinterpret_cast<int4*>(a.last_flipped_out)[at] =
-        __ldg(reinterpret_cast<const int4*>(a.last_flipped_in) + at);
-    reinterpret_cast<int4*>(a.num_flips_out)[at] =
-        __ldg(reinterpret_cast<const int4*>(a.num_flips_in) + at);
-  }
-  // the at most 3 + 3 fields either side
-  for (int h = lane; h < nh + (n - nh - 4 * n4); h += 32) {
-    const int i = h < nh ? h : h + 4 * n4;
-    a.part_sum_out[bn + i] = a.part_sum_in[bn + i];
-    a.last_flipped_out[bn + i] = a.last_flipped_in[bn + i];
-    a.num_flips_out[bn + i] = a.num_flips_in[bn + i];
-  }
-  const int eh = int((4 - (be & 3)) & 3) < E ? int((4 - (be & 3)) & 3) : E;
-  const int e4 = (E - eh) >> 2;
-  for (int i = lane; i < e4; i += 32) {
-    const size_t at = ((be + eh) >> 2) + i;
-    int4 x = __ldg(reinterpret_cast<const int4*>(a.cut_times_in) + at);
-    const char4 k = __ldg(reinterpret_cast<const char4*>(a.cut_in) + at);
-    x.x += int(k.x) * T;
-    x.y += int(k.y) * T;
-    x.z += int(k.z) * T;
-    x.w += int(k.w) * T;
-    reinterpret_cast<int4*>(a.cut_times_out)[at] = x;
-  }
-  for (int h = lane; h < eh + (E - eh - 4 * e4); h += 32) {
-    const int i = h < eh ? h : h + 4 * e4;
-    a.cut_times_out[be + i] =
-        a.cut_times_in[be + i] + int(a.cut_in[be + i]) * T;
-  }
+  copy_rows(a.part_sum_in, a.last_flipped_in, a.num_flips_in, a.cut_times_in,
+            a.cut_in, a.part_sum_out, a.last_flipped_out, a.num_flips_out,
+            a.cut_times_out, bn, be, n, E, T);
   // the interface: the cut wall edges, and the metrics of the state in
   int w_first = -1, w_second = -1;
   float slope = NAN, angle = NAN;
@@ -711,12 +612,7 @@ __global__ void __launch_bounds__(kWide ? (kFold ? 96 : 64)
     const int slot = t & 31;
     if (slot == 0) {
       if constexpr (kWide) {
-        const int q = t >> 5, s = q % kRing;
-        mbar_wait(&ring->full[s], (q / kRing) & 1);
-        draws.prop = ring->prop[s][lane];
-        draws.log_acc = ring->log_acc[s][lane];
-        draws.log_wait = ring->log_wait[s][lane];
-        mbar_arrive(&ring->empty[s]);
+        draws = take_draws(ring, t);
       } else {
         draws = draw_batch(key0, key1, min(32, T - t));
         key0 = draws.key0;

@@ -9,10 +9,12 @@ boundary-length score, ``refresh_conn_bits``; then
 ``kernel/step.py::record``) for every chain of a ``ChainState``. On CUDA
 tensors it launches the hand-written kernel of
 ``csrc/general_pair_chunk.cu`` (built on first use by ``_build``; one
-warp a chain, the assignment, each node's set of neighbouring districts
-and the contiguity plane in shared memory); on CPU tensors it runs
-``general_pair_chunk_reference``, the same body as torch ops. Both draw
-the JAX package's threefry stream, ``split(key, 4)`` a step.
+warp a chain, a cell a node in shared memory holding its district, its
+set of neighbouring districts and its conn bit, and the valid pairs'
+counts by word and group of nodes kept up to date at each accepted move);
+on CPU tensors it runs ``general_pair_chunk_reference``, the same body as
+torch ops. Both draw the JAX package's threefry stream, ``split(key, 4)``
+a step.
 
 The kernel's scope (``supports``): the 'pair' proposal with 2 to
 ``MAX_DISTRICTS`` districts under re-propose semantics, accept 'cut', no
@@ -116,14 +118,18 @@ def check(dg, spec: Spec, params: StepParams) -> None:
         raise ValueError("label_values must hold one label a district")
 
 
-def make_static_inputs(dg) -> PairStatic:
+def unit_pop(dg) -> int:
+    """Every node's population, or 0 where it varies by node."""
     pop = dg.pop
-    unit = int(pop[0]) if bool((pop == pop[0]).all()) and int(pop[0]) > 0 \
-        else 0
+    return (int(pop[0]) if bool((pop == pop[0]).all()) and int(pop[0]) > 0
+            else 0)
+
+
+def make_static_inputs(dg) -> PairStatic:
     return PairStatic(tables=cuda_dense.pack_tables(dg),
-                      edges=_i32(dg.edges), pop=_i32(pop),
+                      edges=_i32(dg.edges), pop=_i32(dg.pop),
                       edge_len=dg.edge_len.to(torch.float32).contiguous(),
-                      unit_pop=unit)
+                      unit_pop=unit_pop(dg))
 
 
 def general_pair_chunk_reference(dg, spec: Spec, params: StepParams, state,
@@ -137,35 +143,40 @@ def general_pair_chunk_reference(dg, spec: Spec, params: StepParams, state,
 
 
 def _entry(lib):
-    """``lib``'s ``fce_general_pair_chunk`` with its C signature: 33
-    pointers, 14 ints, the wait denominator, the stream."""
+    """``lib``'s ``fce_general_pair_chunk`` with its C signature: 34
+    pointers (the last the optional recount counts), 14 ints, the wait
+    denominator, the stream."""
     fn = lib.fce_general_pair_chunk
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 33 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 34 + [ctypes.c_int] * 14
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch_shape(dg, n_chains: int) -> dict:
-    """How the kernel runs ``n_chains`` chains of ``dg`` on this card:
-    ``smem_bytes`` a block, ``chains_per_block``, ``blocks_per_sm``
-    resident, ``threads`` a block."""
+def launch_shape(dg, n_chains: int, n_districts: int) -> dict:
+    """How the kernel runs ``n_chains`` chains of ``dg`` at ``n_districts``
+    on this card: ``smem_bytes`` a block, ``chains_per_block``,
+    ``blocks_per_sm`` resident, ``threads`` a block, ``chain_bytes`` (a
+    chain's shared memory), ``staged`` (the tables in shared memory;
+    False: read through L1), ``producer`` (a draws warp a chain)."""
     from . import _build
     fn = _build.load("general_pair_chunk").fce_general_pair_shape
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    err = fn(n_chains, dg.n_nodes, ctypes.addressof(out))
+    out = (ctypes.c_int * 7)()
+    err = fn(n_chains, dg.n_nodes, dg.n_edges, dg.max_deg, dg.max_patch,
+             n_districts, unit_pop(dg), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"general_pair_chunk shape query failed: CUDA "
                            f"error {err}")
     return dict(smem_bytes=out[0], chains_per_block=out[1],
-                blocks_per_sm=out[2], threads=out[3])
+                blocks_per_sm=out[2], threads=out[3], chain_bytes=out[4],
+                staged=bool(out[5]), producer=bool(out[6]))
 
 
 def _launch(lib, dg, static: PairStatic, spec: Spec, params: StepParams,
-            state, t_inner: int):
+            state, t_inner: int, recounts):
     c, n = state.assignment.shape
     k = spec.n_districts
     dev = state.assignment.device
@@ -175,7 +186,8 @@ def _launch(lib, dg, static: PairStatic, spec: Spec, params: StepParams,
     labels = params.label_values.to(device=dev,
                                     dtype=torch.int32).contiguous()
     ptrs = [static.tables, static.edges, static.pop, static.edge_len, labels,
-            *ins.values(), *outs.values(), *(rows.get(nm) for nm in ROW_NAMES)]
+            *ins.values(), *outs.values(), *(rows.get(nm) for nm in ROW_NAMES),
+            recounts]
     ptrs = [None if x is None else x.data_ptr() for x in ptrs]
     # the literal wait denominator, float(n)**k - 1 in double, then f32
     denom = float(torch.tensor(float(n) ** k - 1.0, dtype=torch.float32))
@@ -193,22 +205,35 @@ def _launch(lib, dg, static: PairStatic, spec: Spec, params: StepParams,
 
 
 def run_general_pair_chunk_cuda(dg, static: PairStatic, spec: Spec,
-                                params: StepParams, state, t_inner: int):
+                                params: StepParams, state, t_inner: int, *,
+                                recounts=None):
     """One chunk for every chain: (state, rows {name: (T, C)}), the state
     carrying its conn planes (filled first where it came without). CUDA
     tensors launch the kernel; CPU tensors run the plain version.
+    ``recounts``, an int32 (C,) CUDA tensor, receives each chain's count
+    of full recounts of its valid pairs after accepted moves (the kernel's
+    own bookkeeping; the plain version has none).
     ``run_general_pair_chunk_cuda.launches`` counts kernel launches."""
     check(dg, spec, params)
     if t_inner < 1:
         raise ValueError(f"t_inner {t_inner} < 1")
     dev = state.assignment.device
+    if recounts is not None and (
+            recounts.device != dev or recounts.dtype != torch.int32
+            or recounts.shape != (state.assignment.shape[0],)
+            or not recounts.is_contiguous()):
+        raise ValueError("recounts must be a contiguous int32 (C,) tensor "
+                         "on the state's device")
     if dev.type == "cuda":
         from . import _build
         out = _launch(_build.load("general_pair_chunk"), dg, static, spec,
-                      params, state, t_inner)
+                      params, state, t_inner, recounts)
         run_general_pair_chunk_cuda.launches += 1
         return out
     if dev.type == "cpu":
+        if recounts is not None:
+            raise ValueError("recounts counts the kernel's bookkeeping; the "
+                             "plain version keeps none")
         return general_pair_chunk_reference(dg, spec, params, state, t_inner)
     raise ValueError(f"no general pair chunk path for device {dev}")
 

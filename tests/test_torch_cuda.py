@@ -578,34 +578,104 @@ def test_general_dense_interface_form_matches_plain_version(
         st = got
 
 
+def _pair_graph(name: str):
+    """A pair-kernel test graph: ``precinctsS`` a synthetic S x S precinct
+    map (populations that vary by node, boundary lengths), ``gridS`` an
+    S x S rook grid and ``hexS`` the S x S hex lattice (one population
+    per node)."""
+    if name.startswith("precincts"):
+        side = int(name[len("precincts"):])
+        g, _ = graphs.from_geojson(
+            graphs.synthetic_precincts(side, side, seed=1),
+            pop_property="POP")
+        return g
+    if name.startswith("grid"):
+        side = int(name[len("grid"):])
+        return graphs.square_grid(side, side)
+    side = int(name[len("hex"):])
+    return graphs.hex_lattice(side, side)
+
+
+# (graph, k, weighted_cut, chains, T, base, pop_tol, tables staged, a
+# draws warp a chain): populations that vary by node (every accepted move
+# recounts), one population per node with district masks that change
+# (base 1: every move accepted, a tight tolerance), graphs of more than
+# 1024 nodes (two, three and nine count groups), k = 2 to 8 (a byte cell
+# at k <= 4, 16 bits above), the tables staged or read through L1, one
+# chain a block with a draws warp or many chains a block
+PAIR_CASES = [
+    ("precincts12", 4, True, 8, 400, 2.0, 0.3, True, True),
+    ("precincts12", 8, True, 8, 400, 2.0, 0.3, True, True),
+    ("precincts12", 3, False, 300, 200, 2.0, 0.3, True, False),
+    ("precincts6", 2, True, 64, 200, 2.0, 0.3, True, True),
+    ("grid12", 4, False, 16, 300, 1.0, 0.06, True, True),
+    ("grid12", 2, False, 300, 300, 1.2, 0.1, True, False),
+    ("grid12", 8, False, 32, 300, 1.2, 0.2, True, True),
+    ("grid33", 4, False, 300, 200, 1.0, 0.05, True, False),
+    ("grid33", 8, False, 8, 200, 1.0, 0.05, True, True),
+    ("grid48", 3, False, 8, 200, 2.0, 0.1, False, True),
+    ("grid48", 8, True, 200, 100, 1.5, 0.1, False, False),
+    ("hex64", 4, False, 400, 100, 2.63815853, 0.1, False, False),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("side,k,weighted,chains,t_len", [
-    (12, 4, True, 8, 400), (12, 8, True, 8, 400), (12, 3, False, 300, 200),
-    (6, 2, True, 64, 200)])
-def test_general_pair_kernel_matches_plain_version(card, side, k, weighted,
-                                                   chains, t_len):
-    """general_pair_chunk on a synthetic precinct map (populations that
-    vary by node, boundary lengths): every state field and row equal to
-    the plain version, in two chunks, one launch counted each."""
+@pytest.mark.parametrize("gname,k,weighted,chains,t_len,base,tol,staged,"
+                         "producer", PAIR_CASES)
+def test_general_pair_kernel_matches_plain_version(
+        card, gname, k, weighted, chains, t_len, base, tol, staged,
+        producer):
+    """general_pair_chunk: every state field and row equal to the plain
+    version, in two chunks, one launch counted each, in the launch form
+    the case names; its full recounts: one at the step after each
+    accepted move where the population varies by node, fewer than the
+    moves but some where a tight tolerance changes the district masks."""
     from flipcomplexityempirical_tpu_torch.kernel import cuda_pair as cp
-    g, _ = graphs.from_geojson(graphs.synthetic_precincts(side, side, seed=1),
-                               pop_property="POP")
+    g = _pair_graph(gname)
     spec = Spec(n_districts=k, proposal="pair", weighted_cut=weighted)
     dg, st, params = init_batch(g, graphs.stripes_plan(g, k),
                                 n_chains=chains, seed=7, spec=spec,
-                                base=2.0, pop_tol=0.3, device=card)
+                                base=base, pop_tol=tol, device=card)
     static = cp.make_static_inputs(dg)
+    shape = cp.launch_shape(dg, chains, k)
+    assert (shape["staged"], shape["producer"]) == (staged, producer)
+    recounts, moves, last = 0, 0, 0
     for _ in range(2):
         n0 = cp.run_general_pair_chunk_cuda.launches
+        rc = torch.zeros(chains, dtype=torch.int32, device=card)
         got, rows = cp.run_general_pair_chunk_cuda(dg, static, spec, params,
-                                                   st, t_len)
+                                                   st, t_len, recounts=rc)
         assert cp.run_general_pair_chunk_cuda.launches == n0 + 1
         want, wrows = cp.general_pair_chunk_reference(dg, spec, params, st,
                                                       t_len)
         torch.cuda.synchronize()
         _same_states(got, want)
         _rows_equal(rows, wrows)
+        recounts += int(rc.sum())
+        moves += int((got.accept_count - st.accept_count).sum())
+        # a move at a chunk's last step leaves its recount to the next chunk
+        last += int((rows["accepts"][-1] - rows["accepts"][-2]).sum())
         st = got
+    assert moves > 0
+    if static.unit_pop == 0:
+        assert recounts == moves - last
+    else:
+        assert recounts < moves
+        if tol < 0.1:
+            assert recounts > 0
+
+
+@pytest.mark.cuda
+def test_general_pair_launch_shape_holds_more_chains_an_sm(card):
+    """At the bench's pair shape (hex 64 x 64, k = 4, C=4096) the kernel
+    keeps more than 8 chains resident an SM (a byte a node), the tables
+    read through L1."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_pair as cp
+    g = graphs.hex_lattice(64, 64)
+    dg = g.device(card)
+    shape = cp.launch_shape(dg, 4096, 4)
+    assert shape["chains_per_block"] * shape["blocks_per_sm"] > 8
+    assert not shape["staged"] and not shape["producer"]
 
 
 @pytest.mark.cuda
