@@ -105,7 +105,7 @@ entry points a user calls, checks what comes out, and prints:
      (log ties counted) with one launch counted a call: hex 64x64 at
      C=256 after a 501-step warm-up, T=500; hex 14x28 at C=8 and the
      experiment path's 2439-step chunk (its plain version held after
-     phase 19); tri 14x28 with ``nobacktrack``;
+     phase 23); tri 14x28 with ``nobacktrack``;
      ``lazy_uniform``; contiguity 'none'; no valid move; a random
      population plane (the kernel's per-node population gate); the 1x2
      hex of phase 13; each case's launch shape (tables staged in shared
@@ -161,7 +161,7 @@ entry points a user calls, checks what comes out, and prints:
      over 10,001 steps; lowered_chunk at the frank batch's shape (C=192,
      the 24 tenants' parameters, its 369-step chunk) and
      general_dense_chunk at the hex batch's (C=32, its 2439-step chunk,
-     its plain version held after phase 19), each against its plain
+     its plain version held after phase 23), each against its plain
      version with one launch counted and timed beside its bound, the
      dense kernel's
      launch shape and cycles a step; ``bench --service --steps 400`` in
@@ -190,21 +190,21 @@ entry points a user calls, checks what comes out, and prints:
      history-mode runs, one fused launch a chunk and one standalone fold
      launch (the run's one-row record), the seconds split, the readback
      bytes, and ``data["summary"]`` bit-equal to the plain fold of the
-     history-mode run's history on the card (held after phase 19);
+     history-mode run's history on the card (held after phase 23);
   16. ``general_dense_chunk``'s interface form (``record_interface``:
      the slope and angle rows from a wall bitset a chain) against its plain
      version, every state field and row bit-equal, NaN for NaN, one launch
      counted a call and timed beside its bound: sec11 with
      ``nobacktrack`` and the Frankengraph with ``lazy_uniform`` at the
      experiment path's shape (C=8, T=2439; their plain versions held
-     after phase 19), sec11 at C=4096,
+     after phase 23), sec11 at C=4096,
      T=500 (``dense_turns.py`` times the hex instantiations, which have
      no walls, in turns against an earlier kernel);
   17. the pair walk's kernel, ``general_pair_chunk`` (the JAX package's
      dense step under proposal 'pair', ``kernel/dense.py:257``), against
      its plain version, bit-equal, one launch counted a call: the dual
      sweep's K4 and K8 configs at their shape (144 nodes, C=8, T=2439;
-     their plain versions held after phase 19),
+     their plain versions held after phase 23),
      hex 64x64 at k=4, C=4096, T=500 (timed beside its bound), each with
      its launch shape (tables staged or read through L1, bytes a chain,
      chains a block, blocks an SM: more than 8 chains resident an SM at
@@ -227,14 +227,59 @@ entry points a user calls, checks what comes out, and prints:
      K4 and K8 tenants equal to their solo runs; sec11 with contiguity
      'exact' (the legacy body, 8 chains, 250 steps) equal to its run on
      the host;
-  20. the plain versions held in phases 10 and 14-17 (the experiment
-     path's 2439-step chunks at C=8 and C=32, whose plain versions take
-     ~13-18 ms a step on the host, and the plain folds of phase 15's
-     100,000-step histories), run at once after phase 19, one worker
-     process each (nothing is timed meanwhile; each plain time is a host
-     clock's beside the others'), each held to its kernel's output as in
-     its phase;
-  21. the script's own total seconds, one JSON line per kernel table
+  20. the rook board's pair kernel, ``board_pair_chunk`` (the JAX
+     package's ``_scan_bits_pair``, ``kernel/board.py:1406``, and its int8
+     form), against its plain version, bit-equal (log ties counted), one
+     launch counted a call, from states the kernel advanced first: 64x64
+     at k=4 (C=256, T=64), 40x65 at k=3, 8x16 at k=8 with gates that bind,
+     contiguity 'none', accept 'always' and pop_tol 0 on the balanced
+     start (an empty valid set);
+  21. the kpair main path: ``run_board`` on the 64x64 rook grid at k=4,
+     C=4096, chunk 500, 1001 steps, the counts zeroed just before and read
+     just after (one ``board_pair_chunk`` a chunk, no ``lowered_chunk``):
+     flips/s, peak memory, cut_count and dist_pop against recounts, 16
+     chains' districts connected, the idle share (after a traced warm-up
+     run; not measured where the trace drops a counted launch twice);
+     then at that shape from
+     its final state the kernel timed beside its bound, its launch shape
+     and cycles a step, and held to its plain version (after phase 23);
+     ``bench --k 4 --repeats 1`` in a subprocess (its headline
+     ``flips_per_sec_per_chip_64x64_pair_k4``, one launch a timed chunk);
+     the 3x3 grid at k=3 on the board route against the pair chain's
+     exact law, phase 18's bars;
+  22. the kpair family: the kernel at the experiment path's shape (kpair
+     K4's start, C=8, T=369), timed, and held to its plain version (after
+     phase 23);
+     ``run_config`` for kpair-K4-0B263P50 and kpair-K8-0B263P50 at the
+     paper's shape (100,000 steps, 8 chains), the count zeroed before each
+     (one launch a chunk): seconds split into run, render and set-up,
+     every artifact, cut_count against a recount and every district
+     connected on all 8 chains; the card's 401-step run equal to the JAX
+     package's (``tests/fixtures/torch/experiment_kpair.npz``);
+  23. the temper family: ``run_config`` for temper-0B333P10R10S50 at the
+     paper's shape (8 ladders of 10 rungs, 100,000 steps, a swap round
+     every 50 transitions), the ``lowered_chunk`` count zeroed just before
+     and read just after (one launch a round): seconds split, the swap
+     rate of each adjacent rung pair, ``rungs.png`` and every artifact;
+     the swap round's wall ms at that batch; ``lowered_chunk`` at that
+     batch (C=80, T=50) from the state and the permuted betas of three
+     swap rounds, timed beside its bound, and held to its plain version
+     (after phase 23);
+     the card's 201-step run
+     equal to ``tests/fixtures/torch/experiment_temper.npz``; each rung's
+     cut-count law against the exact joint tempered law on the 3x4 grid
+     (beta 1.0 / 0.5, base 3, a swap round after every transition, 2048
+     ladders, 600 recorded steps after 600; ``tests/test_tempered.py:139``'s
+     setting), phase 13's bars;
+  24. the plain versions held in phases 10, 14-17 and 21-23 (the
+     experiment path's 2439-step chunks at C=8 and C=32, whose plain
+     versions take ~13-18 ms a step on the host, the plain folds of phase
+     15's 100,000-step histories, the board pair chunk at C=4096,
+     T=500 and at C=8, T=369, and the temper path's lowered chunk),
+     run at once after phase 23, one worker process each (nothing is
+     timed meanwhile; each plain time is a host clock's beside the
+     others'), each held to its kernel's output as in its phase;
+  25. the script's own total seconds, one JSON line per kernel table
      (``{"kernels": [...]}``), then as the last line ``{"ok": true,
      "device": {...}}``.
 
@@ -332,7 +377,7 @@ FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
 # checkpoint after the first segment (tests/test_torch_experiments_
 # fixture.py), held under the CPU tests' tolerance.
 EXP_STEPS, EXP_CHAINS = 100_000, 8
-# The plain versions held (run in plain_jobs, all at once after phase 19,
+# The plain versions held (run in plain_jobs, all at once after phase 23,
 # one worker process each) rather than in their phase: those of the
 # experiment path's 2439-step chunks (phases 10, 14, 16 and 17), host-bound
 # at ~13-18 ms a step at C=8, and phase 15's plain folds of a 100,000-step
@@ -523,7 +568,7 @@ def plain_jobs(card: str) -> dict:
                     p.kill()
                     p.wait()
         wall = time.perf_counter() - t0
-        print(f"[{card}] plain versions held after phase 19: "
+        print(f"[{card}] plain versions held after phase 23: "
               f"{len(procs)} at once, one worker process each, in "
               f"{wall:.3f} s wall")
         out = {}
@@ -667,25 +712,52 @@ def valid_cells(tb, bg, spec, board, pop, dist_pop, scal, outs):
     return int(total)
 
 
-def idle_share(run) -> str:
+def idle_share(run, counted=None) -> str:
     """``run()`` (some steps of a main path) under ``torch.profiler``: the
-    device's busy ms by kernel against the wall."""
+    device's busy ms by kernel against the wall. With ``counted`` =
+    (kernel name, its wrapper) ``run()`` runs twice in one profile, the
+    first as the trace's warm-up (traced and discarded), and the second's
+    trace must hold every launch of that kernel the wrapper counted in
+    it: a trace that dropped one is taken once more, and where that one
+    drops one too the idle share is not measured."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    warm = schedule(wait=0, warmup=1, active=1, repeat=1) if counted else None
+    for _ in range(2 if counted else 1):
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    busy = {}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "cuda_time_total", 0.0)
-        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy[ev.key[:60]] = dt / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=warm) as prof:
+            if counted:
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+            n0 = counted[1].launches if counted else 0
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            if counted:
+                prof.step()
+        busy, seen = {}, 0
+        for ev in prof.key_averages():
+            dt = getattr(ev, "device_time_total", None)
+            if dt is None:
+                dt = getattr(ev, "cuda_time_total", 0.0)
+            # the schedule's step ranges are on the device's timeline too
+            step = (getattr(ev, "is_user_annotation", False)
+                    or ev.key.startswith("ProfilerStep"))
+            if (dt and ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not step):
+                busy[ev.key[:60]] = dt / 1e3
+                if counted and counted[0] in ev.key:
+                    seen += ev.count
+        if not counted or seen == counted[1].launches - n0:
+            break
+    else:
+        return (f"wall {wall:.3f} ms; device time not measured (the trace "
+                f"holds {seen} of the {counted[1].launches - n0} "
+                f"{counted[0]} launches)")
     if not busy:
         return f"wall {wall:.3f} ms; device time not measured (no trace)"
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:3]
@@ -1155,14 +1227,14 @@ def lowered_candidates(tb, bg, spec, board, dist_pop, scal, outs, unit):
     return int(total)
 
 
-def graph_connected(graph, nodes) -> bool:
-    """Host BFS over the graph's edges: each of the two districts of a
-    node-order assignment is one connected set."""
+def graph_connected(graph, nodes, k: int = 2) -> bool:
+    """Host BFS over the graph's edges: each of the k districts of a
+    node-order assignment is one connected, nonempty set."""
     nbrs = [[] for _ in range(graph.n_nodes)]
     for a, b in graph.edges.tolist():
         nbrs[a].append(b)
         nbrs[b].append(a)
-    for d in (0, 1):
+    for d in range(k):
         cells = [i for i in range(graph.n_nodes) if nodes[i] == d]
         if not cells:
             return False
@@ -2095,7 +2167,7 @@ def general_exactness(port, cd, sampling) -> float:
                 f"{int(got.exhausted_count.sum())}, accepted "
                 f"{int(got.accept_count.sum() - st.accept_count.sum())}; "
                 f"plain {secs:.3f} s, host clock)")
-        # the experiment path's chunk held after phase 19 (plain_jobs)
+        # the experiment path's chunk held after phase 23 (plain_jobs)
         err = max(err, hold_plain(
             "general_dense_chunk", cd.general_dense_chunk_reference,
             (dg, spec, params, st, t_len), check, defer=exp_path))
@@ -2117,7 +2189,7 @@ def general_exactness(port, cd, sampling) -> float:
             print(f"general_dense_chunk at the experiment path's shape "
                   f"(C={chains}, T={t_len}): {ms:.3f} ms per chunk (CUDA "
                   f"events, mean of 3, conn planes carried); plain version "
-                  f"held after phase 19; bound {bound_ms:.4e} ms "
+                  f"held after phase 23; bound {bound_ms:.4e} ms "
                   f"({bound_by})")
     # the launch shape of each case, cycles a step at the SM clock read
     # under the experiment path's load
@@ -2831,7 +2903,7 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
                     f"[{card}] at the hex sweep's batch C={c} T={t_len} "
                     f"(plain {secs:.3f} s, host clock)")
                 return row["max_abs_err"]
-            # held after phase 19 (plain_jobs)
+            # held after phase 23 (plain_jobs)
             hold_plain("general_dense_chunk", cd.general_dense_chunk_reference,
                        (handle, spec, params, states, t_len), check,
                        defer=True)
@@ -2861,7 +2933,7 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
                  f"not differ ({n_lo} pop_lo, {n_base} log_base values)")
         plain = (f"plain version {plain_ms:.3f} ms (host clock)"
                  if plain_ms is not None else "plain version held after "
-                 "phase 19")
+                 "phase 23")
         print(f"[{card}] {name} at the {family} sweep's batch (C={c}, "
               f"{len(prepared)} tenants: {n_lo} pop_lo and {n_base} "
               f"log_base values, T={t_len}): {ms:.4f} ms per chunk (CUDA "
@@ -3281,7 +3353,7 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                       f"bit-equal to the plain fold of the history-mode "
                       f"run's history ({secs:.3f} s, host clock)")
                 return 0.0
-            # held after phase 19 (plain_jobs)
+            # held after phase 23 (plain_jobs)
             hold_plain("summary_fold", sacc.fold_block,
                        (sacc.init_summary(cfg.n_chains, device=DEVICE),
                         rows), check, defer=True)
@@ -3298,7 +3370,7 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                   f"{data['readback_bytes']} bytes; "
                   f"{len(got)} artifacts byte-equal to the history mode's; "
                   f"data['summary'] held to the plain fold of the history "
-                  f"after phase 19")
+                  f"after phase 23")
             result.update(wall_s=wall, run_s=run_s, render_s=render_s,
                           history_run_s=solo[tag]["seconds"],
                           flips_per_s=fps, chunks=chunks, launches=folds,
@@ -3344,7 +3416,7 @@ def summary_phase(port, ex, drv, gsampling, cl, cd, solo: dict,
 # the interface form's exactness and timing cases: sec11 0B263P10 and the
 # Frankengraph 0B30P50 with a proposal variant, at the experiment path's
 # shape (pick_chunk(100000, 4096) = 2439; their plain versions held after
-# phase 19) and at the main path's
+# phase 23) and at the main path's
 IFACE_CASES = (
     ("sec11 nobacktrack, the experiment path's shape", "grid_sec11",
      "sec11_plan", dict(nobacktrack=True), BASE, 0.1, 8, 2439),
@@ -3355,7 +3427,7 @@ IFACE_CASES = (
      dict(nobacktrack=True), BASE, 0.1, CHAINS, CHUNK),
 )
 # the pair kernel's cases: the dual sweep's configs at the sweep's shape
-# (C=8, T=2439; their plain versions held after phase 19), then the
+# (C=8, T=2439; their plain versions held after phase 23), then the
 # full-width 64 x 64 hex lattice at k = 4
 PAIR_DUAL = (("dual-K4-0B263P25", 4), ("dual-K8-0B263P25", 8))
 PAIR_HEX = dict(m=64, k=4, chains=CHAINS, chunk=CHUNK, tol=0.1, steps=1001)
@@ -3452,7 +3524,7 @@ def interface_phase(port, cd, sampling) -> dict:
                                   f"clock)")
             rows_bit_equal(rows, want[1], f"interface {label}")
             return err
-        # the experiment path's chunks held after phase 19 (plain_jobs)
+        # the experiment path's chunks held after phase 23 (plain_jobs)
         hold_plain("general_dense_chunk", cd.general_dense_chunk_reference,
                    (dg, spec, params, st, t_len), check,
                    defer=t_len > CHUNK)
@@ -3515,7 +3587,7 @@ def pair_cases(port, drv, ex, sampling) -> list:
 def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
     """Phase 17: general_pair_chunk against its plain version at the dual
     sweep's shape (k = 4 and 8, C=8, T=2439; their plain versions held
-    after phase 19) and at the full-width hex
+    after phase 23) and at the full-width hex
     64 x 64, k = 4, C=4096, T=500 (timed beside its bound), each launch
     counted; then run_chains at that shape with the count zeroed just
     before: flips/s, launches a chunk, peak memory and idle share."""
@@ -3540,7 +3612,7 @@ def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
             return compare_general(
                 cp, got, rows, *want, f"{label} C={c} T={t_len} (plain "
                 f"{secs:.3f} s, host clock)", name="general_pair_chunk")
-        # the dual sweep's chunks held after phase 19 (plain_jobs)
+        # the dual sweep's chunks held after phase 23 (plain_jobs)
         err = max(err, hold_plain(
             "general_pair_chunk", cp.general_pair_chunk_reference,
             (dg, spec, params, st, t_len), check, defer=t_len > CHUNK))
@@ -3850,6 +3922,575 @@ def new_runs_phase(ex, drv, cp, cd, sampling, out_dir: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-23: the rook board's k-district pair walk (its kernel
+# board_pair_chunk, its main path, the kpair family) and replica-exchange
+# tempering (the temper family on lowered_chunk)
+# ---------------------------------------------------------------------------
+
+# board_pair_chunk's exactness cases: (label, h, w, k, chains, pop_tol,
+# base, spec overrides, the kernel's warm-up steps before the case), each
+# a BPAIR_T-step chunk from the warmed state against the plain version
+BPAIR_T = 64
+BPAIR_CASES = (
+    ("64x64 k=4", 64, 64, 4, 256, 0.5, BASE, {}, 200),
+    ("40x65 k=3 (a width that straddles words)", 40, 65, 3, 128, 0.5, 0.8,
+     {}, 200),
+    ("8x16 k=8 pop_tol 0.1 (gates that bind)", 8, 16, 8, 128, 0.1, 0.8, {},
+     200),
+    ("64x64 k=4 contiguity none", 64, 64, 4, 256, 0.5, BASE,
+     {"contiguity": "none"}, 200),
+    ("64x64 k=4 accept always", 64, 64, 4, 128, 0.5, BASE,
+     {"accept": "always"}, 200),
+    ("64x64 k=4 pop_tol 0 (an empty valid set)", 64, 64, 4, 64, 0.0, BASE,
+     {}, 0),
+)
+# the kpair main path (bench.py --k 4's shape) and its runs at the paper's
+# shape: kpair K4 and K8 at 0B263P50, 100,000 steps, 8 chains
+BPAIR_MAIN = dict(grid=GRID, k=4, chains=CHAINS, tol=0.5, steps=1001)
+KPAIR_RUNS = ("kpair-K4-0B263P50", "kpair-K8-0B263P50")
+KPAIR_FIXTURE = dict(family="kpair", n_districts=4, grid=16, alignment=0,
+                     base=BASE, pop_tol=0.5, total_steps=401,
+                     checkpoint_every=200, n_chains=2, seed=0)
+# the temper family: its config at the paper's shape (8 ladders of the
+# 10-rung ladder), the JAX-made fixture's config, and the exact joint law
+# of a 2-rung ladder on tests/test_tempered.py:139's setting
+TEMPER_RUN = "temper-0B333P10R10S50"
+TEMPER_FIXTURE = dict(family="temper", betas=(1.0, 0.9, 0.8), swap_every=10,
+                      alignment=0, base=1 / 0.3, pop_tol=0.1,
+                      total_steps=201, n_chains=2, seed=0)
+TEMPER_ENUM = dict(base=3.0, betas=(1.0, 0.5), ladders=2048, steps=1201,
+                   burn=600)
+# Operations of the pair chunk, counted on this run's data (a floor):
+#   ops = C * T * (6 * K_BLOCK + K_LTAIL) + (K_WAIT + 9 * K_PCELL) * accepted
+# six threefry blocks a chain-step (the four-way split and the proposal and
+# accept uniforms), the selection, accept test and record (K_LTAIL); per
+# accepted move the wait (and its block) and the pair slots of the 3 x 3
+# block around the flip, K_PCELL a cell: its 8 neighbours' reads and
+# compares (16), the dedup of 4 directions (6), the ring criterion (12)
+# and its byte (6): 40. The distinct-pair and valid counts change only
+# there, so no per-cell term is in the floor.
+K_PCELL = 40
+
+
+def bpair_inputs(port, sampling, h: int, w: int, k: int, chains: int,
+                 tol: float, base: float, spec_kw: dict, warm: int,
+                 seed: int):
+    """(graph, BoardGraph, spec, params, state) of an h x w k-stripe start
+    on the card, advanced ``warm`` steps by the kernel itself."""
+    g = port.graphs.square_grid(h, w)
+    plan = port.graphs.stripes_plan(g, k)
+    spec = port.Spec(n_districts=k, proposal="pair", **spec_kw)
+    bg, st, params = sampling.init_board(g, plan, n_chains=chains,
+                                         seed=seed, spec=spec, base=base,
+                                         pop_tol=tol, device=DEVICE)
+    if warm:
+        st = sampling.board_runner.run_board_segment(
+            bg, spec, params, st, warm, record_history=False,
+            device=DEVICE).state
+    return g, bg, spec, params, st
+
+
+def bpair_bound(cbp, bg, spec, state, t_len: int, accepted: int):
+    """(bound ms, by) of one board pair chunk: every input read once and
+    every output written once (the board in and out, the per-chain fields,
+    the six (T, C) rows, the two (C, N) cut planes out), and the
+    operations of this run's data (K_PCELL above)."""
+    c, n = state.board.shape
+    k = spec.n_districts
+    nbytes = (2 * c * n + 4 * k
+              + 4 * c * (2 * 2 + 2 * k + 6 + 2 + 2 * 8)
+              + 4 * 6 * t_len * c + 8 * c * n)
+    ops = (c * t_len * (6 * K_BLOCK + K_LTAIL)
+           + (K_WAIT + K_BLOCK + 9 * K_PCELL) * accepted)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def bpair_args(cbp, bg, spec, params, st, t_len):
+    static = cbp.make_static_inputs(bg, spec, params)
+    key, dp, scal, ints = cbp.pack_state(st, params)
+    return static, (bg, static, spec, t_len, st.board, key, dp, scal, ints)
+
+
+def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
+    """Phases 20-21: board_pair_chunk against its plain version at
+    BPAIR_CASES (one launch counted a call); the kpair main path
+    (run_board at 64 x 64, k = 4, C=4096, chunk 500, 1001 steps) with the
+    count zeroed just before and read just after, its result checks,
+    flips/s, peak memory and idle share; the kernel at that path's shape
+    from its final state, held to its plain version (after phase 23, in a
+    worker process), timed beside its bound, its launch shape and cycles
+    a step; ``bench --k 4`` as a user runs it, one repeat; the 3 x 3 grid
+    at k = 3 on the board route against the pair chain's exact law."""
+    import numpy as np
+    import torch
+    err = 0.0
+    cases = {}
+    for i, (label, h, w, k, c, tol, base, kw, warm) in enumerate(
+            BPAIR_CASES):
+        g, bg, spec, params, st = bpair_inputs(port, sampling, h, w, k, c,
+                                               tol, base, kw, warm, 40 + i)
+        _, args = bpair_args(cbp, bg, spec, params, st, BPAIR_T)
+        n0 = cbp.run_board_pair_chunk_cuda.launches
+        got = cbp.run_board_pair_chunk_cuda(*args)
+        torch.cuda.synchronize()
+        if cbp.run_board_pair_chunk_cuda.launches != n0 + 1:
+            fail(f"board_pair_chunk {label}: the wrapper did not count its "
+                 "launch")
+        t0 = time.perf_counter()
+        want = cbp.board_pair_chunk_reference(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max(err, compare_lowered(
+            cbp, got, want, f"board_pair_chunk {label} C={c} T={BPAIR_T} "
+            f"(plain {plain_s:.3f} s)"))
+        accepted = int((got[4][5] - args[-1][5]).sum())
+        if "empty" in label and accepted:
+            fail(f"board_pair_chunk {label}: {accepted} moves accepted")
+        if "empty" not in label and not accepted:
+            fail(f"board_pair_chunk {label}: no move accepted")
+        cases[label] = {"chains": c, "chunk": BPAIR_T, "accepted": accepted,
+                        "plain_s": plain_s}
+
+    # ---- the kpair main path through run_board -------------------------
+    m, k, c = BPAIR_MAIN["grid"], BPAIR_MAIN["k"], BPAIR_MAIN["chains"]
+    steps = BPAIR_MAIN["steps"]
+    g, bg, spec, params, st = bpair_inputs(port, sampling, m, m, k, c,
+                                           BPAIR_MAIN["tol"], BASE, {}, 0, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cbp.run_board_pair_chunk_cuda.launches = 0
+    cl.run_lowered_chunk_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = sampling.run_board(bg, spec, params, st, n_steps=steps,
+                             chunk=CHUNK, record_history=False,
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cbp.run_board_pair_chunk_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-(steps - 1) // CHUNK)
+    if launches != chunks or cl.run_lowered_chunk_cuda.launches:
+        fail(f"kpair main path: board_pair_chunk launched {launches} times "
+             f"for {chunks} chunks (lowered_chunk "
+             f"{cl.run_lowered_chunk_cuda.launches})")
+    fs = res.state
+    if not torch.equal(fs.cut_count, tb.recount_cuts(bg, fs.board)):
+        fail("kpair main path: cut_count disagrees with a recount")
+    pops = torch.stack([(fs.board == d).sum(dim=1) for d in range(k)], 1)
+    if not torch.equal(pops.to(torch.int32), fs.dist_pop):
+        fail("kpair main path: dist_pop disagrees with a recount")
+    boards = fs.board[:16].cpu().numpy()
+    if not all(graph_connected(g, b, k) for b in boards):
+        fail("kpair main path: a sampled chain has a disconnected district")
+    fps = c * (steps - 1) / wall
+    prof = idle_share(lambda: sampling.run_board(
+        bg, spec, params, fs, n_steps=steps, chunk=CHUNK,
+        record_history=False, device=DEVICE),
+        counted=("board_pair_chunk", cbp.run_board_pair_chunk_cuda))
+    rate = fs.accept_count.double().mean().item() / (steps - 1)
+    print(f"[{card}] kpair main path: run_board on the {m}x{m} rook grid, "
+          f"k={k}, {c} chains x {steps} steps in {wall:.3f} s, {fps:.6e} "
+          f"flips/s (accept rate {rate:.4f}); board_pair_chunk launches "
+          f"{launches} for {chunks} chunks; peak memory "
+          f"{peak / 2 ** 20:.1f} MiB; cut_count and dist_pop equal to "
+          f"recounts, {len(boards)} chains' districts connected; profile: "
+          f"{prof}")
+
+    # ---- the kernel at the main path's shape ----------------------------
+    static, args = bpair_args(cbp, bg, spec, params, fs, CHUNK)
+    got = cbp.run_board_pair_chunk_cuda(*args)
+    ms = event_ms(lambda: cbp.run_board_pair_chunk_cuda(*args), 3)
+    accepted = int((got[4][5] - args[-1][5]).sum())
+    bound_ms, bound_by = bpair_bound(cbp, bg, spec, fs, CHUNK, accepted)
+    shape = cbp.launch_shape(bg.n)
+    resident = shape["chains_per_block"] * shape["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_mhz(clocks_under_load(
+        lambda: cbp.run_board_pair_chunk_cuda(*args), max(20, int(400 / ms))))
+    cyc = ms * 1e3 * mhz / CHUNK if mhz else None
+    main = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "accepted": accepted, "shape": shape, "cycles_per_step": cyc,
+            "sm_mhz": mhz}
+    print(f"board_pair_chunk main-path shape (C={c}, T={CHUNK}, {bg.n} "
+          f"cells, k={k}, {accepted} accepted moves): {ms:.4f} ms per chunk "
+          f"(CUDA events, mean of 3); bound {bound_ms:.4e} ms ({bound_by}); "
+          f"{shape['chain_bytes']} B of shared memory a chain, "
+          f"{shape['chains_per_block']} chains a block, "
+          f"{shape['blocks_per_sm']} block(s) an SM ({resident} chains "
+          f"resident an SM, {-(-c // (sms * resident))} wave(s) on {sms} "
+          f"SMs), {shape['words_per_lane']} slot words a lane; "
+          + (f"{cyc:.1f} cycles a chain-step at {mhz:.0f} MHz" if cyc else
+             "cycles a step not measured (no SM clock read)"))
+
+    def check(want, secs):
+        main["plain_ms"] = 1e3 * secs
+        return compare_lowered(cbp, got, want, f"board_pair_chunk main-path "
+                               f"shape C={c} T={CHUNK} (plain {secs:.3f} s, "
+                               "host clock)")
+    # held after phase 23 (plain_jobs)
+    hold_plain("board_pair_chunk", cbp.board_pair_chunk_reference, args,
+               check, defer=True)
+
+    # ---- bench --k 4 as a user runs it, one repeat ----------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "flipcomplexityempirical_tpu_torch.bench", "--k",
+                          "4", "--repeats", "1"], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    bwall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"bench --k 4 exited {out.returncode}:\n{out.stderr}")
+    lines = out.stdout.strip().splitlines()
+    head, meta = json.loads(lines[-1]), last_json(out.stderr)
+    want_head = {"metric": "flips_per_sec_per_chip_64x64_pair_k4",
+                 "unit": "flips/s", "device": torch.cuda.get_device_name(0),
+                 "kernel_path": "bitboard", "kernel": "board_pair_chunk",
+                 "repeat_policy": "best"}
+    if (len(lines) != 1 or {key: head.get(key) for key in want_head}
+            != want_head or not head["value"] > 0):
+        fail(f"bench --k 4: headline {head}, expected {want_head}")
+    if meta["launches"] != (STEPS - 1) // CHUNK or meta["chains"] != CHAINS:
+        fail(f"bench --k 4: {meta['launches']} launches at "
+             f"{meta['chains']} chains")
+    print(f"bench --k 4 ({bwall:.3f} s wall; 1 repeat of {STEPS} timed "
+          f"steps): {lines[-1]}")
+    print(f"bench --k 4 meta: {json.dumps(meta)}")
+
+    # ---- the 3 x 3 grid at k = 3 on the board route --------------------
+    stationary = kpair_stationary(port, sampling)
+    return {"launches": launches, "max_abs_err": err, "cases": cases,
+            "main_shape": main,
+            "main_path": {"flips_per_s": fps, "wall_s": wall,
+                          "peak_mib": peak / 2 ** 20, "profile": prof,
+                          "accept_rate": rate},
+            "bench": {**head, "chains": meta["chains"],
+                      "seconds": meta["seconds"],
+                      "accept_rate": meta["accept_rate"]},
+            "stationary": stationary}
+
+
+def kpair_stationary(port, sampling) -> dict:
+    """The board pair kernel's chains on the 3 x 3 grid at k = 3 against
+    the pair chain's exact law (``_torch_enumeration.
+    build_pair_transition``, its lazy iteration): en.CHAINS chains,
+    PAIR_ENUM_BURN steps, then en.SAMPLES one-step segments pooled; phase
+    13's bars, as phase 18 holds the general pair kernel."""
+    import numpy as np
+    import torch
+    import _torch_enumeration as en
+    from flipcomplexityempirical_tpu_torch.sampling.runner import pop_bounds
+    label, _, k, base, tol, _ = PAIR_ENUM[0]
+    g = port.graphs.square_grid(3, 3)
+    plan = port.graphs.stripes_plan(g, k)
+    lo, hi = pop_bounds(g, k, tol)
+    states, P, cuts = en.build_pair_transition(g, plan, k, base, lo, hi)
+    pi = en.stationary_lazy(P)
+    spec = port.Spec(n_districts=k, proposal="pair")
+    bg, st, params = sampling.init_board(g, plan, n_chains=en.CHAINS,
+                                         seed=320, spec=spec, base=base,
+                                         pop_tol=tol, device=DEVICE)
+    seg = sampling.board_runner.run_board_segment
+    t0 = time.perf_counter()
+    st = seg(bg, spec, params, st, PAIR_ENUM_BURN, record_history=False,
+             device=DEVICE).state
+    boards = []
+    for _ in range(en.SAMPLES):
+        st = seg(bg, spec, params, st, 1, record_history=False,
+                 device=DEVICE).state
+        boards.append(st.board)
+    rows = torch.cat(boards).cpu().numpy()
+    chain = np.tile(np.arange(en.CHAINS), len(boards))
+    try:
+        tv, cut_err, t = en.pair_pool_check(rows, chain, states, pi, cuts)
+    except KeyError as exc:
+        fail(f"board pair {label}: a chain left the closure ({exc})")
+    t_max = float(np.abs(t).max())
+    print(f"stationary board_pair {label} base {base}: TV {tv:.6f}, E|cut| "
+          f"relative error {cut_err:.6f}, t of E|cut| {t[0]:.3f}, max |t| "
+          f"{t_max:.3f} over E|cut| and the 9 nodes' mean districts "
+          f"({len(rows)} boards of {len(states)} states, {en.CHAINS} chains "
+          f"x {en.SAMPLES} steps after {PAIR_ENUM_BURN}; "
+          f"{time.perf_counter() - t0:.3f} s)")
+    if tv >= en.TV_POOL_TOL or cut_err >= en.CUT_TOL or not t_max < en.T_TOL:
+        fail(f"board pair {label}: TV {tv:.4f} (bar {en.TV_POOL_TOL}), "
+             f"E|cut| error {cut_err:.4f} (bar {en.CUT_TOL}) or max |t| "
+             f"{t_max:.2f} (bar {en.T_TOL})")
+    return {"tv": tv, "cut_err": cut_err, "t_cut": float(t[0]),
+            "t_max": t_max, "states": len(states)}
+
+
+def fixture_matches(ex, drv, which: str, kw: dict, out_dir: str,
+                    scaled: bool) -> int:
+    """The card's run_config of a JAX-made fixture's config against the
+    fixture (tests/test_torch_families_fixture.py's rules); the waits off
+    by a log tie."""
+    import os
+
+    import numpy as np
+    import _parity
+    fx = dict(np.load(ROOT / "tests" / "fixtures" / "torch" /
+                      f"experiment_{which}.npz"))
+    cfg = ex.ExperimentConfig(**kw)
+    fdir = os.path.join(out_dir, f"fixture_{which}")
+    data = drv.run_config(cfg, fdir, device=DEVICE)
+    got = _parity.experiment_arrays(data, open(os.path.join(
+        fdir, cfg.tag + "wait.txt")).read())
+    try:
+        ties = _parity.assert_experiment_matches(got, fx, scaled_waits=scaled,
+                                                 sum_ulps=scaled)
+    except AssertionError as exc:
+        fail(f"fixture {which}: {exc}")
+    print(f"fixture ({which}: the JAX package's run_config, {cfg.tag}, "
+          f"{cfg.total_steps} steps, {cfg.n_chains} chains): equal in every "
+          f"array and artifact text; waits off by a log tie {ties}")
+    return ties
+
+
+def config_run(ex, drv, cfg, out_dir: str, wrapper, chunks: int,
+               card: str) -> tuple:
+    """run_config of ``cfg`` on the card, the kernel's count zeroed just
+    before and read just after (it must equal ``chunks``), every artifact
+    checked: (data, its record)."""
+    import os
+
+    import torch
+    wrapper.launches = 0
+    t0 = time.perf_counter()
+    data = drv.run_config(cfg, out_dir, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if wrapper.launches != chunks:
+        fail(f"{cfg.tag}: {wrapper.launches} launches for {chunks} chunks")
+    kinds = drv.artifact_kinds(cfg.family)
+    n_art = sum(os.path.exists(os.path.join(out_dir, cfg.tag + a))
+                for a in kinds)
+    if n_art != len(kinds) or not ex.is_done(cfg, out_dir):
+        fail(f"{cfg.tag}: {n_art} of {len(kinds)} artifacts written")
+    setup = wall - data["seconds"] - data["render_seconds"]
+    print(f"[{card}] run_config {cfg.family} {cfg.tag} ({cfg.total_steps} "
+          f"steps, {cfg.n_chains} {'ladders' if cfg.betas else 'chains'}): "
+          f"{wall:.3f} s wall, run {data['seconds']:.3f} s, render "
+          f"{data['render_seconds']:.3f} s, set-up {setup:.3f} s; "
+          f"{wrapper.__name__.replace('run_', '').replace('_cuda', '')} "
+          f"launches {wrapper.launches} for {chunks} chunks; {n_art} "
+          "artifacts")
+    return data, {"wall_s": wall, "run_s": data["seconds"],
+                  "render_s": data["render_seconds"], "setup_s": setup,
+                  "launches": wrapper.launches, "chunks": chunks}
+
+
+def kpair_runs(ex, drv, cbp, sampling, out_dir: str, card: str) -> dict:
+    """Phase 22: the kernel at the experiment path's shape (kpair K4's
+    start, C=8, one pick_chunk(100000, 512) = 369-step chunk), timed, and
+    held to its plain version (after phase 23); run_config for KPAIR_RUNS
+    at the paper's shape
+    (100,000 steps, 8 chains): one launch a chunk, seconds split, every
+    artifact, each chain's cut_count against a recount and its districts
+    connected; the card's 401-step run equal to experiment_kpair.npz."""
+    import os
+
+    import numpy as np
+    import torch
+    out = {}
+    for tag in KPAIR_RUNS:
+        cfg = experiment_config(ex, "kpair", tag, total_steps=EXP_STEPS,
+                                n_chains=EXP_CHAINS)
+        if tag == KPAIR_RUNS[0]:
+            g, plan, _ = drv.build_graph_and_plan(cfg)
+            spec = drv.spec_for(cfg)
+            _, (bg, st, params) = drv._init_run(cfg, g, plan, spec, DEVICE)
+            t_len = sampling.runner.pick_chunk(EXP_STEPS, 512)
+            _, args = bpair_args(cbp, bg, spec, params, st, t_len)
+            n0 = cbp.run_board_pair_chunk_cuda.launches
+            got = cbp.run_board_pair_chunk_cuda(*args)
+            if cbp.run_board_pair_chunk_cuda.launches != n0 + 1:
+                fail("board_pair_chunk experiment shape: the wrapper did not "
+                     "count its launch")
+            ms = event_ms(lambda: cbp.run_board_pair_chunk_cuda(*args), 3)
+            accepted = int((got[4][5] - args[-1][5]).sum())
+            bound_ms, bound_by = bpair_bound(cbp, bg, spec, st, t_len,
+                                             accepted)
+            print(f"board_pair_chunk experiment shape (C={EXP_CHAINS}, "
+                  f"T={t_len}): {ms:.4f} ms per chunk (CUDA events, mean of "
+                  f"3); bound {bound_ms:.4e} ms ({bound_by})")
+            exp = out["experiment_shape"] = {"ms": ms, "bound_ms": bound_ms,
+                                             "bound_by": bound_by}
+
+            def check(want, secs, got=got, exp=exp, label=(
+                    f"board_pair_chunk experiment {tag} start C={EXP_CHAINS} "
+                    f"T={t_len}")):
+                exp["plain_ms"] = 1e3 * secs
+                return compare_lowered(cbp, got, want, f"{label} (plain "
+                                       f"{secs:.3f} s, host clock)")
+            # held after phase 23 (plain_jobs), host-bound at ~20 ms a step
+            hold_plain("board_pair_chunk", cbp.board_pair_chunk_reference,
+                       args, check, defer=True)
+        chunks = expected_chunks(sampling.runner, cfg)
+        data, rec = config_run(ex, drv, cfg, os.path.join(out_dir, "runs"),
+                               cbp.run_board_pair_chunk_cuda, chunks, card)
+        g, _, _ = drv.build_graph_and_plan(cfg)
+        a = np.asarray(data["assignments"]).astype(np.int64)
+        recount = (a[:, g.edges[:, 0]] != a[:, g.edges[:, 1]]).sum(axis=1)
+        if not np.array_equal(recount, data["state"]["cut_count"]):
+            fail(f"{tag}: cut_count disagrees with a recount")
+        if not all(graph_connected(g, row, cfg.n_districts) for row in a):
+            fail(f"{tag}: a chain has a disconnected district")
+        out[tag] = rec
+    out["fixture_ties"] = fixture_matches(ex, drv, "kpair", KPAIR_FIXTURE,
+                                          out_dir, scaled=True)
+    return out
+
+
+def temper_phase(ex, drv, cl, sampling, out_dir: str, card: str) -> dict:
+    """Phase 23: run_config for TEMPER_RUN at the paper's shape (8 ladders
+    x 10 rungs, 100,000 steps, a swap round every 50 transitions), the
+    lowered_chunk count zeroed just before and read just after (one
+    launch a round): seconds split, the swap rate of each adjacent rung
+    pair, rungs.png and every artifact; the swap round's wall ms
+    (swap_within_batch and the host's rung bookkeeping) at that batch;
+    lowered_chunk at that batch (C=80, one swap_every-step chunk) from the
+    state and permuted betas of three swap rounds, timed beside its bound,
+    and held to its plain version (after the phase, in plain_jobs); the
+    card's 201-step run equal to experiment_temper.npz; each rung's
+    cut-count law against the exact joint tempered law on the 3 x 4 grid
+    (beta 1.0 / 0.5, base 3, a round after every transition, many
+    ladders), phase 13's bars."""
+    import os
+
+    import numpy as np
+    import torch
+    import _torch_enumeration as en
+    from flipcomplexityempirical_tpu_torch import rng
+    from flipcomplexityempirical_tpu_torch.kernel import board as tb
+    from flipcomplexityempirical_tpu_torch.sampling import tempered as ttd
+    from flipcomplexityempirical_tpu_torch.sampling import tempering as tt
+    cfg = experiment_config(ex, "temper", TEMPER_RUN, total_steps=EXP_STEPS,
+                            n_chains=EXP_CHAINS)
+    rounds = -(-(EXP_STEPS - 1) // cfg.swap_every)
+    data, rec = config_run(ex, drv, cfg, os.path.join(out_dir, "runs"),
+                           cl.run_lowered_chunk_cuda, rounds, card)
+    rates = data["swapstats"]["rates"]
+    print(f"[{card}] temper {TEMPER_RUN}: swap rates of the adjacent rung "
+          f"pairs (coldest first) "
+          + ", ".join(f"{r:.4f}" for r in rates)
+          + f"; cold-rung chain's wait total {data['waits_sum']:.6e}")
+    if len(rates) != len(cfg.betas) - 1 or not min(rates) > 0:
+        fail(f"temper {TEMPER_RUN}: swap rates {rates}")
+    rec["swap_rates"] = rates
+    # the swap round at that batch: C = 80 chains
+    g, plan, _ = drv.build_graph_and_plan(cfg)
+    spec = drv.spec_for(cfg)
+    _, (bg, st, params0) = drv._init_run(cfg, g, plan, spec, DEVICE)
+    params = params0
+    key = rng.prng_key(1, device=DEVICE)
+    reps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        ttd._host_rungs(params.beta.cpu().numpy(), len(cfg.betas))
+        params, acc = tt.swap_within_batch(key, st, params, len(cfg.betas),
+                                           i % 2, spec=spec)
+        acc.cpu()
+    swap_ms = 1e3 * (time.perf_counter() - t0) / reps
+    print(f"[{card}] swap_within_batch (torch ops) with the host's rung "
+          f"bookkeeping, C={st.cut_count.shape[0]}: {swap_ms:.4f} ms wall a "
+          f"round (mean of {reps}, host clock)")
+    rec["swap_round_ms"] = swap_ms
+    # lowered_chunk at the temper path's shape (C = 80, a T = swap_every
+    # chunk) with the per-chain betas as a few swap rounds leave them
+    mid = ttd.run_tempered(bg, spec, params0, st,
+                           n_steps=4 * cfg.swap_every + 1, betas=cfg.betas,
+                           n_ladders=EXP_CHAINS, swap_every=cfg.swap_every,
+                           swap_seed=cfg.seed, record_history=False)
+    if not mid.swap_accepts.sum():
+        fail(f"temper {TEMPER_RUN}: no swap accepted in 3 rounds")
+    ins = cl.pack_state(mid.state, mid.params)
+    args = (bg, cl.make_static_inputs(bg, spec, mid.params), spec,
+            cfg.swap_every, mid.state.board, *ins)
+    n0 = cl.run_lowered_chunk_cuda.launches
+    got = cl.run_lowered_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    if cl.run_lowered_chunk_cuda.launches != n0 + 1:
+        fail("lowered_chunk temper shape: the wrapper did not count its "
+             "launch")
+    ms = event_ms(lambda: cl.run_lowered_chunk_cuda(*args), 20)
+    kern = rec["kernel"] = {"chains": int(st.cut_count.shape[0]),
+                            "chunk": cfg.swap_every, "ms": ms,
+                            "betas": len(set(
+                                mid.params.beta.cpu().tolist()))}
+    kern["bound_ms"], kern["bound_by"] = lowered_bound(
+        tb, cl, bg, spec, args[1], mid.state.board, ins, got,
+        f"temper {TEMPER_RUN}")
+    print(f"lowered_chunk temper shape (C={kern['chains']}, "
+          f"T={cfg.swap_every}, {kern['betas']} betas permuted by "
+          f"{int(mid.swap_accepts.sum())} accepted swaps): {ms:.4f} ms per "
+          f"chunk (CUDA events, mean of 20); bound {kern['bound_ms']:.4e} "
+          f"ms ({kern['bound_by']})")
+
+    def check(want, secs):
+        kern["plain_ms"] = 1e3 * secs
+        kern["max_abs_err"] = compare_lowered(
+            cl, got, want, f"lowered_chunk temper {TEMPER_RUN} after 3 swap "
+            f"rounds C={kern['chains']} T={cfg.swap_every} (plain "
+            f"{secs:.3f} s, host clock)")
+        return kern["max_abs_err"]
+    # held after phase 23 (plain_jobs)
+    hold_plain("lowered_chunk", cl.lowered_chunk_reference, args, check,
+               defer=True)
+    rec["fixture_ties"] = fixture_matches(ex, drv, "temper", TEMPER_FIXTURE,
+                                          out_dir, scaled=False)
+    # the exact joint law of a 2-rung ladder on the 3 x 4 grid
+    e = TEMPER_ENUM
+    b1, b2 = e["betas"]
+    gg, nbrmask = en.build_masks()
+    states = en.enumerate_states(nbrmask)
+    P1, cuts = en.build_transition(states, gg, e["base"] ** b1)
+    P2, _ = en.build_transition(states, gg, e["base"] ** b2)
+    avg = en.joint_tempered_stationary(P1, P2, cuts.astype(np.float64),
+                                       np.log(e["base"]), b1, b2)
+    import flipcomplexityempirical_tpu_torch as port
+    sspec = port.Spec(contiguity="patch", geom_waits=False,
+                      parity_metrics=False)
+    h, st2, par2 = ttd.init_tempered(
+        gg, port.graphs.stripes_plan(gg, 2), betas=[b1, b2],
+        n_ladders=e["ladders"], seed=11, spec=sspec, base=e["base"],
+        pop_tol=en.EPS, device=DEVICE)
+    t0 = time.perf_counter()
+    res = ttd.run_tempered(h, sspec, par2, st2, n_steps=e["steps"],
+                           betas=[b1, b2], n_ladders=e["ladders"],
+                           swap_every=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rung = ttd.per_rung_history(res, "cut_count")
+    laws = {}
+    for r, pi in ((0, avg.sum(axis=1)), (1, avg.sum(axis=0))):
+        try:
+            tv, cut_err, t = en.cut_law_check(rung[r][:, e["burn"]:], pi,
+                                              cuts)
+        except KeyError as exc:
+            fail(f"tempered rung {r}: {exc}")
+        print(f"stationary tempered rung beta={e['betas'][r]} (3x4 grid, "
+              f"base {e['base']}, {e['ladders']} ladders of 2 rungs, a swap "
+              f"round after every transition, swap rate "
+              f"{res.swap_rates()[0]:.4f}, {e['steps'] - e['burn']} recorded "
+              f"steps after {e['burn']}; {secs:.3f} s): cut-count law TV "
+              f"{tv:.6f}, E|cut| relative error {cut_err:.6f}, t of E|cut| "
+              f"{t:.3f}")
+        if tv >= en.TV_POOL_TOL or cut_err >= en.CUT_TOL or \
+                not abs(t) < en.T_TOL:
+            fail(f"tempered rung {r}: TV {tv:.4f} (bar {en.TV_POOL_TOL}), "
+                 f"E|cut| error {cut_err:.4f} (bar {en.CUT_TOL}) or |t| "
+                 f"{abs(t):.2f} (bar {en.T_TOL})")
+        laws[f"beta={e['betas'][r]}"] = {"tv": tv, "cut_err": cut_err,
+                                          "t_cut": t}
+    rec["stationary"] = laws
+    return rec
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4096,8 +4737,22 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         pair["runs"] = new_runs_phase(port.experiments, drv, cp, cd,
                                       gsampling, tmp, card)
-    # the plain versions held in phases 10, 14, 15, 16 and 17
+    # ---- 20-23: the rook board's pair walk (its kernel, its main path,
+    # the kpair family) and tempering (the temper family) -----------------
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_board_pair as cbp
+    bpair = board_pair_phase(port, cbp, cl, tb, gsampling, str(ROOT), card)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        bpair["runs"] = kpair_runs(port.experiments, drv, cbp, gsampling,
+                                   tmp, card)
+        temper = temper_phase(port.experiments, drv, cl, gsampling, tmp,
+                              card)
+    # the plain versions held in phases 10, 14, 15, 16, 17, 21, 22 and 23
     held = plain_jobs(card)
+    bpair["max_abs_err"] = max(bpair["max_abs_err"],
+                               held.get("board_pair_chunk", 0.0))
+    per_graph["temper"] = {"launches": temper["launches"],
+                           "max_abs_err": held["lowered_chunk"],
+                           "run": temper}
     general["max_abs_err"] = max(general["max_abs_err"],
                                  held.get("general_dense_chunk", 0.0))
     pair["max_abs_err"] = max(pair["max_abs_err"],
@@ -4128,6 +4783,18 @@ def main() -> None:
                             SUMMARY_RUNS if f in families),
             "cases": [c["case"] for c in analytics["cases"]
                       if c["kernel"] == kname]}
+    bmain = bpair.pop("main_shape")
+    kernels.insert(0, {
+        "name": "board_pair_chunk", "route": "cuda",
+        "source": "flipcomplexityempirical_tpu_torch/csrc/"
+                  "board_pair_chunk.cu",
+        "replaces": "flipcomplexityempirical_tpu/kernel/board.py:1406",
+        "launches": bpair.pop("launches"),
+        "max_abs_err": bpair.pop("max_abs_err"), "ms": bmain["ms"],
+        "plain_ms": bmain["plain_ms"], "bound_ms": bmain["bound_ms"],
+        "bound_by": bmain["bound_by"], "library_ms": None,
+        "main_shape": bmain, **bpair,
+    })
     kernels.insert(0, {
         "name": "summary_fold", "route": "cuda",
         "source": "flipcomplexityempirical_tpu_torch/csrc/summary_fold.cu",

@@ -20,7 +20,7 @@ stripes start (``--graph square``), the sec11 grid from
 lattice from a stripes start (``--graph hex``).
 
 - Default, the board path: ``run_board`` on the lowered-chunk kernel, at
-  8192 chains. On square it equals the JAX package's ``bitboard`` body
+  8192 chains (4096 under ``--k``). On square it equals the JAX package's ``bitboard`` body
   (``_scan_bits``) draw for draw, on sec11 and frank its ``lowered_bits``
   body.
 - ``--pallas``: ``run_board_cuda`` on the board-chunk kernel (the Pallas
@@ -31,13 +31,14 @@ lattice from a stripes start (``--graph hex``).
   re-propose body (torch ops) and reporting the faster, as ``bench.py``
   does; ``kernel_path`` names the body that won. ``--general`` alone runs
   the legacy body.
-- ``--k K`` (K > 2): the k-district pair walk from a K-stripe start, on
-  the general path as ``bench.py`` runs it: ``--graph hex --k 4`` races
-  the pair walk's kernel (``general_pair_chunk``) against the legacy body
-  under ``flips_per_sec_per_chip_hex``; ``--general --k 4`` runs the
-  legacy body alone on the rook grid under
-  ``flips_per_sec_per_chip_64x64_pair_k4``. The rook grid's board pair
-  body (``--k`` without ``--general`` on square) waits for ROADMAP.md A7b.
+- ``--k K`` (K > 2): the k-district pair walk from a K-stripe start, as
+  ``bench.py`` runs it: on square the board path, ``run_board`` on the
+  board pair kernel (``board_pair_chunk``, the JAX package's
+  ``_scan_bits_pair`` draw for draw) at 4096 chains under
+  ``flips_per_sec_per_chip_64x64_pair_k{K}``; ``--graph hex --k 4`` races
+  the general path's pair kernel (``general_pair_chunk``) against the
+  legacy body under ``flips_per_sec_per_chip_hex``; ``--general --k 4``
+  runs the legacy body alone on the rook grid.
 - ``--cpu``: the same path through the kernels' plain PyTorch versions on
   the host, at 4096 chains, tagged ``device`` "cpu". Without a card and
   without ``--cpu`` the program exits 1: it never measures the host in
@@ -89,6 +90,7 @@ import torch
 from . import graphs
 from .kernel import board as kboard
 from .kernel import cuda_board as cboard
+from .kernel import cuda_board_pair as cbpair
 from .kernel import cuda_dense as cdense
 from .kernel import cuda_lowered as clow
 from .kernel import cuda_pair as cpair
@@ -203,10 +205,6 @@ def _refusal(args) -> str | None:
         if args.pallas:
             return ("the board-chunk kernel serves the 2-district bi walk "
                     "only; drop --pallas or --k")
-        if args.graph == "square" and not args.general:
-            return ("--k > 2 on the rook grid's board path (the board pair "
-                    "body) is not ported: ROADMAP.md A7b; --general runs "
-                    "the legacy body")
     if args.pallas and args.graph != "square":
         return ("the board-chunk kernel runs the plain rook grid; sec11 and "
                 "frank run the board path (drop --pallas)")
@@ -270,8 +268,8 @@ def main(argv=None) -> int:
     g, plan = _workload(args)
     use_board = kboard.supports(g, spec) and not args.general
     if args.chains is None:
-        args.chains = (8192 if use_board and not (args.pallas or args.cpu)
-                       else 4096)
+        args.chains = (8192 if use_board and args.k == 2
+                       and not (args.pallas or args.cpu) else 4096)
     try:
         bench = (_board_bench(args, g, plan, spec, dev) if use_board
                  else _general_bench(args, g, plan, spec, dev))
@@ -311,7 +309,8 @@ def main(argv=None) -> int:
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     if use_board:
         path = "pallas" if args.pallas else "board"
-        kernel = "board_chunk" if args.pallas else "lowered_chunk"
+        kernel = ("board_chunk" if args.pallas else "lowered_chunk"
+                  if args.k == 2 else "board_pair_chunk")
         kernel_path = best
     else:
         path, kernel_path = "general", best
@@ -438,6 +437,10 @@ def _board_bench(args, g, plan, spec, dev):
     if args.pallas:
         cboard.check(spec, params)
         body, wrapper = "pallas", cboard.run_board_chunk_cuda
+    elif spec.proposal == "pair":
+        body = cbpair.body_for(bg, spec, bits)
+        cbpair.check(bg, spec, params)
+        wrapper = cbpair.run_board_pair_chunk_cuda
     else:
         body = clow.body_for(bg, spec, bits)
         clow.check(bg, spec, params)

@@ -5,8 +5,9 @@ The JAX package's ``BoardGraph``, ``BoardState``, ``DeviceGraph``,
 (``jax.tree.map(np.asarray, obj)``), become ``kernel.board.BoardGraph`` /
 ``BoardState``, ``graphs.DeviceGraph``, ``state.ChainState`` and
 ``kernel.step.StepParams`` on a chosen device, field by field and dtype
-by dtype: the rook and lowered board bodies, and the general path (the
-legacy and dense bodies, the conn planes included). Only attributes are
+by dtype: the rook, pair and lowered board bodies (a k-district state's
+(C, K) dist_pop and its K labels), and the general path (the legacy and
+dense bodies, the conn planes included). Only attributes are
 read, so this module imports nothing of the JAX package; it is how a test
 hands both packages the same state.
 """

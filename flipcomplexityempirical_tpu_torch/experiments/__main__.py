@@ -1,11 +1,14 @@
 """CLI: python -m flipcomplexityempirical_tpu_torch.experiments
-         --family sec11|frank|tri|hex|dual --out plots/sec11 [--steps N]
+         --family sec11|frank|kpair|tri|hex|temper|dual --out plots/sec11
+         [--steps N]
          [--chains C] [--only 2B30P10 ...] [--variant nobacktrack|lazy]
          [--contiguity patch|exact] [--analytics history|summary]
          [--device cuda|cpu]
 
 Runs the sweep grid of a family (150 sec11 configs, 24 Frankengraph
-configs, 4 triangular- and 4 hexagonal-lattice configs, 4 dual-graph
+configs, 8 kpair configs: k = 4 and 8 districts on the 64 x 64 rook grid,
+4 triangular- and 4 hexagonal-lattice configs, 3 temper configs: 10-rung
+beta ladders on the Frankengraph, ``--chains`` ladders each, 4 dual-graph
 configs: k = 4 and 8 districts on a 12 x 12 synthetic precinct map) on
 the card, with
 skip-if-done resume, writing each config's artifacts under the
@@ -23,7 +26,7 @@ from ..device import resolve_device
 from .config import SWEEPS
 from .driver import run_sweep
 
-FAMILIES = ("sec11", "frank", "tri", "hex", "dual")
+FAMILIES = ("sec11", "frank", "kpair", "tri", "hex", "temper", "dual")
 
 
 def main(argv=None) -> None:
@@ -36,7 +39,7 @@ def main(argv=None) -> None:
                     help="total yields per config (default 100000)")
     ap.add_argument("--chains", type=int, default=8,
                     help="batched chains per config (default 8; chain 0 "
-                         "renders)")
+                         "renders; temper: ladders of len(betas) chains)")
     ap.add_argument("--record-every", type=int, default=1,
                     help="history thinning (yields 0, k, 2k, ... recorded; "
                          "accumulators exact)")

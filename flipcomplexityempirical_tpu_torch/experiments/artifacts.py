@@ -1,14 +1,15 @@
 """The per-config artifacts, with the reference's file names.
 
-Port of ``flipcomplexityempirical_tpu/experiments/artifacts.py`` for the
-sec11, Frankengraph, triangular, hexagonal and dual families: for sec11 and the
-Frankengraph, per config {tag}start / edges / end / end2 / wca / wca2 /
-slope / angle / flip / flip2 / logflip / logflip2 .png and {tag}wait.txt
-(grid_chain_sec11.py:321-324,410-411,427-528;
-Frankenstein_chain.py:349-352,438-439,455-556); for the tri and hex
-families the seven of ``FAMILY_ARTIFACTS`` (``render_generic``), for
-the dual family its node and edge maps at the precincts' centroids (the
-driver writes its compactness.json and partisan.json).
+Port of ``flipcomplexityempirical_tpu/experiments/artifacts.py`` for every
+family: for sec11 and the Frankengraph, per config {tag}start / edges /
+end / end2 / wca / wca2 / slope / angle / flip / flip2 / logflip /
+logflip2 .png and {tag}wait.txt (grid_chain_sec11.py:321-324,410-411,
+427-528; Frankenstein_chain.py:349-352,438-439,455-556); for the kpair,
+tri, hex and temper families their subsets of ``FAMILY_ARTIFACTS``
+(``render_generic``; kpair's imshow maps on the grid's bounding box), with
+the temper family's per-rung plot (``render_rungs``); for the dual family
+its node and edge maps at the precincts' centroids (the driver writes
+its compactness.json and partisan.json, and temper's swapstats.json).
 
 The images are drawn with the package's own PNG writer (``png.py``), not
 matplotlib, so they show what the reference's show without its pixels:
@@ -97,7 +98,9 @@ def edge_image(graph: LatticeGraph, edge_values, pos=None) -> np.ndarray:
 def imshow_grid(graph: LatticeGraph, family: str, values) -> np.ndarray:
     """The reference's imshow array: sec11 A2[40, 40] with A2[x, y]
     (grid_chain_sec11.py:440-443), the Frankengraph A2[20, 40] with
-    A2[x, y + 19] (Frankenstein_chain.py:468-471)."""
+    A2[x, y + 19] (Frankenstein_chain.py:468-471); another family with
+    integer-pair labels (kpair's rook grid) the labels' bounding box, as
+    the JAX package draws it."""
     if family == "frank":
         a2 = np.zeros([20, 40])
         xoff, yoff = 0, 19
@@ -105,7 +108,10 @@ def imshow_grid(graph: LatticeGraph, family: str, values) -> np.ndarray:
         a2 = np.zeros([40, 40])
         xoff, yoff = 0, 0
     else:
-        raise ValueError(f"family {family!r} has no imshow layout here")
+        xs = [lab[0] for lab in graph.labels]
+        ys = [lab[1] for lab in graph.labels]
+        a2 = np.zeros([max(xs) - min(xs) + 1, max(ys) - min(ys) + 1])
+        xoff, yoff = -min(xs), -min(ys)
     for i, (x, y) in enumerate(graph.labels):
         a2[x + xoff, y + yoff] = values[i]
     return a2
@@ -197,8 +203,7 @@ ARTIFACT_KINDS = ["start.png", "edges.png", "end.png", "end2.png",
 
 # Per-family artifact manifests, the JAX package's: sec11/frank keep the
 # reference's 13-artifact set; the other families emit the subset their
-# walk defines plus family-specific diagnostics (kpair and temper are not
-# ported here).
+# walk defines plus family-specific diagnostics.
 FAMILY_ARTIFACTS = {
     "sec11": ARTIFACT_KINDS,
     "frank": ARTIFACT_KINDS,
@@ -223,19 +228,22 @@ def artifact_kinds(family: str):
 
 def render_generic(graph: LatticeGraph, outdir: str, tag: str, *, kinds,
                    end_signed, cut_times, num_flips, waits_sum,
-                   part_sum=None, pos=None) -> None:
+                   part_sum=None, pos=None, family: str = "") -> None:
     """The widened families' post-run artifacts: the node maps, the edge
-    map and wait.txt among ``kinds`` (start.png is rendered before the
-    run; the dual family's json files are the driver's; ``pos`` places
-    the nodes). The imshow kinds and the other families' own diagnostics
-    belong to families not ported here, and are refused."""
+    map, the imshow maps (kpair's ``*2.png``, on ``family``'s layout) and
+    wait.txt among ``kinds`` (start.png is rendered before the run; the
+    dual family's json files and the temper family's rungs.png and
+    swapstats.json are the driver's; ``pos`` places the nodes)."""
     os.makedirs(outdir, exist_ok=True)
     j = lambda kind: os.path.join(outdir, tag + kind)
     lognum = np.log(np.asarray(num_flips, np.float64) + 1.0)
     maps = {"end.png": (end_signed, "tab20"), "wca.png": (part_sum, "jet"),
             "flip.png": (num_flips, "jet"), "logflip.png": (lognum, "jet")}
+    grids = {"end2.png": end_signed, "wca2.png": part_sum,
+             "flip2.png": num_flips, "logflip2.png": lognum}
     for kind in kinds:
-        if kind in ("start.png", "compactness.json", "partisan.json"):
+        if kind in ("start.png", "compactness.json", "partisan.json",
+                    "rungs.png", "swapstats.json"):
             continue
         if kind == "wait.txt":
             with open(j(kind), "w") as f:
@@ -245,5 +253,34 @@ def render_generic(graph: LatticeGraph, outdir: str, tag: str, *, kinds,
         elif kind in maps:
             values, cmap = maps[kind]
             png.write_png(j(kind), node_image(graph, values, cmap, pos))
+        elif kind in grids:
+            png.write_png(j(kind), grid_image(
+                imshow_grid(graph, family, grids[kind])))
         else:
             raise ValueError(f"artifact {kind!r} is not ported here")
+
+
+def rungs_image(rung_cut, betas) -> np.ndarray:
+    """The temper family's per-rung |cut| trajectories of ladder 0 in one
+    line plot: one series a rung, coloured along ``jet`` from the first
+    rung to the last, on the y range of all of them with 5 % margins."""
+    series = np.asarray(rung_cut, np.float64)
+    img = png.blank(*LINE_SIZE)
+    fin = series[np.isfinite(series)]
+    lo, hi = (float(fin.min()), float(fin.max())) if fin.size else (0, 1)
+    pad = 0.05 * (hi - lo) if hi > lo else max(abs(lo) * 0.05, 0.05)
+    n = len(betas)
+    colors = png.to_uint8(png.cmap_float(
+        "jet", np.arange(n) / max(n - 1, 1)))
+    for r in range(n):
+        png.draw_series(img, *series_pixels(series[r], (lo - pad, hi + pad)),
+                        color=colors[r])
+    png.draw_box(img, *LINE_BOX)
+    return img
+
+
+def render_rungs(path: str, rung_cut, betas) -> None:
+    """temper: the per-rung reconstructed cut-count trajectories of ladder
+    0 (after a swap the physical rung hops between chains, which the
+    per-chain plots cannot show)."""
+    png.write_png(path, rungs_image(rung_cut, betas))

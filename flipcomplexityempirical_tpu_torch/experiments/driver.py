@@ -1,6 +1,7 @@
 """Per-config experiment driver: the reference's measurement loop and its
-artifacts, for the sec11, Frankengraph, triangular, hexagonal and
-precinct dual-graph families.
+artifacts, for the sec11, Frankengraph, rook-grid k-district (kpair),
+triangular, hexagonal, tempered Frankengraph and precinct dual-graph
+families.
 
 Port of ``flipcomplexityempirical_tpu/experiments/driver.py`` (its JAX
 backend's board and general branches, the checkpoints and the bare sweep
@@ -11,7 +12,14 @@ checkpoint segments when ``cfg.checkpoint_every > 0``:
 - where ``kernel.board.supports(graph, spec)`` holds (sec11, the
   Frankengraph, the triangular lattice without a variant), through
   ``run_board_segment`` on the lowered-chunk kernel, then
-  ``finalize_board_run``;
+  ``finalize_board_run``; the kpair family's k-district pair walk on the
+  64 x 64 rook grid the same way, on the board pair kernel;
+- the temper family (``_run_temper``): ladders of beta rungs on the
+  Frankengraph through ``sampling.tempered.run_tempered`` (a swap round
+  every ``swap_every`` transitions), in checkpoint segments of whole
+  rounds when asked (``_run_temper_segmented``); its artifacts follow the
+  chain that ends holding the coldest beta of ladder 0, with the per-rung
+  cut trajectories (``rungs.png``) and the swap statistics;
 - elsewhere (the hexagonal lattice, the dual graphs' k-district pair
   walk, a proposal variant of sec11 or the Frankengraph, contiguity
   'exact') through the general runner ``run_chains``: the dense body on
@@ -51,31 +59,29 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import rng
 from ..convert import to_numpy
 from ..device import resolve_device
 from ..graphs import (PARITY_LABELS, frank_plan, frankengraph,
                       from_geojson, grid_sec11, hex_lattice, sec11_plan,
-                      stripes_plan, synthetic_precincts, triangular_lattice,
-                      voronoi_precincts)
+                      square_grid, stripes_plan, synthetic_precincts,
+                      triangular_lattice, voronoi_precincts)
 from ..graphs.votes import seed_votes, validate_votes
 from ..kernel import board as kboard
-from ..kernel import cuda_lowered as clow
 from ..kernel.step import Spec, finalize_host
-from ..sampling.board_runner import (finalize_board_run, init_board,
-                                     run_board_segment)
+from ..sampling.board_runner import (chunk_module, finalize_board_run,
+                                     init_board, run_board_segment)
 from ..sampling.runner import init_batch, run_chains
+from ..sampling.tempered import (TemperResult, init_tempered,
+                                 per_rung_history, run_tempered)
 from ..stats import partisan
 from ..stats.compactness import polsby_popper
 from ..stats.accumulators import DeviceAnalytics, summary_host
 from .artifacts import (artifact_kinds, render_all, render_generic,
-                        render_start)
+                        render_rungs, render_start)
 from .config import ExperimentConfig
 
-# what each family not ported here waits for (ROADMAP.md section A)
-_UNPORTED_FAMILIES = {
-    "kpair": "A7b (the k-district pair walk on the rook board)",
-    "temper": "A8 (tempering)",
-}
+FAMILIES = ("sec11", "frank", "kpair", "tri", "hex", "temper", "dual")
 
 
 class CheckpointIdentityError(RuntimeError):
@@ -118,12 +124,7 @@ def _check_ported(cfg: ExperimentConfig) -> None:
         raise ValueError(f"backend {cfg.backend!r}: this package runs "
                          "'torch' only (the python oracle stays in the JAX "
                          "package)")
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise ValueError(
-            f"family {cfg.family!r} is not ported: it waits for ROADMAP.md "
-            f"{_UNPORTED_FAMILIES[cfg.family]}; sec11, frank, tri, hex "
-            "and dual run here")
-    if cfg.family not in ("sec11", "frank", "tri", "hex", "dual"):
+    if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r}")
     if cfg.chain != "flip":
         raise ValueError(f"chain {cfg.chain!r} is not ported: it waits for "
@@ -157,13 +158,18 @@ def _check_summary(cfg: ExperimentConfig, checkpoint_dir) -> None:
 
 def build_graph_and_plan(cfg: ExperimentConfig):
     """(graph, initial plan, GeoAttributes or None) for a config: the JAX
-    package's triple, whose geometry slot only the dual family fills."""
+    package's triple, whose geometry slot only the dual family fills. The
+    temper family runs the Frankengraph (its B333 cell is the slow-mixing
+    regime the ladder exists for)."""
     if cfg.family == "sec11":
         g = grid_sec11()
         return g, sec11_plan(g, cfg.alignment), None
-    if cfg.family == "frank":
+    if cfg.family in ("frank", "temper"):
         g = frankengraph()
         return g, frank_plan(g, cfg.alignment), None
+    if cfg.family == "kpair":
+        g = square_grid(cfg.grid, cfg.grid)
+        return g, stripes_plan(g, cfg.n_districts, axis=cfg.alignment), None
     if cfg.family == "tri":
         g = triangular_lattice(cfg.lattice_m, cfg.lattice_n)
         return g, stripes_plan(g, 2, axis=cfg.alignment), None
@@ -190,15 +196,19 @@ def build_graph_and_plan(cfg: ExperimentConfig):
 def spec_for(cfg: ExperimentConfig) -> Spec:
     """The kernel Spec a family's walk runs under: sec11 and frank keep
     the reference's full metric set, the wall-interface slopes included;
-    tri and hex record no interface; dual runs the k-district pair walk
-    (the 2-district 'bi' walk at k = 2) on boundary length
+    temper, tri and hex record no interface; kpair runs the k-district
+    pair walk (slow_reversible_propose, grid_chain_sec11.py:117-130);
+    dual runs it (the 2-district 'bi' walk at k = 2) on boundary length
     (``weighted_cut``). ``cfg.variant`` maps onto the Spec's
     proposal-variant flags last."""
     _check_ported(cfg)
     common = dict(contiguity=cfg.contiguity, invalid="repropose",
                   parity_metrics=True, geom_waits=True,
                   propose_parallel=cfg.propose_parallel)
-    if cfg.family == "dual":
+    if cfg.family == "kpair":
+        spec = Spec(n_districts=cfg.n_districts, proposal="pair",
+                    accept="cut", record_interface=False, **common)
+    elif cfg.family == "dual":
         spec = Spec(n_districts=cfg.n_districts,
                     proposal="pair" if cfg.n_districts > 2 else "bi",
                     accept="cut", weighted_cut=True,
@@ -242,21 +252,42 @@ def count_artifacts(cfg: ExperimentConfig, outdir: str) -> int:
 
 def _init_run(cfg: ExperimentConfig, g, plan, spec: Spec, device):
     """(use_board, (graph handle, state, StepParams)) on ``device``: the
-    board path on the lowered-chunk kernel where
-    ``kernel.board.supports`` holds (ValueError where that kernel does
-    not serve the spec), else the general runner's triple."""
-    if not kboard.supports(g, spec):
+    board path where ``kernel.board.supports`` holds, on the lowered-chunk
+    kernel or, under 'pair', the board pair kernel (ValueError where that
+    kernel does not serve the spec), else the general runner's triple.
+    The temper family's triple is ``init_tempered``'s (its ladders'
+    chains)."""
+    if cfg.family == "temper":
+        _check_temper(cfg)
+        handle, states, params = init_tempered(
+            g, plan, betas=cfg.betas, n_ladders=cfg.n_chains, seed=cfg.seed,
+            spec=spec, base=cfg.base, pop_tol=cfg.pop_tol, device=device)
+        use_board = isinstance(states, kboard.BoardState)
+    elif not kboard.supports(g, spec):
         return False, init_batch(g, plan, n_chains=cfg.n_chains,
                                  seed=cfg.seed, spec=spec, base=cfg.base,
                                  pop_tol=cfg.pop_tol, device=device)
-    bg, state, params = init_board(g, plan, n_chains=cfg.n_chains,
-                                   seed=cfg.seed, spec=spec, base=cfg.base,
-                                   pop_tol=cfg.pop_tol, device=device)
-    if not clow.supports(bg, spec):
+    else:
+        use_board = True
+        handle, states, params = init_board(
+            g, plan, n_chains=cfg.n_chains, seed=cfg.seed, spec=spec,
+            base=cfg.base, pop_tol=cfg.pop_tol, device=device)
+    if use_board and not chunk_module(spec).supports(handle, spec):
         raise ValueError(
-            f"{cfg.tag}: the lowered-chunk kernel does not serve {spec}; "
-            "its accept rules and annealing wait for ROADMAP.md B4")
-    return True, (bg, state, params)
+            f"{cfg.tag}: the board path's chunk kernel does not serve "
+            f"{spec}; its accept rules and annealing wait for ROADMAP.md B4")
+    return use_board, (handle, states, params)
+
+
+def _check_temper(cfg: ExperimentConfig) -> None:
+    """The temper family's own requirements, in the JAX driver's words."""
+    if not cfg.betas:
+        raise ValueError("temper family needs cfg.betas")
+    if cfg.checkpoint_every and cfg.checkpoint_every % cfg.swap_every:
+        raise ValueError(
+            f"checkpoint_every ({cfg.checkpoint_every}) must be a "
+            f"multiple of swap_every ({cfg.swap_every}): segments are "
+            f"whole swap rounds")
 
 
 def run_config(cfg: ExperimentConfig, outdir: str,
@@ -278,9 +309,13 @@ def run_config(cfg: ExperimentConfig, outdir: str,
     render_start(g, outdir, cfg.tag, _labels_for(cfg)[plan], pos=pos)
     render_s = time.monotonic() - t_r
     t0 = time.monotonic()
-    data = _run_torch(cfg, g, plan, checkpoint_dir, device=dev, run=run)
+    if cfg.family == "temper":
+        data = _run_temper(cfg, g, plan, checkpoint_dir, device=dev, run=run)
+    else:
+        data = _run_torch(cfg, g, plan, checkpoint_dir, device=dev, run=run)
     data["seconds"] = time.monotonic() - t0
-    data["partisan"] = _partisan_summary(cfg, g, data)
+    if cfg.n_districts == 2 or cfg.family == "dual":
+        data["partisan"] = _partisan_summary(cfg, g, data)
     t_r = time.monotonic()
     if cfg.family in ("sec11", "frank"):
         render_all(g, cfg.family, outdir, cfg.tag,
@@ -294,9 +329,15 @@ def run_config(cfg: ExperimentConfig, outdir: str,
                        cut_times=data["cut_times"],
                        num_flips=data["num_flips"],
                        part_sum=data["part_sum"],
-                       waits_sum=data["waits_sum"], pos=pos)
+                       waits_sum=data["waits_sum"], pos=pos,
+                       family=cfg.family)
     if cfg.family == "dual":
         _write_dual_scores(cfg, g, geo, plan, data, outdir)
+    if cfg.family == "temper":
+        j = lambda kind: os.path.join(outdir, cfg.tag + kind)
+        render_rungs(j("rungs.png"), data["rung_cut"], cfg.betas)
+        with open(j("swapstats.json"), "w") as f:
+            json.dump(data["swapstats"], f, indent=1)
     data["render_seconds"] = render_s + time.monotonic() - t_r
     return data
 
@@ -358,7 +399,7 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
     waits_total = np.zeros(cfg.n_chains, np.float64)
     resumed = _load_resume(checkpoint_dir, cfg, states)
     if resumed is not None:
-        done, n_parts, states, hist_parts, waits_total = resumed
+        done, n_parts, states, hist_parts, waits_total, _ = resumed
 
     every = cfg.checkpoint_every or cfg.total_steps
     if (cfg.checkpoint_every and cfg.record_every > 1
@@ -421,6 +462,163 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
         data["summary"] = summary_host(analytics.summary_refs())
         data["readback_bytes"] = analytics.readback_bytes
     return data
+
+
+def _run_temper(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
+                _stop_after_segments: Optional[int] = None, device="cuda",
+                run=None) -> dict:
+    """The temper family: ``cfg.n_chains`` LADDERS of ``len(cfg.betas)``
+    rungs each (the batch is n_chains * n_rungs chains), a swap round
+    every ``swap_every`` transitions. The artifacts follow the chain that
+    ENDS holding beta = betas[0] in ladder 0; the per-rung trajectory
+    plot and the swap rates come from the reconstructed rung histories (a
+    chain's own accumulators mix temperatures by design). Runs in
+    segments of whole rounds (``_run_temper_segmented``): one segment
+    unless checkpointed."""
+    dev = resolve_device(device)
+    _check_temper(cfg)
+    spec = spec_for(cfg)
+    labels = _labels_for(cfg)
+    _, (handle, states, params) = (
+        run if run is not None else _init_run(cfg, g, plan, spec, dev))
+    n_rungs = len(cfg.betas)
+    res = _run_temper_segmented(cfg, handle, spec, params, states,
+                                checkpoint_dir, _stop_after_segments)
+    s = to_numpy(res.state)
+    # the PHYSICAL (beta = betas[0]) chain of each ladder: swaps permute
+    # betas, so the cold chain's batch row differs per ladder at run end
+    beta_lr = res.params.beta.cpu().numpy().reshape(cfg.n_chains, n_rungs)
+    cold_rows = (np.arange(cfg.n_chains) * n_rungs
+                 + np.argmax(beta_lr == np.float32(cfg.betas[0]), axis=1))
+    cold = int(cold_rows[0])
+    if isinstance(res.state, kboard.BoardState):
+        assign_c = kboard.node_view(handle, s["board"][cold]).astype(
+            np.int64)
+        cut_times_c = kboard.edge_cut_times(g, res.state)[cold]
+        assignments = kboard.node_view(handle, s["board"])[cold_rows]
+        cc = SimpleNamespace(
+            part_sum=kboard.node_view(handle, s["part_sum"][cold]),
+            last_flipped=kboard.node_view(handle, s["last_flipped"][cold]),
+            num_flips=kboard.node_view(handle, s["num_flips"][cold]))
+    else:
+        assign_c = s["assignment"][cold].astype(np.int64)
+        cut_times_c = s["cut_times"][cold]
+        assignments = s["assignment"][cold_rows]
+        cc = SimpleNamespace(part_sum=s["part_sum"][cold],
+                             last_flipped=s["last_flipped"][cold],
+                             num_flips=s["num_flips"][cold])
+    part_sum, _ = finalize_host(cc, labels, cfg.total_steps,
+                                assignment=assign_c)
+    return {
+        "end_signed": labels[assign_c],
+        "cut_times": cut_times_c,
+        "part_sum": part_sum,
+        "num_flips": np.asarray(cc.num_flips),
+        "slopes": None,
+        "angles": None,
+        "waits_sum": float(res.waits_total[cold]),
+        "history": res.history,
+        "waits_all": res.waits_total,
+        "state": s,
+        # one physical plan per ladder (partisan summaries must not mix in
+        # hot-rung plans)
+        "assignments": assignments,
+        "rung_cut": per_rung_history(res, "cut_count")[:, 0, :],
+        "swapstats": {
+            # pair r exchanges the chains holding the (r+1)-th and
+            # (r+2)-th LARGEST betas (the rank follows the temperature)
+            "betas": list(map(float, cfg.betas)),
+            "betas_by_rank": sorted(map(float, cfg.betas), reverse=True),
+            "swap_every": cfg.swap_every,
+            "attempts": res.swap_attempts.tolist(),
+            "accepts": res.swap_accepts.tolist(),
+            "rates": res.swap_rates().tolist(),
+        },
+    }
+
+
+def _run_temper_segmented(cfg: ExperimentConfig, handle, spec, params,
+                          states, checkpoint_dir,
+                          _stop_after_segments=None) -> TemperResult:
+    """The temper run: whole-round segments through
+    ``run_tempered(segment=True)`` (one segment when ``checkpoint_every``
+    is 0), the ladder's continuation state
+    (exchanged betas, swap key and parity, pair statistics) in the
+    checkpoint's extra_* arrays, the per-round beta assignment saved as a
+    history part (transposed to the (C, T) part layout). Resumes bit for
+    bit: the chain keys live in the state, the swap key and parity in the
+    extras."""
+    n_rungs = len(cfg.betas)
+    c = cfg.n_chains * n_rungs
+    dev = states.cut_count.device
+    done = 0                     # transitions advanced
+    n_parts = 0
+    hist_parts: dict = {}
+    waits_total = np.zeros(c, np.float64)
+    attempts = np.zeros(n_rungs - 1, np.int64)
+    accepts = np.zeros(n_rungs - 1, np.int64)
+    parity = 0
+    swap_key = rng.prng_key(cfg.seed, device=dev)
+    resumed = _load_resume(checkpoint_dir, cfg, states)
+    if resumed is not None:
+        done, n_parts, states, hist_parts, waits_total, ex = resumed
+        params = dataclasses.replace(params, beta=torch.as_tensor(
+            ex["beta"], dtype=torch.float32, device=dev))
+        attempts = ex["swap_attempts"].copy()
+        accepts = ex["swap_accepts"].copy()
+        parity = int(ex["parity"])
+        swap_key = torch.as_tensor(ex["swap_key"].astype(np.int64),
+                                   device=dev)
+
+    every = cfg.checkpoint_every or (cfg.total_steps - 1)
+    total = cfg.total_steps - 1
+    segments = 0
+    # a one-yield run (total 0) still takes its one, empty, segment
+    while done < total or not hist_parts:
+        n = min(every, total - done)
+        last = done + n >= total
+        res = run_tempered(
+            handle, spec, params, states,
+            n_steps=(n + 1 if last else n), betas=cfg.betas,
+            n_ladders=cfg.n_chains, swap_every=cfg.swap_every,
+            record_every=cfg.record_every, segment=not last,
+            record_initial=(done == 0), start_parity=parity,
+            swap_key=swap_key)
+        states, params = res.state, res.params
+        parity, swap_key = res.end_parity, res.end_swap_key
+        seg_hist = dict(res.history)
+        seg_hist["beta_hist"] = res.beta_hist.T       # (C, rounds) part
+        for k, v in seg_hist.items():
+            hist_parts.setdefault(k, []).append(v)
+        waits_total += res.waits_total
+        attempts += res.swap_attempts
+        accepts += res.swap_accepts
+        done += n
+        segments += 1
+        if checkpoint_dir:
+            n_parts = save_checkpoint(
+                checkpoint_dir, cfg, states, done=done,
+                waits_total=waits_total, new_hist=seg_hist,
+                part_idx=n_parts,
+                extra={"beta": params.beta.cpu().numpy(),
+                       "swap_attempts": attempts,
+                       "swap_accepts": accepts,
+                       "parity": np.int64(parity),
+                       "swap_key": swap_key.cpu().numpy().astype(
+                           np.uint32)})
+        if _stop_after_segments and segments >= _stop_after_segments:
+            raise _SegmentStop(done)
+
+    history = {k: np.concatenate(v, axis=1) for k, v in hist_parts.items()}
+    beta_hist = history.pop("beta_hist").T            # (rounds, C)
+    return TemperResult(
+        state=states, history=history, waits_total=waits_total,
+        n_yields=cfg.total_steps, params=params,
+        betas=np.asarray(cfg.betas, np.float64), n_rungs=n_rungs,
+        swap_every=cfg.swap_every, record_every=cfg.record_every,
+        general_initial=not isinstance(states, kboard.BoardState),
+        beta_hist=beta_hist, swap_attempts=attempts, swap_accepts=accepts,
+        end_parity=parity, end_swap_key=swap_key)
 
 
 def assemble_run_data(cfg: ExperimentConfig, g, handle, states,
@@ -538,8 +736,9 @@ def _state_from_arrays(template, loaded: dict, tag: str = "",
 
 def _load_resume(checkpoint_dir, cfg: ExperimentConfig, states_template):
     """None for a fresh start, else (done, n_parts, states, hist_parts,
-    waits_total). A state-field mismatch raises
-    ``CheckpointIdentityError``."""
+    waits_total, extras), ``extras`` the runner's extra_* continuation
+    arrays (the temper family's ladder state). A state-field mismatch
+    raises ``CheckpointIdentityError``."""
     if not checkpoint_dir:
         return None
     loaded = load_checkpoint(checkpoint_dir, cfg)
@@ -552,7 +751,9 @@ def _load_resume(checkpoint_dir, cfg: ExperimentConfig, states_template):
             states,
             {k[len("hist_"):]: [v] for k, v in loaded.items()
              if k.startswith("hist_")},
-            loaded["meta_waits_total"].copy())
+            loaded["meta_waits_total"].copy(),
+            {k[len("extra_"):]: v for k, v in loaded.items()
+             if k.startswith("extra_")})
 
 
 def _ckpt_identity(cfg: ExperimentConfig) -> str:
@@ -664,13 +865,14 @@ def _state_arrays(state) -> dict:
 
 def save_checkpoint(ckpt_dir: str, cfg: ExperimentConfig, state,
                     done: int = 0, waits_total=None, new_hist=None,
-                    part_idx: int = 0) -> int:
+                    part_idx: int = 0, extra: Optional[dict] = None) -> int:
     """Per-config checkpoint: ``<tag>.npz`` holds the chain state
     (state_*) and progress + config identity (meta_*); each segment's
     history goes to its own ``<tag>.h<k>.npz`` part file, so a save costs
     O(segment), not O(run so far). The main file is written atomically
-    after its part, so meta_n_parts never points at a missing file.
-    Returns the next part index.
+    after its part, so meta_n_parts never points at a missing file;
+    ``extra`` adds a runner's continuation arrays (extra_*, the temper
+    family's ladder state). Returns the next part index.
 
     Every file goes through write-to-temp + fsync + atomic rename and its
     SHA-256 lands in ``<tag>.manifest.json``; the manifest keeps the last
@@ -694,6 +896,8 @@ def save_checkpoint(ckpt_dir: str, cfg: ExperimentConfig, state,
     arrays["meta_identity"] = np.array(_ckpt_identity(cfg))
     if waits_total is not None:
         arrays["meta_waits_total"] = np.asarray(waits_total, np.float64)
+    for k, v in (extra or {}).items():
+        arrays[f"extra_{k}"] = np.asarray(v)
     path = os.path.join(ckpt_dir, cfg.tag + ".npz")
     prev_path = os.path.join(ckpt_dir, cfg.tag + ".prev.npz")
     cur = man["current"]

@@ -1,7 +1,7 @@
-"""Board form of the 2-district flip chain: types and the plain PyTorch
-pieces around the chunk kernels.
+"""Board form of the flip chains (the 2-district walk and the k-district
+pair walk): types and the plain PyTorch pieces around the chunk kernels.
 
-Port of ``flipcomplexityempirical_tpu/kernel/board.py`` for two bodies:
+Port of ``flipcomplexityempirical_tpu/kernel/board.py`` for three bodies:
 
 - the rook body, on a plain H x W rook grid: state is a flat (C, N) int8
   board, N = H*W, flat index x*W + y; its chunk runs in ``cuda_board``
@@ -13,6 +13,14 @@ Port of ``flipcomplexityempirical_tpu/kernel/board.py`` for two bodies:
   forward cut planes (E, SE, S, SW) and the wall-key interface metrics;
   it serves surgical canvases (sec11, Frankengraph, queen grids) and every
   ``record_interface`` spec, and its chunk runs in ``cuda_lowered``.
+- the k-district pair body (``is_pair``; slow_reversible_propose,
+  grid_chain_sec11.py:117-130) on a plain rook grid that lowers: the walk
+  uniform over distinct (boundary node, adjacent district) pairs in the
+  row-major (node, rook direction) order, the ring contiguity of the
+  origin district, population gates as per-chain district bitmasks; its
+  plain pieces (``planes_pair``, ``transition_pair``, and the bitboard
+  selection ``select_flat_pair`` that fixes the JAX package's trajectory)
+  live here, its chunk runs in ``cuda_board_pair``.
 
 The chunk of steps itself runs in a hand-written kernel, or its plain
 version on the CPU; this module holds what runs around it: the stencil
@@ -40,7 +48,7 @@ from .. import rng
 from ..device import resolve_device
 from ..graphs.lattice import LatticeGraph
 from ..lower.stencil import stencil_for
-from .step import Spec, StepParams, sample_geom_minus1
+from .step import Spec, StepParams, geom_denom_finite, sample_geom_minus1
 
 
 @dataclasses.dataclass
@@ -97,8 +105,8 @@ class BoardState:
     diagonal planes (None on rook-body states)."""
 
     key: torch.Tensor            # int64[C, 2]
-    board: torch.Tensor          # int8[C, N] district 0/1
-    dist_pop: torch.Tensor       # int32[C, 2]
+    board: torch.Tensor          # int8[C, N] district 0..K-1 (0/1 'bi')
+    dist_pop: torch.Tensor       # int32[C, K]
     cut_count: torch.Tensor      # int32[C]
     cur_wait: torch.Tensor       # f32[C] memoized geometric wait
     wait_pending: torch.Tensor   # bool[C]
@@ -152,11 +160,8 @@ def board_shape(graph: LatticeGraph):
     return h, w
 
 
-def _common_ok(spec: Spec) -> bool:
-    return (spec.n_districts == 2
-            and spec.proposal == "bi"
-            and spec.accept in ("cut", "corrected", "always")
-            and spec.invalid == "repropose"
+def _shared_ok(spec: Spec) -> bool:
+    return (spec.invalid == "repropose"
             and spec.anneal in ("none", "linear")
             and not spec.frame_interface
             and not spec.weighted_cut
@@ -165,14 +170,40 @@ def _common_ok(spec: Spec) -> bool:
             and not spec.lazy_uniform)
 
 
+def _pair_ok(graph: LatticeGraph, spec: Spec) -> bool:
+    """The k-district pair walk on a plain rook grid's stencil: 2 to 31
+    districts, a uniform node population (the population gates are
+    per-chain district bitmasks), accept 'cut' or 'always', and a wait
+    denominator n**k - 1 that stays finite in f32."""
+    st = stencil_for(graph)
+    pop = np.asarray(graph.pop)
+    k = spec.n_districts
+    return (st is not None and not st.surgical
+            and 2 <= k <= 31
+            and spec.accept in ("cut", "always")
+            and pop.size > 0 and bool((pop == pop[0]).all())
+            and (not spec.geom_waits
+                 or geom_denom_finite(graph.n_nodes, k))
+            and spec.contiguity in ("patch", "none")
+            and not spec.record_interface)
+
+
 def supports(graph: LatticeGraph, spec: Spec) -> bool:
     """True iff a body of this module reproduces the reference chain for
-    (graph, spec) under the 2-district 'bi' walk: the rook body on a
+    (graph, spec): under the 2-district 'bi' walk the rook body on a
     plain rook grid without ``record_interface``, or the lowered body on
     any graph ``lower.stencil_for`` embeds (surgical canvases, and every
-    ``record_interface`` spec whose wall planes encode). Lowered 'patch'
-    contiguity needs the B2 tables to equal the graph's patch tables."""
-    if not _common_ok(spec):
+    ``record_interface`` spec whose wall planes encode; lowered 'patch'
+    contiguity needs the B2 tables to equal the graph's patch tables);
+    under the k-district 'pair' walk the pair body on a plain rook grid
+    that lowers (``_pair_ok``). The JAX package's ``supports``, case for
+    case."""
+    if not _shared_ok(spec):
+        return False
+    if spec.proposal == "pair":
+        return _pair_ok(graph, spec)
+    if not (spec.n_districts == 2 and spec.proposal == "bi"
+            and spec.accept in ("cut", "corrected", "always")):
         return False
     st = stencil_for(graph)
     if st is None or not (st.surgical or spec.record_interface):
@@ -188,6 +219,21 @@ def supports(graph: LatticeGraph, spec: Spec) -> bool:
 def is_lowered(bg: BoardGraph, spec: Spec) -> bool:
     """True iff chunks of (bg, spec) run on the lowered body."""
     return bg.surgical or spec.record_interface
+
+
+def is_pair(spec: Spec) -> bool:
+    """True iff chunks of ``spec`` run on the k-district pair body."""
+    return spec.proposal == "pair"
+
+
+def body_for(bg: BoardGraph, spec: Spec, bits: Optional[bool] = None) -> str:
+    """The JAX package's body (its ``board.body_for``) that a board run of
+    (bg, spec) equals draw for draw: under 'pair' 'bitboard' or 'board'
+    (``cuda_board_pair.body_for``), else 'lowered_bits', 'lowered',
+    'bitboard' or 'board' (``cuda_lowered.body_for``)."""
+    from . import cuda_board_pair, cuda_lowered
+    kern = cuda_board_pair if is_pair(spec) else cuda_lowered
+    return kern.body_for(bg, spec, bits)
 
 
 def make_board_graph(graph: LatticeGraph, device="cuda") -> BoardGraph:
@@ -306,6 +352,191 @@ def _planes(bg: BoardGraph, board: torch.Tensor) -> dict:
     south_ok = torch.arange(bg.n, device=board.device) < (bg.h - 1) * bg.w
     return dict(b_count=b_count, cut_e=bg.east_ok[None] & ~same[0],
                 cut_s=south_ok[None] & ~same[2])
+
+
+# ---------------------------------------------------------------------------
+# k-district pair body (slow_reversible_propose semantics)
+# ---------------------------------------------------------------------------
+
+PAIR_DIRS = 4           # rook directions, fixed order E, S, W, N
+
+
+def pair_offsets(w: int) -> tuple:
+    """Flat offsets of the pair body's directions E, S, W, N."""
+    return (1, w, -1, -w)
+
+
+def _rook_masks(bg: BoardGraph, device) -> tuple:
+    """bool (N,) existence masks of the E, S, W, N neighbours."""
+    flat = torch.arange(bg.n, device=device)
+    return (bg.east_ok, flat < (bg.h - 1) * bg.w, bg.west_ok, flat >= bg.w)
+
+
+def nbr_value_planes(bg: BoardGraph, board: torch.Tensor) -> list:
+    """Rook-neighbour district planes (-1 off the flat range), with their
+    existence masks, in E, S, W, N order (the JAX package's
+    ``_nbr_value_planes``)."""
+    masks = _rook_masks(bg, board.device)
+    return [(_shifted(board, bg.w, o), m[None])
+            for o, m in zip(pair_offsets(bg.w), masks)]
+
+
+def pop_gate_bits(bg: BoardGraph, k: int, pop_lo, pop_hi,
+                  dist_pop: torch.Tensor):
+    """The pair body's population gates as per-chain district bitmasks
+    (uniform node population): bit d of ``from_bits[c]`` is "district d may
+    lose one unit", ``dp - unit >= pop_lo`` in f32, of ``to_bits[c]`` "may
+    gain one", ``dp + unit <= pop_hi``. int64 (C,) each."""
+    f32 = torch.float32
+    unit = bg.pop[0].to(f32)
+    dp = dist_pop.to(f32)
+    weights = (torch.ones(k, dtype=torch.int64, device=dp.device)
+               << torch.arange(k, device=dp.device))[None]
+    zero = torch.zeros_like(weights)
+    from_bits = torch.where(dp - unit >= pop_lo[:, None], weights,
+                            zero).sum(dim=1)
+    to_bits = torch.where(dp + unit <= pop_hi[:, None], weights,
+                          zero).sum(dim=1)
+    return from_bits, to_bits
+
+
+def planes_pair(bg: BoardGraph, spec: Spec, pop_lo, pop_hi,
+                board: torch.Tensor, dist_pop: torch.Tensor) -> dict:
+    """Per-(node, direction) pair validity of the k-district proposal (the
+    JAX package's ``_planes_pair``, grid_chain_sec11.py:117-130): uniform
+    over DISTINCT (boundary node, adjacent district != own) pairs. A
+    direction carries a pair iff its neighbour exists, differs from the
+    node's district, and no earlier direction's neighbour holds the same
+    district (the reference's pair updater is a set). ``b_count`` is the
+    distinct-pair count before the contiguity and population gates; the
+    contiguity is the ring criterion of the origin district; ``valid`` is
+    (C, N * 4) in the row-major (node, direction) order v * 4 + j, and
+    ``valid4`` its four (C, N) direction planes."""
+    nbrs = nbr_value_planes(bg, board)
+    same = same_planes(bg, board)
+    diff = [ex & ~s for (_, ex), s in zip(nbrs, same[0::2])]
+    if spec.contiguity == "patch":
+        contig = ring_contig_ok(same)
+    else:
+        contig = torch.ones_like(diff[0])
+    from_bits, to_bits = pop_gate_bits(bg, spec.n_districts, pop_lo, pop_hi,
+                                       dist_pop)
+    ok_from = ((from_bits[:, None] >> board.to(torch.int64)) & 1) == 1
+    pairs = []
+    b_count = torch.zeros(board.shape[0], dtype=torch.int32,
+                          device=board.device)
+    for j, (v, ex) in enumerate(nbrs):
+        pj = diff[j]
+        for vp, exp in nbrs[:j]:            # dedup repeated districts
+            pj = pj & ~(exp & (vp == v))
+        b_count = b_count + pj.sum(dim=1).to(torch.int32)
+        vi = torch.clamp_min(v.to(torch.int64), 0)
+        ok_to = ((to_bits[:, None] >> vi) & 1) == 1
+        pairs.append(pj & contig & ok_from & ok_to)
+    valid = torch.stack(pairs, dim=2).reshape(board.shape[0], -1)
+    south_ok = _rook_masks(bg, board.device)[1]
+    return dict(valid=valid, valid4=pairs, b_count=b_count,
+                cut_e=bg.east_ok[None] & ~same[0],
+                cut_s=south_ok[None] & ~same[2])
+
+
+def supported_pair(bg: BoardGraph, spec: Spec) -> bool:
+    """The JAX package's gate of its packed pair body
+    (``bitboard.supported_pair``): a uniform-population rook grid whose
+    width is a multiple of 32, accept 'cut' / 'always', contiguity 'patch'
+    / 'none', 2 to 31 districts and a finite wait denominator. Where it
+    fails the JAX package runs its int8 pair body, the same trajectory."""
+    return (bool(bg.uniform_pop) and not bg.surgical
+            and not spec.record_interface and bg.w % 32 == 0
+            and spec.accept in ("cut", "always")
+            and spec.contiguity in ("patch", "none")
+            and not spec.record_assignment_bits
+            and spec.proposal == "pair"
+            and 2 <= spec.n_districts <= 31
+            and (not spec.geom_waits
+                 or geom_denom_finite(bg.n, spec.n_districts)))
+
+
+def pick_row(rowcnt: torch.Tensor, u: torch.Tensor):
+    """The first level of the two-level m-th-valid selection (the JAX
+    package's ``bitboard._pick_row``): m = min(int(u * total), total - 1)
+    in f32, the row holding the m-th valid slot. Returns (row, m_in_row,
+    any_valid)."""
+    rowcum = torch.cumsum(rowcnt, dim=1)
+    total = rowcum[:, -1]
+    m = torch.minimum((u * total.to(torch.float32)).to(torch.int64),
+                      torch.clamp_min(total - 1, 0))
+    row = (rowcum > m[:, None]).to(torch.int8).argmax(dim=1)
+    before = torch.where(
+        row > 0, rowcum.gather(1, torch.clamp_min(row - 1, 0)[:, None])[:, 0],
+        torch.zeros_like(row))
+    return row, m - before, total > 0
+
+
+def select_flat_pair(bg: BoardGraph, valid4: list, u: torch.Tensor):
+    """The (m+1)-th valid (node, direction) slot in the row-major order
+    flat4 = v * 4 + j (the JAX package's ``bitboard.select_flat_pair``):
+    the row of the grid by ``pick_row``, then the slot within its 4 * w
+    interleaved slots. With no valid slot it returns slot 0. Returns
+    (flat4 int64 (C,), any_valid)."""
+    c = valid4[0].shape[0]
+    h, w = bg.h, bg.w
+    slots = torch.stack(valid4, dim=2).reshape(c, h, PAIR_DIRS * w)
+    row, m_in_row, any_valid = pick_row(
+        slots.sum(dim=2, dtype=torch.int64), u)
+    in_row = slots[torch.arange(c, device=row.device), row]
+    col4 = (torch.cumsum(in_row.to(torch.int64), dim=1)
+            > m_in_row[:, None]).to(torch.int8).argmax(dim=1)
+    return row * (PAIR_DIRS * w) + col4, any_valid
+
+
+def value_at(board: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """The district at ``flat[c]`` of each chain, int32 (the JAX
+    package's ``bitboard.value_at``)."""
+    return board.gather(1, flat.to(torch.int64)[:, None])[:, 0].to(
+        torch.int32)
+
+
+def transition_pair(bg: BoardGraph, spec: Spec, beta, log_base,
+                    board: torch.Tensor, dist_pop: torch.Tensor,
+                    planes: dict, u_prop: torch.Tensor,
+                    u_acc: torch.Tensor) -> dict:
+    """The pair transition (the JAX package's ``_transition_pair``):
+    select the m-th valid (node, direction) slot, flip the node to that
+    direction's neighbour district by the literal ``base**(-dcut)`` bound
+    (or always), dcut from the node's rook neighbourhood. Returns the new
+    board and dist_pop with the step's flat, d_to, dcut, accept and
+    any_valid; the caller commits the counters."""
+    f32 = torch.float32
+    c, n = board.shape
+    flat4, any_valid = select_flat_pair(bg, planes["valid4"], u_prop)
+    flat = torch.div(flat4, PAIR_DIRS, rounding_mode="floor")
+    j = flat4 % PAIR_DIRS
+    offs = torch.tensor(pair_offsets(bg.w), device=board.device)
+    d_from = value_at(board, flat)
+    d_to = value_at(board, torch.clamp(flat + offs[j], 0, n - 1))
+    dcut = torch.zeros(c, dtype=torch.int32, device=board.device)
+    for o, m in zip(pair_offsets(bg.w), _rook_masks(bg, board.device)):
+        au = value_at(board, torch.clamp(flat + o, 0, n - 1))
+        dcut = dcut + torch.where(
+            m[flat], (au != d_to).to(torch.int32)
+            - (au != d_from).to(torch.int32), 0)
+    if spec.accept == "always":
+        accept = any_valid
+    else:
+        tiny = torch.tensor(1e-12, dtype=f32, device=board.device)
+        bound = -beta * dcut.to(f32) * log_base
+        accept = any_valid & (torch.log(torch.maximum(u_acc, tiny)) < bound)
+    ar = torch.arange(c, device=board.device)
+    board = board.clone()
+    board[ar, flat] = torch.where(accept, d_to, d_from).to(board.dtype)
+    popv = (bg.pop[flat] * accept.to(torch.int32))[:, None]
+    dist = torch.arange(dist_pop.shape[1], device=board.device)[None]
+    dist_pop = (dist_pop + popv * ((dist == d_to[:, None]).to(torch.int32)
+                                   - (dist == d_from[:, None]).to(
+                                       torch.int32))).to(torch.int32)
+    return dict(board=board, dist_pop=dist_pop, flat=flat.to(torch.int32),
+                d_to=d_to, dcut=dcut, accept=accept, any_valid=any_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +802,9 @@ def _record_stencil(bg: BoardGraph, spec: Spec, state: BoardState,
 def record_final(bg: BoardGraph, spec: Spec, params: StepParams,
                  state: BoardState):
     """Epilogue: complete any pending wait and record the last yield,
-    without a trailing transition. Returns (state, history row)."""
+    without a trailing transition (the pair body's record: its
+    distinct-pair count and its n**k - 1 wait). Returns (state, history
+    row)."""
     t0 = state.t_yield
     key, _, _, kwait = _split4(state.key)
     state = state.replace(key=key)
@@ -582,7 +815,9 @@ def record_final(bg: BoardGraph, spec: Spec, params: StepParams,
                                   bg.n_real)
         state, out, log = _record_stencil(bg, spec, state, planes, cur_wait)
     else:
-        planes = _planes(bg, state.board)
+        planes = (planes_pair(bg, spec, params.pop_lo, params.pop_hi,
+                              state.board, state.dist_pop)
+                  if is_pair(spec) else _planes(bg, state.board))
         cur_wait = _complete_wait(spec, state, planes["b_count"], kwait,
                                   bg.n)
         state, out, log = _record(state, planes, cur_wait)

@@ -20,6 +20,11 @@ which kernel:
   for draw: its ``lowered_bits`` body on the lowered workloads, its rook
   bodies (``bitboard``, the packed ``_scan_bits``, or ``board``) on a
   plain grid (``kernel.cuda_lowered.body_for`` names the one);
+- under the k-district 'pair' proposal the same runners run every chunk
+  on the board pair kernel (``kernel/cuda_board_pair.py``,
+  ``csrc/board_pair_chunk.cu``), equal to the JAX package's pair bodies
+  (``_scan_bits_pair`` and its int8 form) draw for draw; in summary mode
+  its rows are folded by the standalone fold (``csrc/summary_fold.cu``);
 - ``cuda_runner.run_board_cuda`` runs a plain rook grid through the
   board-chunk kernel (``csrc/board_chunk.cu``, the Pallas kernel's twin)
   on the port's own Philox stream.
@@ -35,12 +40,21 @@ import torch
 from ..device import check_on, resolve_device
 from ..graphs.lattice import LatticeGraph
 from ..kernel import board as kboard
+from ..kernel import cuda_board_pair as cbpair
 from ..kernel import cuda_lowered as clow
 from ..kernel import cuda_summary
 from ..kernel import step as kstep
 from ..kernel.step import Spec
 from .runner import (RunResult, assemble_history, default_label_values,
                      maybe_host, pick_chunk, pop_bounds, snap_chunk_to)
+
+
+def chunk_module(spec: Spec):
+    """The chunk kernel's wrapper module of ``spec``'s body: the board pair
+    kernel (``kernel/cuda_board_pair.py``) for the k-district pair walk,
+    the lowered-chunk kernel (``kernel/cuda_lowered.py``) for the
+    2-district walk."""
+    return cbpair if kboard.is_pair(spec) else clow
 
 
 def init_board(graph: LatticeGraph, assignment: np.ndarray, n_chains: int,
@@ -131,10 +145,11 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
     package's draw for draw."""
     dev = resolve_device(device)
     check_on(dev, state.board, bg.pop, params.log_base)
-    clow.body_for(bg, spec, bits)
+    kern = chunk_module(spec)
+    kern.body_for(bg, spec, bits)
     if record_every < 1:
         raise ValueError(f"record_every must be >= 1, got {record_every}")
-    static = clow.make_static_inputs(bg, spec, params)
+    static = kern.make_static_inputs(bg, spec, params)
     if chunk is None:
         chunk = pick_chunk(n_transitions + 1, 512)
     if record_every > 1:
@@ -148,10 +163,10 @@ def run_board_segment(bg: kboard.BoardGraph, spec: Spec,
     while done < n_transitions:
         this = min(chunk, n_transitions - done)
         if analytics is None:
-            state, rows = clow.run_chunk(bg, spec, params, state, this,
+            state, rows = kern.run_chunk(bg, spec, params, state, this,
                                          static)
         else:
-            state, rows, acc = clow.run_chunk(
+            state, rows, acc = kern.run_chunk(
                 bg, spec, params, state, this, static, acc=analytics.acc,
                 keep_rows=record_history)
             analytics.update(acc, this)

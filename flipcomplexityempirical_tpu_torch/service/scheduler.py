@@ -5,8 +5,9 @@ Port of the coalescing core of
 contract rests on two invariants of the port:
 
 1. Chains are independent: every per-chain PRNG key lives in the chain
-   state, both chunk kernels (``csrc/lowered_chunk.cu``,
-   ``csrc/general_dense_chunk.cu``) and their plain versions run one
+   state, the chunk kernels (``csrc/lowered_chunk.cu``,
+   ``csrc/board_pair_chunk.cu``, ``csrc/general_dense_chunk.cu``,
+   ``csrc/general_pair_chunk.cu``) and their plain versions run one
    chain per row, and the StepParams leaves ``log_base`` / ``beta`` /
    ``pop_lo`` / ``pop_hi`` are (C,) tensors read per chain. Concatenating
    two tenants' states and params along the chain axis, running one
@@ -25,7 +26,9 @@ history mode (no ``analytics`` is passed), so a tenant equals the JAX
 service's output for it.
 
 A job with an existing checkpoint runs solo from its resume point
-(coalescing assumes a common step 0). A job that raises is marked
+(coalescing assumes a common step 0), and so does every temper job,
+through the driver's ``_run_temper`` (its swap rounds are global to its
+ladders), as the JAX service runs them. A job that raises is marked
 ``failed`` with its error, with no retry, so one pass over the queue's
 groups drains it.
 
@@ -49,7 +52,8 @@ import torch
 from ..device import resolve_device
 from ..experiments import driver as drv
 from ..experiments.config import ExperimentConfig
-from ..kernel import cuda_dense, cuda_lowered, cuda_pair
+from ..kernel import cuda_board_pair, cuda_dense, cuda_lowered, cuda_pair
+from ..kernel import board as kboard
 from ..sampling.board_runner import finalize_board_run, run_board_segment
 from ..sampling.runner import resolve_kernel_path, run_chains
 from . import queue as q
@@ -125,6 +129,7 @@ def _to_host(state):
 def _launch_count() -> int:
     """Launches of the chunk kernels a sweep runs, so far."""
     return (cuda_lowered.run_lowered_chunk_cuda.launches
+            + cuda_board_pair.run_board_pair_chunk_cuda.launches
             + cuda_dense.run_general_dense_chunk_cuda.launches
             + cuda_pair.run_general_pair_chunk_cuda.launches)
 
@@ -222,12 +227,14 @@ class SweepService:
                              cfg.tag + ".manifest.json"))
 
     def _solo_only(self, job: q.Job) -> bool:
-        """Jobs the coalescer must not touch: those with an existing
+        """Jobs the coalescer must not touch: the temper family (its swap
+        state is global to the run's ladders) and those with an existing
         checkpoint (resume points differ; coalescing assumes a common
         step 0). The JAX package's other solo jobs (isolation retries,
-        the temper family, non-flip chains) are refused here: retries
-        wait for ROADMAP.md A11, the families at submission."""
-        return self._has_checkpoint(job.config)
+        non-flip chains) are refused here: retries wait for ROADMAP.md
+        A11, ReCom at submission."""
+        return (job.config.family == "temper"
+                or self._has_checkpoint(job.config))
 
     def _form_groups(self, jobs: list) -> list:
         """Submission-ordered greedy grouping: fingerprint-equal
@@ -320,15 +327,17 @@ class SweepService:
     @staticmethod
     def _kernel_path(handle, spec, use_board: bool) -> str:
         """The JAX package's body name: 'lowered_bits' on the lowered
-        kernel, 'general_dense' / 'general' on the general path."""
+        kernel, 'bitboard' / 'board' on the board pair kernel,
+        'general_dense' / 'general' on the general path."""
         if use_board:
-            return cuda_lowered.body_for(handle, spec)
+            return kboard.body_for(handle, spec)
         return resolve_kernel_path(handle, spec)
 
     def _run_solo(self, job: q.Job, batch_id: str) -> dict:
         """Singleton execution through the driver's segmented run
-        (``_run_torch``): a job with a checkpoint resumes from it, exactly
-        as ``run_config`` would, minus artifact rendering."""
+        (``_run_torch``, or ``_run_temper`` for the temper family): a job
+        with a checkpoint resumes from it, exactly as ``run_config``
+        would, minus artifact rendering."""
         cfg = job.config
         t0 = time.perf_counter()
         g, plan, _geo = drv.build_graph_and_plan(cfg)
@@ -338,12 +347,14 @@ class SweepService:
         prepare_s = time.perf_counter() - t0
         launches0 = _launch_count()
         t0 = time.perf_counter()
-        data = drv._run_torch(cfg, g, plan, self.checkpoint_dir,
-                              device=self.device, run=run)
+        solo_run = drv._run_temper if cfg.family == "temper" else drv._run_torch
+        data = solo_run(cfg, g, plan, self.checkpoint_dir, device=self.device,
+                        run=run)
         wall = time.perf_counter() - t0
         data["seconds"] = wall
         self.batch_stats.append(BatchStats(
-            batch_id=batch_id, jobs=[job.job_id], chains=cfg.n_chains,
+            batch_id=batch_id, jobs=[job.job_id],
+            chains=int(run[1][1].cut_count.shape[0]),
             steps=cfg.total_steps, wall_s=wall, kernel_path=path,
             prepare_s=prepare_s, launches=_launch_count() - launches0))
         return data

@@ -22,7 +22,8 @@ draws the exact chain itself, so that the CPU tests and
 ``python tests/_torch_enumeration.py`` show what that check passes and
 what it catches. ``build_pair_transition`` and ``pair_pool_check`` do the
 same for the k-district pair walk (states as tuples of districts), with
-or without the boundary-length score.
+or without the boundary-length score; ``joint_tempered_stationary`` and
+``cut_law_check`` for the rungs of a 2-rung tempered ladder.
 """
 
 import numpy as np
@@ -366,6 +367,59 @@ def pair_pool_check(assignments, chain, states, pi, cuts, groups=GROUPS):
     means = gemp @ obs
     se = means.std(axis=0, ddof=1) / np.sqrt(groups)
     return tv, cut_err, (means.mean(axis=0) - pi @ obs) / se
+
+
+def joint_tempered_stationary(P1, P2, cuts, lb, b1, b2):
+    """The exact time-averaged law of the 2-rung tempered chain with a
+    swap round after every transition and alternating parity (a copy of
+    ``tests/test_tempered.py``'s ``_joint_tempered_stationary``): the
+    recorded-yield distribution obeys v_{t+1} = S_{t%2}(P(v_t)) over the
+    joint (cold state, hot state) space, where S_0 swaps the two states
+    with probability min(1, exp(lb * (b1 - b2) * (cut_i - cut_j))) and
+    S_1 is the identity (a parity-1 round has no pair at 2 rungs).
+    Returns the (K, K) joint law; its row and column sums are the cold
+    and hot rungs' marginals."""
+    n = P1.shape[0]
+    d = cuts[:, None] - cuts[None, :]
+    a_ij = np.minimum(1.0, np.exp(lb * (b1 - b2) * d))
+
+    def step_p(v):
+        return P1.T @ v @ P2
+
+    def swap(v):
+        return v * (1 - a_ij) + v.T * a_ij.T
+
+    v = np.full((n, n), 1.0 / (n * n))
+    for _ in range(4000):
+        nxt = step_p(swap(step_p(v)))
+        if np.abs(nxt - v).max() < 1e-13:
+            break
+        v = nxt
+    v /= v.sum()
+    avg = (v + swap(step_p(v))) / 2
+    return avg / avg.sum()
+
+
+def cut_law_check(cut_rows, pi, cuts, groups=GROUPS):
+    """(TV, relative E|cut| error, t of E|cut|) of pooled cut counts
+    against the cut-count law of ``pi`` over states with ``cuts``:
+    ``cut_rows`` (L, T) holds each of L independent chains' (or ladders')
+    recorded cut counts; the t is the mean of ``groups`` disjoint sets of
+    rows less the exact E|cut|, over their standard error."""
+    cut_rows = np.asarray(cut_rows, np.int64)
+    vals = np.unique(np.asarray(cuts, np.int64))
+    exact = np.array([pi[cuts == v].sum() for v in vals])
+    pos = np.searchsorted(vals, cut_rows.ravel())
+    if (pos >= len(vals)).any() or (vals[np.minimum(pos, len(vals) - 1)]
+                                    != cut_rows.ravel()).any():
+        raise KeyError("a cut count outside the exact law's support")
+    emp = np.bincount(pos, minlength=len(vals)) / cut_rows.size
+    tv = 0.5 * np.abs(emp - exact).sum()
+    e_cut = float(exact @ vals)
+    grp = np.arange(cut_rows.shape[0]) * groups // cut_rows.shape[0]
+    means = np.array([cut_rows[grp == g].mean() for g in range(groups)])
+    t = (means.mean() - e_cut) / (means.std(ddof=1) / np.sqrt(groups))
+    return tv, abs(float(emp @ vals) - e_cut) / e_cut, float(t)
 
 
 def simulate(P, start, chains=CHAINS, steps=SAMPLES, seed=0):

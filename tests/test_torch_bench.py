@@ -110,8 +110,22 @@ def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
     assert code == 2 and out == "" and "B2" in err
 
 
+@pytest.mark.parametrize("extra", [["--k", "3"], ["--k=3"]],
+                         ids=["extra0-A7b", "extra13-A7b"])
+def test_bench_runs_the_board_pair_walk(capsys, extra):
+    """``--k`` on square (refused while ROADMAP.md A7b waited) runs the
+    board pair kernel's path at ``bench.py``'s metric name."""
+    code, out, err = _run(capsys, ["--cpu", "--grid", "6", "--chains", "4",
+                                   "--steps", "21", "--warmup", "11",
+                                   "--chunk", "10"] + extra)
+    assert code == 0
+    head = json.loads(out.strip())
+    assert head["metric"] == "flips_per_sec_per_chip_64x64_pair_k3"
+    assert head["kernel"] == "board_pair_chunk"
+    assert head["kernel_path"] == "board" and head["path"] == "board"
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--k", "3"], "A7b"),
     (["--devstats"], "A11"), (["--mesh", "4"], "A10"),
     (["--service", "--events", "-"], "A11"), (["--adaptive"], "A11"),
     (["--workload-matrix"], "A11"), (["--workloads", "frank"], "A11"),
@@ -119,7 +133,7 @@ def test_bench_refuses_a_grid_above_the_lowered_kernel(capsys):
     (["--profile", "p"], "A11"),
     (["--service", "--tenants", "8", "--profile", "p"], "A11"),
     (["--target-ess", "9"], "A11"), (["--target-rhat", "1.1"], "A11"),
-    (["--body", "int8"], "B7"), (["--k=3"], "A7b"),
+    (["--body", "int8"], "B7"),
     (["--block-chains", "64"], "unrecognized arguments"),
 ])
 def test_bench_refuses_unported_flags(capsys, extra, item):

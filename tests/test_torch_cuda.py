@@ -698,3 +698,78 @@ def test_pair_runs_go_through_the_pair_kernel(card):
                record_history=False, analytics=an)
     assert cp.run_general_pair_chunk_cuda.launches == n0 + 4
     assert cs.summary_fold.launches == f0 + 5     # the initial record too
+
+
+
+def _board_pair_inputs(h, w, k, chains, tol, base, spec_kw, warm, dev):
+    """A k-stripe start on the h x w grid, advanced ``warm`` steps by the
+    run's own chunks: (wrapper module, BoardGraph, spec, static inputs,
+    the chunk's per-chain inputs)."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_board_pair as cbp
+    from flipcomplexityempirical_tpu_torch.sampling import board_runner
+    g = graphs.square_grid(h, w)
+    spec = Spec(n_districts=k, proposal="pair", **spec_kw)
+    bg, st, params = init_board(g, graphs.stripes_plan(g, k),
+                                n_chains=chains, seed=k, spec=spec,
+                                base=base, pop_tol=tol, device=dev)
+    if warm:
+        st = board_runner.run_board_segment(bg, spec, params, st, warm,
+                                            record_history=False,
+                                            device=dev).state
+    static = cbp.make_static_inputs(bg, spec, params)
+    return cbp, bg, spec, static, (st.board, *cbp.pack_state(st, params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,k,chains,tol,base,t_len,spec_kw,warm", [
+    (64, 64, 4, 64, 0.5, 2.63815853, 40, {}, 100),
+    (40, 65, 3, 32, 0.5, 0.8, 40, {}, 100),
+    (8, 16, 8, 32, 0.1, 0.8, 64, {}, 100),
+    (6, 7, 3, 16, 0.3, 1.3, 64, {}, 0),
+    (64, 64, 4, 32, 0.5, 2.63815853, 40, {"contiguity": "none"}, 100),
+    (32, 32, 4, 32, 0.5, 2.63815853, 40, {"accept": "always"}, 100),
+    (64, 64, 4, 16, 0.0, 2.63815853, 40, {}, 0),
+], ids=["64x64-k4", "40x65-k3", "8x16-k8-tight", "6x7-k3", "none",
+        "always", "empty-valid-set"])
+def test_board_pair_kernel_matches_plain_version(card, h, w, k, chains, tol,
+                                                 base, t_len, spec_kw, warm):
+    """board_pair_chunk against its plain version, every output
+    bit-equal, one launch counted a call."""
+    cbp, bg, spec, static, ins = _board_pair_inputs(h, w, k, chains, tol,
+                                                    base, spec_kw, warm, card)
+    n0 = cbp.run_board_pair_chunk_cuda.launches
+    got = cbp.run_board_pair_chunk_cuda(bg, static, spec, t_len, *ins)
+    assert cbp.run_board_pair_chunk_cuda.launches == n0 + 1
+    want = cbp.board_pair_chunk_reference(bg, static, spec, t_len, *ins)
+    for name, g, w_ in zip(cbp.OUT_NAMES, got, want):
+        assert torch.equal(g, w_), name
+    accepted = int((got[4][5] - ins[4][5]).sum())
+    assert (accepted == 0) == (tol == 0.0)
+
+
+@pytest.mark.cuda
+def test_board_pair_runs_go_through_the_kernel(card):
+    """run_board on a 'pair' spec launches the board pair kernel once a
+    chunk and no lowered_chunk; with analytics, each chunk's rows take one
+    standalone fold launch."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_board_pair as cbp
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_summary as cs
+    from flipcomplexityempirical_tpu_torch.stats.accumulators import (
+        DeviceAnalytics)
+    g = graphs.square_grid(16, 16)
+    spec = Spec(n_districts=4, proposal="pair")
+    bg, st, params = init_board(g, graphs.stripes_plan(g, 4), n_chains=16,
+                                seed=8, spec=spec, base=1.2, pop_tol=0.4,
+                                device=card)
+    n0, l0 = cbp.run_board_pair_chunk_cuda.launches, \
+        cl.run_lowered_chunk_cuda.launches
+    res = run_board(bg, spec, params, st, n_steps=101, chunk=25,
+                    device=card)
+    assert cbp.run_board_pair_chunk_cuda.launches == n0 + 4
+    assert cl.run_lowered_chunk_cuda.launches == l0
+    assert int(res.state.accept_count.sum()) > 0
+    an = DeviceAnalytics(16, observable="cut_count", device=card)
+    f0 = cs.summary_fold.launches
+    run_board(bg, spec, params, st, n_steps=101, chunk=25,
+              record_history=False, analytics=an, device=card)
+    assert cs.summary_fold.launches == f0 + 5     # the final record too

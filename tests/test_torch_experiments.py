@@ -60,11 +60,32 @@ def test_sweep_sizes_and_constants():
         assert tart.artifact_kinds(fam) == jdriver.artifact_kinds(fam)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(family="kpair", n_districts=4),
+    dict(family="kpair", n_districts=3),
+    dict(family="temper", betas=(1.0, 0.9), swap_every=10),
+], ids=["family=kpair-n_districts=4-A7b", "family=kpair-n_districts=3-A7b",
+        "family=temper-betas=(1.0, 0.9)-swap_every=10-A8"])
+def test_kpair_and_temper_configs_run(kw, tmp_path):
+    """The kpair and temper configs that were refused while ROADMAP.md A7b
+    and A8 waited now run (kpair on an 8 x 8 grid here) and leave every
+    artifact of their family."""
+    kw = dict(dict(alignment=0, base=0.3, pop_tol=0.5), **SMALL, **kw)
+    if kw["family"] == "kpair":
+        kw["grid"] = 8
+    cfg = tconfig.ExperimentConfig(**kw)
+    [(_, data)] = tdriver.run_sweep([cfg], str(tmp_path), device="cpu",
+                                    verbose=False)
+    assert tdriver.is_done(cfg, str(tmp_path))
+    assert data["history"]["cut_count"].shape[1] == SMALL["total_steps"]
+    if cfg.family == "temper":
+        assert data["rung_cut"].shape == (2, SMALL["total_steps"])
+        # 3 swap rounds of parity 0, 1, 0: pair (0, 1) tried twice a ladder
+        assert data["swapstats"]["attempts"] == [2 * SMALL["n_chains"]]
+
+
 @pytest.mark.parametrize("kw, missing", [
-    (dict(family="kpair", n_districts=4), "A7b"),
     (dict(family="tri", chain="recom"), "A9"),
-    (dict(family="kpair", n_districts=3), "A7b"),
-    (dict(family="temper", betas=(1.0, 0.9), swap_every=10), "A8"),
     (dict(family="dual", n_districts=4, variant="nobacktrack"),
      "2-district 'bi' walk"),
     (dict(family="frank", accept="corrected"), "B4"),

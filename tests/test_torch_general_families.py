@@ -152,14 +152,25 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
 
 
 def test_refusals_name_their_item():
+    """What is still refused names its item; the kpair and temper families
+    (ROADMAP.md A7b, A8) now have their Specs, the JAX driver's."""
+    from flipcomplexityempirical_tpu.experiments import driver as jdriver
+    from flipcomplexityempirical_tpu.experiments.config import (
+        ExperimentConfig as JConfig)
     from flipcomplexityempirical_tpu_torch.experiments import (
         ExperimentConfig, driver)
+    from _torch_parity import spec_port
     for kw, item in ((dict(family="dual", n_districts=4,
                            variant="nobacktrack"), "2-district 'bi' walk"),
-                     (dict(family="temper"), "A8"),
+                     (dict(family="temper"), None),
                      (dict(family="tri", chain="recom"), "A9"),
-                     (dict(family="kpair"), "A7b")):
+                     (dict(family="kpair"), None)):
         cfg = ExperimentConfig(alignment=0, base=1.0, pop_tol=0.1, **kw)
+        if item is None:
+            want = jdriver.spec_for(JConfig(alignment=0, base=1.0,
+                                            pop_tol=0.1, **kw))
+            assert driver.spec_for(cfg) == spec_port(want), kw
+            continue
         with pytest.raises(ValueError, match=item):
             driver.spec_for(cfg)
 

@@ -105,13 +105,37 @@ def test_form_groups_is_the_jax_rule(tmp_path, max_chains, solo, want):
     assert [[jobs.index(j) for j in grp] for grp in groups] == want
 
 
+@pytest.mark.parametrize("kw", [
+    dict(family="temper", betas=(1.0, 0.9), swap_every=5),
+    dict(family="kpair", n_districts=4, grid=8),
+], ids=["temper", "kpair"])
+def test_submit_runs_kpair_and_temper(tmp_path, kw):
+    """The families that waited for ROADMAP.md A7b and A8 are queued and
+    run: two kpair configs coalesce into one batch on the board pair
+    kernel's path, temper jobs run solo (their swap state is the run's),
+    each through the driver's own run."""
+    svc = SweepService(str(tmp_path), device="cpu")
+    jobs = [svc.submit(config.ExperimentConfig(
+        alignment=al, base=0.3, pop_tol=0.5, total_steps=21, n_chains=2,
+        **kw)) for al in (0, 1)]
+    svc.run_until_idle()
+    assert svc.exit_code == 0
+    assert all(j.status == "done" for j in jobs)
+    if kw["family"] == "kpair":
+        [batch] = svc.batch_stats
+        assert len(batch.jobs) == 2 and batch.kernel_path == "board"
+    else:
+        assert [len(b.jobs) for b in svc.batch_stats] == [1, 1]
+        assert all(b.chains == 4 for b in svc.batch_stats)
+        for j in jobs:
+            assert j.result["rung_cut"].shape == (2, 21)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(family="temper", betas=(1.0, 0.9), swap_every=5), "A8"),
-    (dict(family="kpair", n_districts=4), "A7b"),
     (dict(family="dual", n_districts=4, chain="recom"), "A9"),
     (dict(family="frank", chain="recom"), "A9"),
     (dict(family="frank", variant="nobacktrack", chain="recom"), "A9"),
-], ids=["temper", "kpair", "dual", "recom", "frank variant"])
+], ids=["dual", "recom", "frank variant"])
 def test_submit_refuses_unported(tmp_path, kw, item):
     svc = SweepService(str(tmp_path), device="cpu")
     cfg = config.ExperimentConfig(alignment=0, base=0.3, pop_tol=0.1, **kw)
@@ -158,10 +182,14 @@ def test_cli_refuses_unported(tmp_path, capsys, argv):
     assert "A11" in capsys.readouterr().err
 
 
-def test_cli_refuses_unported_family(tmp_path, capsys):
+def test_cli_runs_the_temper_family(tmp_path, capsys):
+    """``--family temper`` (refused while ROADMAP.md A8 waited) runs a
+    config solo through the driver's temper run."""
     assert cli.main(["--cpu", "--family", "temper", "--out",
-                     str(tmp_path)]) == 2
-    assert "A8" in capsys.readouterr().err
+                     str(tmp_path), "--chains", "1", "--steps", "11",
+                     "--only", "temper-0B333P10R10S50"]) == 0
+    out = capsys.readouterr().out
+    assert "[done] j0000 temper-0B333P10R10S50" in out and "1 jobs 10 chains" in out
 
 
 def test_cli_without_card_fails(tmp_path, capsys, monkeypatch):

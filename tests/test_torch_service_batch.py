@@ -6,15 +6,18 @@ runs, on the CPU (the kernels' plain versions).
   of chains): each tenant's rows equal the port's solo run of its config
   (``driver._run_torch``) bit for bit in every state field, history key,
   wait total and final accumulator, on the board path (frank,
-  ``lowered_bits``) and the general path (hex, ``general_dense``; the
-  dual graph's K4 pair walk, ``general_dense``). The
+  ``lowered_bits``; kpair's K4 pair walk on the 16 x 16 rook grid,
+  ``board``) and the general path (hex, ``general_dense``; the dual
+  graph's K4 pair walk, ``general_dense``). The
   first tenant is the config of a JAX-made fixture
   (``tests/fixtures/torch/experiment_frank.npz``: frank 0B30P50, 401
   steps, 2 chains, seed 0; ``experiment_hex.npz``: hex 6 x 10, 300 steps,
   3 chains, seed 0; ``experiment_dual.npz``: dual-K4-0B263P25, 401
-  steps, 2 chains, seed 0) and equals it under ``_parity``'s rule
-  (integers bit-equal, waits under the log-tie rule, the dual run's under
-  its ``scaled`` form).
+  steps, 2 chains, seed 0; ``experiment_kpair.npz``: kpair-K4-0B263P50
+  on 16 x 16, 401 steps in two segments, 2 chains, seed 0) and equals it
+  under ``_parity``'s rule (integers bit-equal, waits under the log-tie
+  rule, the k = 4 runs' under its ``scaled`` form, kpair's wait totals
+  under ``sum_ulps``).
 - A batch writes each tenant its own checkpoint, in the JAX package's
   format, from its sliced rows; a resubmission runs solo from it and ends
   where the batch ended.
@@ -57,6 +60,11 @@ RUNS = {
                   seed=0),
              dict(alignment=1, base=0.3, pop_tol=0.3, n_chains=3),
              "general_dense"),
+    "kpair": (dict(family="kpair", n_districts=4, grid=16, alignment=0,
+                   base=2.63815853, pop_tol=0.5, total_steps=401,
+                   checkpoint_every=200, n_chains=2, seed=0),
+              dict(alignment=1, base=0.8, pop_tol=0.3, n_chains=3, seed=4),
+              "board"),
 }
 RESULT_KEYS = ("end_signed", "cut_times", "part_sum", "num_flips",
                "slopes", "angles", "waits_sum", "waits_all", "assignments")
@@ -95,7 +103,8 @@ def _fixture_arrays(cfg, data, out) -> dict:
     """A service result as the fixture's arrays: the partisan scores and
     wait.txt made by the driver's own code."""
     g, _, _ = drv.build_graph_and_plan(cfg)
-    data = dict(data, partisan=drv._partisan_summary(cfg, g, data))
+    if cfg.n_districts == 2 or cfg.family == "dual":
+        data = dict(data, partisan=drv._partisan_summary(cfg, g, data))
     render_generic(g, str(out), cfg.tag, kinds=["wait.txt"],
                    end_signed=data["end_signed"],
                    cut_times=data["cut_times"],
@@ -133,7 +142,7 @@ def test_coalesced_batch_bit_identical_to_solo(which, tmp_path):
         want.pop(k, None)
     assert_experiment_matches(
         _fixture_arrays(cfgs[0], jobs[0].result, tmp_path), want,
-        scaled_waits=which == "dual")
+        scaled_waits=which in ("dual", "kpair"), sum_ulps=which == "kpair")
 
 
 @pytest.mark.parametrize("family", ["frank", "hex"])
