@@ -229,27 +229,33 @@ entry points a user calls, checks what comes out, and prints:
      the host;
   20. the rook board's pair kernel, ``board_pair_chunk`` (the JAX
      package's ``_scan_bits_pair``, ``kernel/board.py:1406``, and its int8
-     form), against its plain version, bit-equal (log ties counted), one
-     launch counted a call, from states the kernel advanced first: 64x64
-     at k=4 (C=256, T=64), 40x65 at k=3, 8x16 at k=8 with gates that bind,
-     contiguity 'none', accept 'always' and pop_tol 0 on the balanced
-     start (an empty valid set);
+     form, with the flip log's replay ``apply_flip_log``), against its
+     plain version, bit-equal on every output, part_sum / last_flipped /
+     num_flips included (log ties counted), one launch counted a call,
+     the inputs left as they were, from states the kernel advanced first:
+     64x64 at k=4 (C=256, T=64), 40x65 at k=3, 8x16 at k=8 with gates that
+     bind (C=125: the last block holds one of its two chains),
+     contiguity 'none', accept 'always',
+     parity_metrics off and pop_tol 0 on the balanced start (an empty
+     valid set); each case's launch shape (bytes a chain, chains resident
+     an SM, waves, registers) and full recounts a chunk;
   21. the kpair main path: ``run_board`` on the 64x64 rook grid at k=4,
      C=4096, chunk 500, 1001 steps, the counts zeroed just before and read
-     just after (one ``board_pair_chunk`` a chunk, no ``lowered_chunk``):
-     flips/s, peak memory, cut_count and dist_pop against recounts, 16
+     just after (one ``board_pair_chunk`` a chunk, no ``lowered_chunk``,
+     ``apply_flip_log`` in the final record only): flips/s, peak memory, cut_count and dist_pop against recounts, 16
      chains' districts connected, the idle share (after a traced warm-up
      run; not measured where the trace drops a counted launch twice);
      then at that shape from
-     its final state the kernel timed beside its bound, its launch shape
-     and cycles a step, and held to its plain version (after phase 23);
+     its final state the kernel timed beside its bound, its launch shape,
+     full recounts and cycles a step, and held to its plain version (after
+     phase 23);
      ``bench --k 4 --repeats 1`` in a subprocess (its headline
      ``flips_per_sec_per_chip_64x64_pair_k4``, one launch a timed chunk);
      the 3x3 grid at k=3 on the board route against the pair chain's
      exact law, phase 18's bars;
   22. the kpair family: the kernel at the experiment path's shape (kpair
-     K4's start, C=8, T=369), timed, and held to its plain version (after
-     phase 23);
+     K4's start, C=8, T=369), timed with its full recounts, and held to
+     its plain version (after phase 23);
      ``run_config`` for kpair-K4-0B263P50 and kpair-K8-0B263P50 at the
      paper's shape (100,000 steps, 8 chains), the count zeroed before each
      (one launch a chunk): seconds split into run, render and set-up,
@@ -3936,8 +3942,10 @@ BPAIR_CASES = (
     ("64x64 k=4", 64, 64, 4, 256, 0.5, BASE, {}, 200),
     ("40x65 k=3 (a width that straddles words)", 40, 65, 3, 128, 0.5, 0.8,
      {}, 200),
-    ("8x16 k=8 pop_tol 0.1 (gates that bind)", 8, 16, 8, 128, 0.1, 0.8, {},
+    ("8x16 k=8 pop_tol 0.1 (gates that bind)", 8, 16, 8, 125, 0.1, 0.8, {},
      200),
+    ("64x64 k=4 parity_metrics off", 64, 64, 4, 128, 0.5, BASE,
+     {"parity_metrics": False}, 200),
     ("64x64 k=4 contiguity none", 64, 64, 4, 256, 0.5, BASE,
      {"contiguity": "none"}, 200),
     ("64x64 k=4 accept always", 64, 64, 4, 128, 0.5, BASE,
@@ -3994,13 +4002,15 @@ def bpair_inputs(port, sampling, h: int, w: int, k: int, chains: int,
 def bpair_bound(cbp, bg, spec, state, t_len: int, accepted: int):
     """(bound ms, by) of one board pair chunk: every input read once and
     every output written once (the board in and out, the per-chain fields,
-    the six (T, C) rows, the two (C, N) cut planes out), and the
-    operations of this run's data (K_PCELL above)."""
+    the four (T, C) rows, the two (C, N) cut planes out and, under
+    parity_metrics, part_sum / last_flipped / num_flips in and out), and
+    the operations of this run's data (K_PCELL above)."""
     c, n = state.board.shape
     k = spec.n_districts
     nbytes = (2 * c * n + 4 * k
               + 4 * c * (2 * 2 + 2 * k + 6 + 2 + 2 * 8)
-              + 4 * 6 * t_len * c + 8 * c * n)
+              + 4 * 4 * t_len * c + 8 * c * n
+              + (2 * 3 * 4 * c * n if spec.parity_metrics else 0))
     ops = (c * t_len * (6 * K_BLOCK + K_LTAIL)
            + (K_WAIT + K_BLOCK + 9 * K_PCELL) * accepted)
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
@@ -4012,7 +4022,48 @@ def bpair_bound(cbp, bg, spec, state, t_len: int, accepted: int):
 def bpair_args(cbp, bg, spec, params, st, t_len):
     static = cbp.make_static_inputs(bg, spec, params)
     key, dp, scal, ints = cbp.pack_state(st, params)
-    return static, (bg, static, spec, t_len, st.board, key, dp, scal, ints)
+    flips = ((st.part_sum, st.last_flipped, st.num_flips)
+             if spec.parity_metrics else None)
+    return static, (bg, static, spec, t_len, st.board, key, dp, scal, ints,
+                    flips)
+
+
+def bpair_shape(cbp, n_cells: int, chains: int) -> tuple:
+    """(launch shape, its text) of board_pair_chunk at ``n_cells`` and
+    ``chains``: bytes a chain, chains resident an SM, the waves on this
+    card, registers and spilled bytes a thread."""
+    import torch
+    shape = cbp.launch_shape(n_cells)
+    resident = shape["chains_per_block"] * shape["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape["waves"] = -(-chains // (sms * resident))
+    return shape, (
+        f"{shape['chain_bytes']} B of shared memory a chain, "
+        f"{shape['chains_per_block']} chain a block, {resident} chains "
+        f"resident an SM, {shape['waves']} wave(s) on {sms} SMs, "
+        f"{shape['registers']} registers a thread "
+        f"({shape['spill_bytes']} B spilled), "
+        f"{shape['words_per_lane']} slot words a lane")
+
+
+def bpair_recounted(cbp, args, label: str) -> float:
+    """The kernel once more on ``args`` with its recounts read: each
+    chain's full recounts of its valid slots in the chunk, the mean
+    returned; fails unless each follows an accepted move."""
+    import torch
+    c = args[4].shape[0]
+    rec = torch.full((c,), -1, dtype=torch.int32, device=args[4].device)
+    got = cbp.run_board_pair_chunk_cuda(*args, recounts=rec)
+    accepted = got[4][5] - args[8][5]
+    if not bool(((rec >= 0) & (rec <= accepted)).all()):
+        fail(f"{label}: {rec.tolist()[:8]} recounts for "
+             f"{accepted.tolist()[:8]} accepted moves")
+    return float(rec.double().mean())
+
+
+def bpair_tensors(args) -> list:
+    """A board pair chunk's tensor inputs in ``bpair_args``'s tuple."""
+    return [*args[4:9], *(args[9] or ())]
 
 
 def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
@@ -4034,12 +4085,18 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
         g, bg, spec, params, st = bpair_inputs(port, sampling, h, w, k, c,
                                                tol, base, kw, warm, 40 + i)
         _, args = bpair_args(cbp, bg, spec, params, st, BPAIR_T)
+        kept = [x.clone() for x in bpair_tensors(args)]
         n0 = cbp.run_board_pair_chunk_cuda.launches
         got = cbp.run_board_pair_chunk_cuda(*args)
         torch.cuda.synchronize()
         if cbp.run_board_pair_chunk_cuda.launches != n0 + 1:
             fail(f"board_pair_chunk {label}: the wrapper did not count its "
                  "launch")
+        if not all(torch.equal(x, y)
+                   for x, y in zip(bpair_tensors(args), kept)):
+            fail(f"board_pair_chunk {label}: the kernel changed an input")
+        if len(got) != (13 if spec.parity_metrics else 10):
+            fail(f"board_pair_chunk {label}: {len(got)} outputs")
         t0 = time.perf_counter()
         want = cbp.board_pair_chunk_reference(*args)
         torch.cuda.synchronize()
@@ -4047,13 +4104,21 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
         err = max(err, compare_lowered(
             cbp, got, want, f"board_pair_chunk {label} C={c} T={BPAIR_T} "
             f"(plain {plain_s:.3f} s)"))
-        accepted = int((got[4][5] - args[-1][5]).sum())
+        accepted = int((got[4][5] - args[8][5]).sum())
         if "empty" in label and accepted:
             fail(f"board_pair_chunk {label}: {accepted} moves accepted")
         if "empty" not in label and not accepted:
             fail(f"board_pair_chunk {label}: no move accepted")
+        recounts = bpair_recounted(cbp, args, label)
+        if "bind" in label and not recounts:
+            fail(f"board_pair_chunk {label}: no recount where gates bind")
+        shape, text = bpair_shape(cbp, bg.n, c)
+        print(f"board_pair_chunk {label} C={c}: {text}; {recounts:.3f} "
+              f"full recounts a chain in the {BPAIR_T}-step chunk "
+              f"({accepted / c:.3f} accepted moves a chain)")
         cases[label] = {"chains": c, "chunk": BPAIR_T, "accepted": accepted,
-                        "plain_s": plain_s}
+                        "plain_s": plain_s, "recounts": recounts,
+                        "shape": shape}
 
     # ---- the kpair main path through run_board -------------------------
     m, k, c = BPAIR_MAIN["grid"], BPAIR_MAIN["k"], BPAIR_MAIN["chains"]
@@ -4064,12 +4129,13 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cbp.run_board_pair_chunk_cuda.launches = 0
     cl.run_lowered_chunk_cuda.launches = 0
-    t0 = time.perf_counter()
-    res = sampling.run_board(bg, spec, params, st, n_steps=steps,
-                             chunk=CHUNK, record_history=False,
-                             device=DEVICE)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with count_calls((cbp, tb), "apply_flip_log") as flip_calls:
+        t0 = time.perf_counter()
+        res = sampling.run_board(bg, spec, params, st, n_steps=steps,
+                                 chunk=CHUNK, record_history=False,
+                                 device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = cbp.run_board_pair_chunk_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     chunks = -(-(steps - 1) // CHUNK)
@@ -4077,6 +4143,11 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
         fail(f"kpair main path: board_pair_chunk launched {launches} times "
              f"for {chunks} chunks (lowered_chunk "
              f"{cl.run_lowered_chunk_cuda.launches})")
+    # the kernel closes the flip log's runs: only the final record's
+    # one-yield log is replayed
+    if len(flip_calls) != 1:
+        fail(f"kpair main path: apply_flip_log ran {len(flip_calls)} times "
+             "(the final record's once expected)")
     fs = res.state
     if not torch.equal(fs.cut_count, tb.recount_cuts(bg, fs.board)):
         fail("kpair main path: cut_count disagrees with a recount")
@@ -4095,7 +4166,8 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
     print(f"[{card}] kpair main path: run_board on the {m}x{m} rook grid, "
           f"k={k}, {c} chains x {steps} steps in {wall:.3f} s, {fps:.6e} "
           f"flips/s (accept rate {rate:.4f}); board_pair_chunk launches "
-          f"{launches} for {chunks} chunks; peak memory "
+          f"{launches} for {chunks} chunks; apply_flip_log calls "
+          f"{len(flip_calls)} (the final record's); peak memory "
           f"{peak / 2 ** 20:.1f} MiB; cut_count and dist_pop equal to "
           f"recounts, {len(boards)} chains' districts connected; profile: "
           f"{prof}")
@@ -4104,25 +4176,21 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
     static, args = bpair_args(cbp, bg, spec, params, fs, CHUNK)
     got = cbp.run_board_pair_chunk_cuda(*args)
     ms = event_ms(lambda: cbp.run_board_pair_chunk_cuda(*args), 3)
-    accepted = int((got[4][5] - args[-1][5]).sum())
+    accepted = int((got[4][5] - args[8][5]).sum())
     bound_ms, bound_by = bpair_bound(cbp, bg, spec, fs, CHUNK, accepted)
-    shape = cbp.launch_shape(bg.n)
-    resident = shape["chains_per_block"] * shape["blocks_per_sm"]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    recounts = bpair_recounted(cbp, args, "board_pair_chunk main-path shape")
+    shape, text = bpair_shape(cbp, bg.n, c)
     mhz = sm_mhz(clocks_under_load(
         lambda: cbp.run_board_pair_chunk_cuda(*args), max(20, int(400 / ms))))
     cyc = ms * 1e3 * mhz / CHUNK if mhz else None
     main = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "accepted": accepted, "shape": shape, "cycles_per_step": cyc,
-            "sm_mhz": mhz}
+            "sm_mhz": mhz, "recounts": recounts}
     print(f"board_pair_chunk main-path shape (C={c}, T={CHUNK}, {bg.n} "
-          f"cells, k={k}, {accepted} accepted moves): {ms:.4f} ms per chunk "
-          f"(CUDA events, mean of 3); bound {bound_ms:.4e} ms ({bound_by}); "
-          f"{shape['chain_bytes']} B of shared memory a chain, "
-          f"{shape['chains_per_block']} chains a block, "
-          f"{shape['blocks_per_sm']} block(s) an SM ({resident} chains "
-          f"resident an SM, {-(-c // (sms * resident))} wave(s) on {sms} "
-          f"SMs), {shape['words_per_lane']} slot words a lane; "
+          f"cells, k={k}, {accepted} accepted moves, parity_metrics on): "
+          f"{ms:.4f} ms per chunk (CUDA events, mean of 3); bound "
+          f"{bound_ms:.4e} ms ({bound_by}); {text}; {recounts:.3f} full "
+          "recounts a chain in the chunk; "
           + (f"{cyc:.1f} cycles a chain-step at {mhz:.0f} MHz" if cyc else
              "cycles a step not measured (no SM clock read)"))
 
@@ -4311,14 +4379,20 @@ def kpair_runs(ex, drv, cbp, sampling, out_dir: str, card: str) -> dict:
                 fail("board_pair_chunk experiment shape: the wrapper did not "
                      "count its launch")
             ms = event_ms(lambda: cbp.run_board_pair_chunk_cuda(*args), 3)
-            accepted = int((got[4][5] - args[-1][5]).sum())
+            accepted = int((got[4][5] - args[8][5]).sum())
             bound_ms, bound_by = bpair_bound(cbp, bg, spec, st, t_len,
                                              accepted)
+            recounts = bpair_recounted(cbp, args, "board_pair_chunk "
+                                       "experiment shape")
+            _, text = bpair_shape(cbp, bg.n, EXP_CHAINS)
             print(f"board_pair_chunk experiment shape (C={EXP_CHAINS}, "
-                  f"T={t_len}): {ms:.4f} ms per chunk (CUDA events, mean of "
-                  f"3); bound {bound_ms:.4e} ms ({bound_by})")
+                  f"T={t_len}, parity_metrics on): {ms:.4f} ms per chunk "
+                  f"(CUDA events, mean of 3); bound {bound_ms:.4e} ms "
+                  f"({bound_by}); {text}; {recounts:.3f} full recounts a "
+                  "chain in the chunk")
             exp = out["experiment_shape"] = {"ms": ms, "bound_ms": bound_ms,
-                                             "bound_by": bound_by}
+                                             "bound_by": bound_by,
+                                             "recounts": recounts}
 
             def check(want, secs, got=got, exp=exp, label=(
                     f"board_pair_chunk experiment {tag} start C={EXP_CHAINS} "

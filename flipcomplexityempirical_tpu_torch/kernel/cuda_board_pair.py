@@ -4,16 +4,21 @@ contract.
 ``run_board_pair_chunk_cuda`` runs ``t_inner`` steps of the k-district
 pair walk on a plain rook grid (the JAX package's ``_scan_bits_pair``,
 bit-identical to its int8 form ``_planes_pair`` / ``_transition_pair``,
-which it runs at any width) for every chain of a ``BoardState``. On CUDA
+which it runs at any width) for every chain of a ``BoardState``, and
+under ``parity_metrics`` advances part_sum / last_flipped / num_flips by
+the chunk's flip log (the JAX package's ``apply_flip_log``). On CUDA
 tensors it launches the hand-written kernel of
-``csrc/board_pair_chunk.cu`` (built on first use by ``_build``; one warp a
-chain, a byte a cell for the board and one for its pair slots and
-contiguity verdict in shared memory, the slots of an accepted move's 3 x
-3 block brought up to date); on CPU tensors it runs
-``board_pair_chunk_reference``, a per-step PyTorch replay of the int8
-body. Both draw the JAX package's threefry stream from the state's keys,
-``split(key, 4)`` a step, so they agree with the JAX package draw for
-draw.
+``csrc/board_pair_chunk.cu`` (built on first use by ``_build``; one warp
+a chain, two chains a block, the board a byte a cell in shared memory
+beside a mask of the valid pair slots of each word of 8 cells and each
+lane's count of them, changed only inside an accepted move's 3 x 3 block
+and recounted only when the move changes a population mask; the m-th
+valid slot found in three warp rounds; the flip-log runs closed in the
+kernel);
+on CPU tensors it runs ``board_pair_chunk_reference``, a per-step PyTorch
+replay of the int8 body followed by ``apply_flip_log``. Both draw the JAX
+package's threefry stream from the state's keys, ``split(key, 4)`` a
+step, so they agree with the JAX package draw for draw.
 
 The kernel's scope (``supports``): what ``kernel.board.supports`` admits
 for the 'pair' proposal (a plain rook grid of height and width at least
@@ -27,17 +32,20 @@ the kernel's place on the card.
              bit patterns), dist_pop (K, C) int32, scal (6, C) f32
              [log_base, beta, pop_lo, pop_hi, cur_wait, waits_sum], ints
              (8, C) int32 [pending, cur_flip, cur_sign, t_yield,
-             move_clock, accepts, exhausted, cut_count], and the static
-             inputs of ``make_static_inputs`` (the K district labels);
+             move_clock, accepts, exhausted, cut_count], under
+             ``parity_metrics`` ``flips`` (part_sum, last_flipped,
+             num_flips), each (C, N) int32, and the static inputs of
+             ``make_static_inputs`` (the K district labels);
     outputs: board, key, dist_pop as above, scal (2, C) [cur_wait,
-             waits_sum], ints (8, C), the (T, C) rows [log_f, log_s, cut,
-             b, wait (f32), accepts] and the chunk's cut counts (2, C, N)
-             int32 of the E and S planes.
+             waits_sum], ints (8, C), the (T, C) rows [cut, b, wait (f32),
+             accepts], the chunk's cut counts (2, C, N) int32 of the E and
+             S planes and, under ``parity_metrics``, part_sum,
+             last_flipped and num_flips after the chunk (``OUT_NAMES``).
+The inputs are left as they are.
 
 ``run_chunk`` is the chunk at the level of BoardState (the JAX package's
-``run_board_chunk`` contract on this body), with the flip log replayed by
-``board.apply_flip_log`` as torch ops; with ``acc=`` it folds the chunk's
-rows into a summary accumulator by the standalone fold
+``run_board_chunk`` contract on this body); with ``acc=`` it folds the
+chunk's rows into a summary accumulator by the standalone fold
 (``cuda_summary.summary_fold``).
 """
 
@@ -61,8 +69,9 @@ MAX_CELLS = 4096
 # a district is a lane of the warp; ids and labels fit the board's bytes
 MAX_DISTRICTS = 31
 
-OUT_NAMES = ("board", "key", "dist_pop", "scal", "ints", "log_f", "log_s",
-             "hist_cut", "hist_b", "hist_wait", "hist_acc", "cut_planes")
+OUT_NAMES = ("board", "key", "dist_pop", "scal", "ints", "hist_cut",
+             "hist_b", "hist_wait", "hist_acc", "cut_planes", "part_sum",
+             "last_flipped", "num_flips")
 ROW_NAMES = ("cut_count", "b_count", "wait", "accepts")
 
 
@@ -152,7 +161,11 @@ def unpack_state(state: BoardState, outs, t_inner: int) -> BoardState:
     """Merge chunk outputs back into a BoardState (tries_sum counts one
     draw per yield)."""
     board, key, dist_pop, scal, ints = outs[:5]
-    cuts = outs[11]
+    cuts = outs[9]
+    flips = {}
+    if len(outs) > 10:
+        flips = dict(zip(("part_sum", "last_flipped", "num_flips"),
+                         outs[10:13]))
     return state.replace(
         key=key.T.to(torch.int64) & rng.MASK32,
         board=board,
@@ -169,16 +182,17 @@ def unpack_state(state: BoardState, outs, t_inner: int) -> BoardState:
         waits_sum=scal[1],
         tries_sum=state.tries_sum + t_inner,
         cut_times_e=state.cut_times_e + cuts[0],
-        cut_times_s=state.cut_times_s + cuts[1])
+        cut_times_s=state.cut_times_s + cuts[1], **flips)
 
 
 def board_pair_chunk_reference(bg: BoardGraph, static: PairBoardStatic,
                                spec: Spec, t_inner: int, board, key,
-                               dist_pop, scal, ints):
+                               dist_pop, scal, ints, flips=None):
     """The plain version of the kernel: a per-step PyTorch replay of the
     JAX package's int8 pair body (split the key, ``planes_pair``, wait,
-    record, ``transition_pair``, commit) with the kernel's inputs and
-    outputs (module docstring)."""
+    record, ``transition_pair``, commit) and, with ``flips``, the replay
+    of the chunk's flip log by ``apply_flip_log``, with the kernel's inputs
+    and outputs (module docstring)."""
     c, n = board.shape
     dev = board.device
     f32, i32 = torch.float32, torch.int32
@@ -231,25 +245,38 @@ def board_pair_chunk_reference(bg: BoardGraph, static: PairBoardStatic,
         acc_cnt = acc_cnt + acc_i
         exh_cnt = exh_cnt + (~tr["any_valid"]).to(i32)
 
-    return (b, _words_i32(keys).T.contiguous(), dp.T.contiguous(),
+    outs = (b, _words_i32(keys).T.contiguous(), dp.T.contiguous(),
             torch.stack([cur_wait, waits_sum]),
             torch.stack([pending.to(i32), cur_flip, cur_sign, tyield,
                          move_clock, acc_cnt, exh_cnt, cut_count]).to(i32),
-            rows["log_f"], rows["log_s"], rows["cut"], rows["b"], wait_rows,
-            rows["acc"], cuts)
+            rows["cut"], rows["b"], wait_rows, rows["acc"], cuts)
+    if flips is None:
+        return outs
+    return outs + apply_flip_log(*flips, rows["log_f"], rows["log_s"],
+                                 ints[3])
 
 
-def _check_inputs(bg: BoardGraph, static: PairBoardStatic, t_inner: int,
-                  board, key, dist_pop, scal, ints) -> None:
+def _check_inputs(bg: BoardGraph, static: PairBoardStatic, spec: Spec,
+                  t_inner: int, board, key, dist_pop, scal, ints, flips,
+                  recounts) -> None:
     c, n = board.shape
     if n != bg.n:
         raise ValueError(f"board has {n} cells, the grid is {bg.h}x{bg.w}")
     if t_inner < 1:
         raise ValueError(f"t_inner {t_inner} < 1")
+    if (flips is None) == spec.parity_metrics:
+        raise ValueError("flips (part_sum, last_flipped, num_flips) go with "
+                         "parity_metrics, and only with it")
     k = static.labels.numel()
     want = [(board, (c, n), torch.int8), (key, (2, c), torch.int32),
             (dist_pop, (k, c), torch.int32), (scal, (6, c), torch.float32),
             (ints, (8, c), torch.int32), (static.labels, (k,), torch.int32)]
+    want += [(x, (c, n), torch.int32) for x in flips or ()]
+    if recounts is not None:
+        if board.device.type != "cuda":
+            raise ValueError("recounts counts the kernel's bookkeeping; the "
+                             "plain version keeps none")
+        want.append((recounts, (c,), torch.int32))
     for x, shape, dtype in want:
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(f"expected {dtype} {shape}, got {x.dtype} "
@@ -261,11 +288,11 @@ def _check_inputs(bg: BoardGraph, static: PairBoardStatic, t_inner: int,
 
 
 def _entry(lib):
-    """``lib``'s ``fce_board_pair_chunk`` with its C signature declared: 19
-    pointers, 9 ints, the wait denominator, the stream."""
+    """``lib``'s ``fce_board_pair_chunk`` with its C signature declared: 23
+    pointers, 10 ints, the wait denominator, the stream."""
     fn = lib.fce_board_pair_chunk
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -273,25 +300,27 @@ def _entry(lib):
 
 def launch_shape(n_cells: int) -> dict:
     """How the kernel runs a board of ``n_cells`` on this card:
-    ``smem_bytes`` a block, ``chains_per_block``, ``blocks_per_sm``
-    resident, ``threads`` a block, ``chain_bytes`` (a chain's shared
-    memory) and ``words_per_lane`` (the slot words a lane scans a step)."""
+    ``chain_bytes`` (a chain's shared memory, a block's), ``chains_per_block``
+    (one), ``blocks_per_sm`` resident, ``threads`` a block,
+    ``words_per_lane`` (the slot words whose counts a lane's run holds),
+    ``registers`` a thread and ``spill_bytes`` (local memory a thread)."""
     from . import _build
     fn = _build.load("board_pair_chunk").fce_board_pair_shape
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     err = fn(n_cells, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"board_pair_chunk shape query failed: CUDA "
                            f"error {err}")
-    return dict(smem_bytes=out[0], chains_per_block=out[1],
-                blocks_per_sm=out[2], threads=out[3], chain_bytes=out[4],
-                words_per_lane=out[5])
+    return dict(chain_bytes=out[0], chains_per_block=out[1],
+                blocks_per_sm=out[2], threads=out[3], words_per_lane=out[4],
+                registers=out[5], spill_bytes=out[6])
 
 
 def _launch(lib, bg: BoardGraph, static: PairBoardStatic, spec: Spec,
-            t_inner: int, board, key, dist_pop, scal, ints):
+            t_inner: int, board, key, dist_pop, scal, ints, flips,
+            recounts):
     c, n = board.shape
     k = static.labels.numel()
     dev = board.device
@@ -305,18 +334,25 @@ def _launch(lib, bg: BoardGraph, static: PairBoardStatic, spec: Spec,
             torch.empty((k, c), dtype=i32, device=dev),
             torch.empty((2, c), dtype=f32, device=dev),
             torch.empty((8, c), dtype=i32, device=dev),
-            rows(i32), rows(i32), rows(i32), rows(i32), rows(f32), rows(i32),
+            rows(i32), rows(i32), rows(f32), rows(i32),
             torch.empty((2, c, n), dtype=i32, device=dev))
-    # last flip step of each cell, read by the kernel only where it wrote
-    # it in this launch
-    scratch = torch.empty((c, n), dtype=i32, device=dev)
-    ptrs = [x.data_ptr() for x in (board, key, dist_pop, scal, ints,
-                                   static.labels, *outs, scratch)]
+    if flips is not None:
+        outs += tuple(torch.empty((c, n), dtype=i32, device=dev)
+                      for _ in range(3))
+    flip_ptrs = ([x.data_ptr() for x in flips] if flips is not None
+                 else [None] * 3)
+    ptrs = ([x.data_ptr() for x in (board, key, dist_pop, scal, ints,
+                                    static.labels)]
+            + flip_ptrs + [x.data_ptr() for x in outs[:10]]
+            + ([x.data_ptr() for x in outs[10:]] if flips is not None
+               else [None] * 3)
+            + [None if recounts is None else recounts.data_ptr()])
     with torch.cuda.device(dev):
         err = _entry(lib)(
             *ptrs, c, bg.h, bg.w, k, t_inner,
             int(spec.contiguity == "patch"), int(spec.geom_waits),
-            int(spec.accept == "always"), static.unit_pop, static.denom,
+            int(spec.accept == "always"), static.unit_pop,
+            int(flips is not None), static.denom,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"board_pair_chunk launch failed: CUDA error "
@@ -326,15 +362,22 @@ def _launch(lib, bg: BoardGraph, static: PairBoardStatic, spec: Spec,
 
 def run_board_pair_chunk_cuda(bg: BoardGraph, static: PairBoardStatic,
                               spec: Spec, t_inner: int, board, key,
-                              dist_pop, scal, ints):
-    """One chunk for all chains (module docstring for the layout). A CUDA
-    board launches the kernel; a CPU board runs the plain version.
+                              dist_pop, scal, ints, flips=None, *,
+                              recounts=None):
+    """One chunk for all chains (module docstring for the layout);
+    ``flips`` (part_sum, last_flipped, num_flips) under ``parity_metrics``
+    and only then. A CUDA board launches the kernel; a CPU board runs the
+    plain version. ``recounts``, an int32 (C,) CUDA tensor, receives each
+    chain's count of full recounts of its valid slots after accepted moves
+    (the kernel's own bookkeeping; the plain version has none).
     ``run_board_pair_chunk_cuda.launches`` counts kernel launches."""
-    _check_inputs(bg, static, t_inner, board, key, dist_pop, scal, ints)
-    args = (bg, static, spec, t_inner, board, key, dist_pop, scal, ints)
+    _check_inputs(bg, static, spec, t_inner, board, key, dist_pop, scal,
+                  ints, flips, recounts)
+    args = (bg, static, spec, t_inner, board, key, dist_pop, scal, ints,
+            flips)
     if board.device.type == "cuda":
         from . import _build
-        out = _launch(_build.load("board_pair_chunk"), *args)
+        out = _launch(_build.load("board_pair_chunk"), *args, recounts)
         run_board_pair_chunk_cuda.launches += 1
         return out
     if board.device.type == "cpu":
@@ -348,7 +391,7 @@ run_board_pair_chunk_cuda.launches = 0
 def chunk_rows(outs) -> dict:
     """The rows ``run_chunk`` returns, {name: (T, C)}, from a chunk's
     outputs."""
-    return dict(zip(ROW_NAMES, outs[7:11]))
+    return dict(zip(ROW_NAMES, outs[5:9]))
 
 
 def run_chunk(bg: BoardGraph, spec: Spec, params: StepParams,
@@ -356,10 +399,10 @@ def run_chunk(bg: BoardGraph, spec: Spec, params: StepParams,
               static: PairBoardStatic | None = None, acc=None,
               keep_rows: bool = True):
     """``t_inner`` iterations of [split, complete wait, record, transition]
-    on the pair body, with the flip log replayed into part_sum /
-    last_flipped / num_flips: the JAX package's ``run_board_chunk`` on
-    this body. Returns (state, rows), rows {name: (T, C) tensor} with
-    cut_count, b_count, wait and accepts. With ``acc`` (a ``SummaryAcc``)
+    on the pair body, with part_sum / last_flipped / num_flips advanced by
+    the chunk's flip log under ``parity_metrics``: the JAX package's
+    ``run_board_chunk`` on this body. Returns (state, rows), rows {name:
+    (T, C) tensor} with cut_count, b_count, wait and accepts. With ``acc`` (a ``SummaryAcc``)
     the rows are also folded into it by the standalone fold and the
     return is (state, rows, acc); ``keep_rows=False`` besides returns no
     rows."""
@@ -368,15 +411,12 @@ def run_chunk(bg: BoardGraph, spec: Spec, params: StepParams,
     if acc is None and not keep_rows:
         raise ValueError("keep_rows=False drops the rows: pass an "
                          "accumulator")
-    t0 = state.t_yield
     key, dist_pop, scal, ints = pack_state(state, params)
+    flips = ((state.part_sum, state.last_flipped, state.num_flips)
+             if spec.parity_metrics else None)
     outs = run_board_pair_chunk_cuda(bg, static, spec, t_inner, state.board,
-                                     key, dist_pop, scal, ints)
+                                     key, dist_pop, scal, ints, flips)
     state = unpack_state(state, outs, t_inner)
-    if spec.parity_metrics:
-        ps, lf, nf = apply_flip_log(state.part_sum, state.last_flipped,
-                                    state.num_flips, outs[5], outs[6], t0)
-        state = state.replace(part_sum=ps, last_flipped=lf, num_flips=nf)
     rows = chunk_rows(outs)
     if acc is None:
         return state, rows

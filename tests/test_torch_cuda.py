@@ -704,7 +704,7 @@ def test_pair_runs_go_through_the_pair_kernel(card):
 def _board_pair_inputs(h, w, k, chains, tol, base, spec_kw, warm, dev):
     """A k-stripe start on the h x w grid, advanced ``warm`` steps by the
     run's own chunks: (wrapper module, BoardGraph, spec, static inputs,
-    the chunk's per-chain inputs)."""
+    the chunk's per-chain inputs and, under parity_metrics, its flips)."""
     from flipcomplexityempirical_tpu_torch.kernel import cuda_board_pair as cbp
     from flipcomplexityempirical_tpu_torch.sampling import board_runner
     g = graphs.square_grid(h, w)
@@ -717,7 +717,10 @@ def _board_pair_inputs(h, w, k, chains, tol, base, spec_kw, warm, dev):
                                             record_history=False,
                                             device=dev).state
     static = cbp.make_static_inputs(bg, spec, params)
-    return cbp, bg, spec, static, (st.board, *cbp.pack_state(st, params))
+    flips = ((st.part_sum, st.last_flipped, st.num_flips)
+             if spec.parity_metrics else None)
+    return (cbp, bg, spec, static,
+            (st.board, *cbp.pack_state(st, params), flips))
 
 
 @pytest.mark.cuda
@@ -729,22 +732,38 @@ def _board_pair_inputs(h, w, k, chains, tol, base, spec_kw, warm, dev):
     (64, 64, 4, 32, 0.5, 2.63815853, 40, {"contiguity": "none"}, 100),
     (32, 32, 4, 32, 0.5, 2.63815853, 40, {"accept": "always"}, 100),
     (64, 64, 4, 16, 0.0, 2.63815853, 40, {}, 0),
+    (64, 64, 4, 40, 0.5, 2.63815853, 40, {"parity_metrics": False}, 100),
+    (8, 16, 8, 13, 0.1, 0.8, 64, {"parity_metrics": False}, 100),
+    (17, 23, 5, 13, 0.2, 1.1, 80, {}, 60),
 ], ids=["64x64-k4", "40x65-k3", "8x16-k8-tight", "6x7-k3", "none",
-        "always", "empty-valid-set"])
+        "always", "empty-valid-set", "64x64-k4-no-parity",
+        "8x16-k8-tight-no-parity-C13", "17x23-k5-C13"])
 def test_board_pair_kernel_matches_plain_version(card, h, w, k, chains, tol,
                                                  base, t_len, spec_kw, warm):
-    """board_pair_chunk against its plain version, every output
-    bit-equal, one launch counted a call."""
+    """board_pair_chunk against its plain version, every output bit-equal
+    (part_sum / last_flipped / num_flips too under parity_metrics), one
+    launch counted a call, the inputs left as they were; a full recount
+    only after a move that changes a population mask, so at least one
+    where the gates bind (pop_tol 0.1 at 16 cells a district)."""
     cbp, bg, spec, static, ins = _board_pair_inputs(h, w, k, chains, tol,
                                                     base, spec_kw, warm, card)
+    tensors = [*ins[:5], *(ins[5] or ())]
+    kept = [x.clone() for x in tensors]
+    recounts = torch.full((chains,), -1, dtype=torch.int32, device=card)
     n0 = cbp.run_board_pair_chunk_cuda.launches
-    got = cbp.run_board_pair_chunk_cuda(bg, static, spec, t_len, *ins)
+    got = cbp.run_board_pair_chunk_cuda(bg, static, spec, t_len, *ins,
+                                        recounts=recounts)
     assert cbp.run_board_pair_chunk_cuda.launches == n0 + 1
     want = cbp.board_pair_chunk_reference(bg, static, spec, t_len, *ins)
+    assert len(got) == len(want) == (13 if spec.parity_metrics else 10)
     for name, g, w_ in zip(cbp.OUT_NAMES, got, want):
         assert torch.equal(g, w_), name
-    accepted = int((got[4][5] - ins[4][5]).sum())
-    assert (accepted == 0) == (tol == 0.0)
+    assert all(torch.equal(x, y) for x, y in zip(tensors, kept))
+    accepted = got[4][5] - ins[4][5]
+    assert (int(accepted.sum()) == 0) == (tol == 0.0)
+    assert bool((recounts >= 0).all() and (recounts <= accepted).all())
+    if tol == 0.1:
+        assert int(recounts.sum()) > 0
 
 
 @pytest.mark.cuda
