@@ -161,7 +161,7 @@ entry points a user calls, checks what comes out, and prints:
      over 10,001 steps; lowered_chunk at the frank batch's shape (C=192,
      the 24 tenants' parameters, its 369-step chunk) and
      general_dense_chunk at the hex batch's (C=32, its 2439-step chunk,
-     its plain version held after phase 23), each against its plain
+     its plain version held after phase 24), each against its plain
      version with one launch counted and timed beside its bound, the
      dense kernel's
      launch shape and cycles a step; ``bench --service --steps 400`` in
@@ -190,21 +190,21 @@ entry points a user calls, checks what comes out, and prints:
      history-mode runs, one fused launch a chunk and one standalone fold
      launch (the run's one-row record), the seconds split, the readback
      bytes, and ``data["summary"]`` bit-equal to the plain fold of the
-     history-mode run's history on the card (held after phase 23);
+     history-mode run's history on the card (held after phase 24);
   16. ``general_dense_chunk``'s interface form (``record_interface``:
      the slope and angle rows from a wall bitset a chain) against its plain
      version, every state field and row bit-equal, NaN for NaN, one launch
      counted a call and timed beside its bound: sec11 with
      ``nobacktrack`` and the Frankengraph with ``lazy_uniform`` at the
      experiment path's shape (C=8, T=2439; their plain versions held
-     after phase 23), sec11 at C=4096,
+     after phase 24), sec11 at C=4096,
      T=500 (``dense_turns.py`` times the hex instantiations, which have
      no walls, in turns against an earlier kernel);
   17. the pair walk's kernel, ``general_pair_chunk`` (the JAX package's
      dense step under proposal 'pair', ``kernel/dense.py:257``), against
      its plain version, bit-equal, one launch counted a call: the dual
      sweep's K4 and K8 configs at their shape (144 nodes, C=8, T=2439;
-     their plain versions held after phase 23),
+     their plain versions held after phase 24),
      hex 64x64 at k=4, C=4096, T=500 (timed beside its bound), each with
      its launch shape (tables staged or read through L1, bytes a chain,
      chains a block, blocks an SM: more than 8 chains resident an SM at
@@ -255,7 +255,7 @@ entry points a user calls, checks what comes out, and prints:
      exact law, phase 18's bars;
   22. the kpair family: the kernel at the experiment path's shape (kpair
      K4's start, C=8, T=369), timed with its full recounts, and held to
-     its plain version (after phase 23);
+     its plain version (after phase 24);
      ``run_config`` for kpair-K4-0B263P50 and kpair-K8-0B263P50 at the
      paper's shape (100,000 steps, 8 chains), the count zeroed before each
      (one launch a chunk): seconds split into run, render and set-up,
@@ -270,22 +270,45 @@ entry points a user calls, checks what comes out, and prints:
      the swap round's wall ms at that batch; ``lowered_chunk`` at that
      batch (C=80, T=50) from the state and the permuted betas of three
      swap rounds, timed beside its bound, and held to its plain version
-     (after phase 23);
+     (after phase 24);
      the card's 201-step run
      equal to ``tests/fixtures/torch/experiment_temper.npz``; each rung's
      cut-count law against the exact joint tempered law on the 3x4 grid
      (beta 1.0 / 0.5, base 3, a swap round after every transition, 2048
      ladders, 600 recorded steps after 600; ``tests/test_tempered.py:139``'s
      setting), phase 13's bars;
-  24. the plain versions held in phases 10, 14-17 and 21-23 (the
+  24. ReCom, the spanning-tree recombination chain, on its kernel
+     ``recom_chunk`` (the JAX package's ``sampling/recom.py:55-338``),
+     every line beside the card's name and power limit: the kernel
+     against its plain version (``sampling/recom.py::
+     recom_chunk_reference``), every state field and row bit-equal, the
+     waits included (both take CUDA's logf, so any difference fails), the
+     wrapper's shared-memory formula equal to the kernel's layout, one
+     launch counted a call, from states the kernel
+     advanced first: 64x64 at k=4 (C=64, T=16), 32x32 at k=4 (two sort
+     rounds), 8x8 at k=2 (one), the dual fixture map at k=4 (populations
+     that vary by node) and 6x6 at k=2 with eps 0.06 and one tree attempt
+     (moves that find no balanced edge); the kernel at C=1024, T=32 on
+     64x64 timed beside its bound, its launch shape, the plain version at
+     C=1024, T=2, and the BFS levels of 16 chains' next spanning trees;
+     ``run_recom`` at that shape, 65 steps, the count
+     zeroed just before and read just after (one launch a chunk): moves/s,
+     peak memory, the idle share, cut / cut_deg / dist_pop / cut_count /
+     b_count against a recount, 16 chains' districts connected and within
+     epsilon of the target; ``run_config`` for kpair-recom K4 on the 64x64
+     grid at 8 chains and 1,000 steps (seconds split, every artifact); the
+     card's runs of the JAX-made fixtures
+     (``tests/fixtures/torch/experiment_recom*.npz``) equal under
+     ``tests/test_torch_recom.py``'s rule;
+  25. the plain versions held in phases 10, 14-17 and 21-23 (the
      experiment path's 2439-step chunks at C=8 and C=32, whose plain
      versions take ~13-18 ms a step on the host, the plain folds of phase
      15's 100,000-step histories, the board pair chunk at C=4096,
      T=500 and at C=8, T=369, and the temper path's lowered chunk),
-     run at once after phase 23, one worker process each (nothing is
+     run at once after phase 24, one worker process each (nothing is
      timed meanwhile; each plain time is a host clock's beside the
      others'), each held to its kernel's output as in its phase;
-  25. the script's own total seconds, one JSON line per kernel table
+  26. the script's own total seconds, one JSON line per kernel table
      (``{"kernels": [...]}``), then as the last line ``{"ok": true,
      "device": {...}}``.
 
@@ -383,7 +406,7 @@ FIXTURE_WAIT_SHARE = 0.02       # wait rows off by a log tie, at most
 # checkpoint after the first segment (tests/test_torch_experiments_
 # fixture.py), held under the CPU tests' tolerance.
 EXP_STEPS, EXP_CHAINS = 100_000, 8
-# The plain versions held (run in plain_jobs, all at once after phase 23,
+# The plain versions held (run in plain_jobs, all at once after phase 24,
 # one worker process each) rather than in their phase: those of the
 # experiment path's 2439-step chunks (phases 10, 14, 16 and 17), host-bound
 # at ~13-18 ms a step at C=8, and phase 15's plain folds of a 100,000-step
@@ -574,7 +597,7 @@ def plain_jobs(card: str) -> dict:
                     p.kill()
                     p.wait()
         wall = time.perf_counter() - t0
-        print(f"[{card}] plain versions held after phase 23: "
+        print(f"[{card}] plain versions held after phase 24: "
               f"{len(procs)} at once, one worker process each, in "
               f"{wall:.3f} s wall")
         out = {}
@@ -2173,7 +2196,7 @@ def general_exactness(port, cd, sampling) -> float:
                 f"{int(got.exhausted_count.sum())}, accepted "
                 f"{int(got.accept_count.sum() - st.accept_count.sum())}; "
                 f"plain {secs:.3f} s, host clock)")
-        # the experiment path's chunk held after phase 23 (plain_jobs)
+        # the experiment path's chunk held after phase 24 (plain_jobs)
         err = max(err, hold_plain(
             "general_dense_chunk", cd.general_dense_chunk_reference,
             (dg, spec, params, st, t_len), check, defer=exp_path))
@@ -2195,7 +2218,7 @@ def general_exactness(port, cd, sampling) -> float:
             print(f"general_dense_chunk at the experiment path's shape "
                   f"(C={chains}, T={t_len}): {ms:.3f} ms per chunk (CUDA "
                   f"events, mean of 3, conn planes carried); plain version "
-                  f"held after phase 23; bound {bound_ms:.4e} ms "
+                  f"held after phase 24; bound {bound_ms:.4e} ms "
                   f"({bound_by})")
     # the launch shape of each case, cycles a step at the SM clock read
     # under the experiment path's load
@@ -2909,7 +2932,7 @@ def service_kernels(ex, runner, tb, cl, cd, card: str) -> dict:
                     f"[{card}] at the hex sweep's batch C={c} T={t_len} "
                     f"(plain {secs:.3f} s, host clock)")
                 return row["max_abs_err"]
-            # held after phase 23 (plain_jobs)
+            # held after phase 24 (plain_jobs)
             hold_plain("general_dense_chunk", cd.general_dense_chunk_reference,
                        (handle, spec, params, states, t_len), check,
                        defer=True)
@@ -3359,7 +3382,7 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                       f"bit-equal to the plain fold of the history-mode "
                       f"run's history ({secs:.3f} s, host clock)")
                 return 0.0
-            # held after phase 23 (plain_jobs)
+            # held after phase 24 (plain_jobs)
             hold_plain("summary_fold", sacc.fold_block,
                        (sacc.init_summary(cfg.n_chains, device=DEVICE),
                         rows), check, defer=True)
@@ -3376,7 +3399,7 @@ def summary_runs(ex, drv, cl, cd, cs, sacc, solo: dict, card: str) -> dict:
                   f"{data['readback_bytes']} bytes; "
                   f"{len(got)} artifacts byte-equal to the history mode's; "
                   f"data['summary'] held to the plain fold of the history "
-                  f"after phase 23")
+                  f"after phase 24")
             result.update(wall_s=wall, run_s=run_s, render_s=render_s,
                           history_run_s=solo[tag]["seconds"],
                           flips_per_s=fps, chunks=chunks, launches=folds,
@@ -3433,7 +3456,7 @@ IFACE_CASES = (
      dict(nobacktrack=True), BASE, 0.1, CHAINS, CHUNK),
 )
 # the pair kernel's cases: the dual sweep's configs at the sweep's shape
-# (C=8, T=2439; their plain versions held after phase 23), then the
+# (C=8, T=2439; their plain versions held after phase 24), then the
 # full-width 64 x 64 hex lattice at k = 4
 PAIR_DUAL = (("dual-K4-0B263P25", 4), ("dual-K8-0B263P25", 8))
 PAIR_HEX = dict(m=64, k=4, chains=CHAINS, chunk=CHUNK, tol=0.1, steps=1001)
@@ -3530,7 +3553,7 @@ def interface_phase(port, cd, sampling) -> dict:
                                   f"clock)")
             rows_bit_equal(rows, want[1], f"interface {label}")
             return err
-        # the experiment path's chunks held after phase 23 (plain_jobs)
+        # the experiment path's chunks held after phase 24 (plain_jobs)
         hold_plain("general_dense_chunk", cd.general_dense_chunk_reference,
                    (dg, spec, params, st, t_len), check,
                    defer=t_len > CHUNK)
@@ -3593,7 +3616,7 @@ def pair_cases(port, drv, ex, sampling) -> list:
 def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
     """Phase 17: general_pair_chunk against its plain version at the dual
     sweep's shape (k = 4 and 8, C=8, T=2439; their plain versions held
-    after phase 23) and at the full-width hex
+    after phase 24) and at the full-width hex
     64 x 64, k = 4, C=4096, T=500 (timed beside its bound), each launch
     counted; then run_chains at that shape with the count zeroed just
     before: flips/s, launches a chunk, peak memory and idle share."""
@@ -3618,7 +3641,7 @@ def pair_phase(port, cp, drv, ex, sampling, card: str) -> dict:
             return compare_general(
                 cp, got, rows, *want, f"{label} C={c} T={t_len} (plain "
                 f"{secs:.3f} s, host clock)", name="general_pair_chunk")
-        # the dual sweep's chunks held after phase 23 (plain_jobs)
+        # the dual sweep's chunks held after phase 24 (plain_jobs)
         err = max(err, hold_plain(
             "general_pair_chunk", cp.general_pair_chunk_reference,
             (dg, spec, params, st, t_len), check, defer=t_len > CHUNK))
@@ -3857,7 +3880,7 @@ def new_runs_phase(ex, drv, cp, cd, sampling, out_dir: str,
                     os.path.join(fdir, cfg.tag + kind)).read())
         try:
             ties = _parity.assert_experiment_matches(
-                got, fx, scaled_waits=cfg.family == "dual")
+                got, fx, waits="scaled" if cfg.family == "dual" else "unit")
         except AssertionError as exc:
             fail(f"fixture {which}: {exc}")
         print(f"fixture ({which}: the JAX package's run_config, {cfg.tag}, "
@@ -4072,7 +4095,7 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
     (run_board at 64 x 64, k = 4, C=4096, chunk 500, 1001 steps) with the
     count zeroed just before and read just after, its result checks,
     flips/s, peak memory and idle share; the kernel at that path's shape
-    from its final state, held to its plain version (after phase 23, in a
+    from its final state, held to its plain version (after phase 24, in a
     worker process), timed beside its bound, its launch shape and cycles
     a step; ``bench --k 4`` as a user runs it, one repeat; the 3 x 3 grid
     at k = 3 on the board route against the pair chain's exact law."""
@@ -4199,7 +4222,7 @@ def board_pair_phase(port, cbp, cl, tb, sampling, root, card: str) -> dict:
         return compare_lowered(cbp, got, want, f"board_pair_chunk main-path "
                                f"shape C={c} T={CHUNK} (plain {secs:.3f} s, "
                                "host clock)")
-    # held after phase 23 (plain_jobs)
+    # held after phase 24 (plain_jobs)
     hold_plain("board_pair_chunk", cbp.board_pair_chunk_reference, args,
                check, defer=True)
 
@@ -4292,10 +4315,10 @@ def kpair_stationary(port, sampling) -> dict:
 
 
 def fixture_matches(ex, drv, which: str, kw: dict, out_dir: str,
-                    scaled: bool) -> int:
+                    waits: str) -> int:
     """The card's run_config of a JAX-made fixture's config against the
-    fixture (tests/test_torch_families_fixture.py's rules); the waits off
-    by a log tie."""
+    fixture under ``_parity``'s wait rule ``waits`` (the one the fixture's
+    CPU test uses); the waits off by a log tie."""
     import os
 
     import numpy as np
@@ -4308,8 +4331,7 @@ def fixture_matches(ex, drv, which: str, kw: dict, out_dir: str,
     got = _parity.experiment_arrays(data, open(os.path.join(
         fdir, cfg.tag + "wait.txt")).read())
     try:
-        ties = _parity.assert_experiment_matches(got, fx, scaled_waits=scaled,
-                                                 sum_ulps=scaled)
+        ties = _parity.assert_experiment_matches(got, fx, waits=waits)
     except AssertionError as exc:
         fail(f"fixture {which}: {exc}")
     print(f"fixture ({which}: the JAX package's run_config, {cfg.tag}, "
@@ -4354,7 +4376,7 @@ def config_run(ex, drv, cfg, out_dir: str, wrapper, chunks: int,
 def kpair_runs(ex, drv, cbp, sampling, out_dir: str, card: str) -> dict:
     """Phase 22: the kernel at the experiment path's shape (kpair K4's
     start, C=8, one pick_chunk(100000, 512) = 369-step chunk), timed, and
-    held to its plain version (after phase 23); run_config for KPAIR_RUNS
+    held to its plain version (after phase 24); run_config for KPAIR_RUNS
     at the paper's shape
     (100,000 steps, 8 chains): one launch a chunk, seconds split, every
     artifact, each chain's cut_count against a recount and its districts
@@ -4400,7 +4422,7 @@ def kpair_runs(ex, drv, cbp, sampling, out_dir: str, card: str) -> dict:
                 exp["plain_ms"] = 1e3 * secs
                 return compare_lowered(cbp, got, want, f"{label} (plain "
                                        f"{secs:.3f} s, host clock)")
-            # held after phase 23 (plain_jobs), host-bound at ~20 ms a step
+            # held after phase 24 (plain_jobs), host-bound at ~20 ms a step
             hold_plain("board_pair_chunk", cbp.board_pair_chunk_reference,
                        args, check, defer=True)
         chunks = expected_chunks(sampling.runner, cfg)
@@ -4415,7 +4437,7 @@ def kpair_runs(ex, drv, cbp, sampling, out_dir: str, card: str) -> dict:
             fail(f"{tag}: a chain has a disconnected district")
         out[tag] = rec
     out["fixture_ties"] = fixture_matches(ex, drv, "kpair", KPAIR_FIXTURE,
-                                          out_dir, scaled=True)
+                                          out_dir, waits="scaled_ulps")
     return out
 
 
@@ -4512,11 +4534,11 @@ def temper_phase(ex, drv, cl, sampling, out_dir: str, card: str) -> dict:
             f"rounds C={kern['chains']} T={cfg.swap_every} (plain "
             f"{secs:.3f} s, host clock)")
         return kern["max_abs_err"]
-    # held after phase 23 (plain_jobs)
+    # held after phase 24 (plain_jobs)
     hold_plain("lowered_chunk", cl.lowered_chunk_reference, args, check,
                defer=True)
     rec["fixture_ties"] = fixture_matches(ex, drv, "temper", TEMPER_FIXTURE,
-                                          out_dir, scaled=False)
+                                          out_dir, waits="unit")
     # the exact joint law of a 2-rung ladder on the 3 x 4 grid
     e = TEMPER_ENUM
     b1, b2 = e["betas"]
@@ -4563,6 +4585,331 @@ def temper_phase(ex, drv, cl, sampling, out_dir: str, card: str) -> dict:
                                           "t_cut": t}
     rec["stationary"] = laws
     return rec
+
+
+# ---------------------------------------------------------------------------
+# ReCom (phase 24): the spanning-tree recombination chain on its kernel,
+# recom_chunk.cu, through run_recom, the driver and the fixtures
+# ---------------------------------------------------------------------------
+
+# the kpair family's grid at the JAX catalog's recom-grid overrides
+# (workloads/catalog.py:76-86): k = 4, base 1.0, pop_tol 0.25 (= epsilon)
+RECOM_GRID, RECOM_K, RECOM_TOL = 64, 4, 0.25
+RECOM_C, RECOM_T, RECOM_STEPS = 1024, 32, 65
+RECOM_PLAIN_T = 2
+RECOM_RUN = dict(family="kpair", chain="recom", n_districts=4, grid=64,
+                 alignment=0, base=1.0, pop_tol=0.25, total_steps=1000,
+                 n_chains=8, seed=0)
+# the kernel against its plain version: (label, graph, k, pop_tol, chains,
+# T, tree_retries, epsilon)
+RECOM_CASES = (("64x64 k=4", "grid64", 4, 0.25, 64, 16, 4, None),
+               ("32x32 k=4", "grid32", 4, 0.25, 16, 16, 4, None),
+               ("8x8 k=2", "grid8", 2, 0.25, 32, 32, 4, None),
+               ("dual fixture k=4", "dual", 4, 0.4, 16, 16, 4, None),
+               ("6x6 k=2 eps 0.06, one attempt", "grid6", 2, 0.06, 64, 16,
+                1, 0.06))
+RECOM_FIXTURES = {
+    "recom": dict(family="kpair", chain="recom", n_districts=4, grid=32,
+                  alignment=0, base=1.0, pop_tol=0.25, total_steps=41,
+                  checkpoint_every=20, n_chains=2, seed=0),
+    "recom_dual": dict(family="dual", chain="recom", n_districts=4,
+                       dual_source="fixture", alignment=0, base=1.0,
+                       pop_tol=0.4, total_steps=31, n_chains=2, seed=0)}
+# Operations a ReCom chunk needs, counted on this run's data (a floor):
+# each tree attempt draws the ranks (rounds * E threefry blocks, K_BLOCK
+# each, and 8 radix passes of K_RADIX a key a round), one Boruvka round at
+# least (two passes over the edges, K_REDGE an edge) and a BFS over the
+# nodes' slots (K_RSLOT a slot); each committed move recounts the cut over
+# the edges (K_REDGE) and the pairs over the slots (K_RSLOT) and draws its
+# wait (K_WAIT). Attempts: one a committed move, tree_retries an exhausted
+# one. K_RADIX: the digit (2), its count (2), the scan's share (2), the
+# scatter's offset and two stores (4): 10. K_REDGE: two endpoint loads,
+# the member test and the component compare (5). K_RSLOT: the mask, the
+# tree bit and the depth test (4).
+K_RADIX, K_REDGE, K_RSLOT = 10, 5, 4
+
+
+def recom_graph(port, which: str):
+    """The graph of a phase-24 case: the dual fixture map or an n x n
+    rook grid ('gridN')."""
+    if which == "dual":
+        from flipcomplexityempirical_tpu_torch.workloads.data import (
+            load_fixture)
+        g, _ = port.graphs.from_geojson(load_fixture(), pop_property="POP")
+        return g
+    return port.graphs.square_grid(int(which[4:]))
+
+
+def recom_inputs(port, cr, sampling, g, k: int, tol: float, chains: int,
+                 seed: int, warm: int = 0, eps=None, retries: int = 4):
+    """A ReCom batch on the card, advanced by ``warm`` kernel moves:
+    (dg, spec, params, state, kw)."""
+    spec = port.Spec(n_districts=k, proposal="pair" if k > 2 else "bi")
+    dg, st, params = sampling.init_batch(
+        g, port.graphs.stripes_plan(g, k), n_chains=chains, seed=seed,
+        spec=spec, base=1.0, pop_tol=tol, device=DEVICE)
+    kw = dict(epsilon=tol if eps is None else eps,
+              pop_target=float(g.pop.sum()) / k, tree_retries=retries)
+    if warm:
+        st, _ = cr.run_recom_chunk_cuda(dg, None, spec, params, st, warm,
+                                        **kw)
+    return dg, spec, params, st, kw
+
+
+def recom_equal(got, rows, want, wrows, label: str) -> float:
+    """Every state field and row of a kernel launch bit-equal to its plain
+    version's, the waits and the float fields included: both run on the
+    card and take CUDA's logf, so no log tie is expected and any
+    difference fails. Returns the largest |difference| over them all."""
+    import dataclasses
+
+    import torch
+    if sorted(rows) != sorted(wrows):
+        fail(f"recom_chunk {label}: rows {sorted(rows)} vs {sorted(wrows)}")
+    pairs = [(f"row {name}", rows[name], wrows[name]) for name in rows]
+    pairs += [(f, getattr(got, f).to(v.dtype), v)
+              for f, v in dataclasses.asdict(want).items()
+              if isinstance(v, torch.Tensor)]
+    err = 0.0
+    for name, g, w in pairs:
+        if g.shape != w.shape:
+            fail(f"recom_chunk {label}: {name} shape {tuple(g.shape)} vs "
+                 f"{tuple(w.shape)}")
+        d = (g.double() - w.double()).abs()
+        big = float(d.max()) if d.numel() else 0.0
+        err = max(err, big)
+        if not torch.equal(g, w):
+            fail(f"recom_chunk {label}: {name} differs from the plain "
+                 f"version in {int((g != w).sum())} places (largest "
+                 f"|difference| {big})")
+    return err
+
+
+def recom_bound(dg, chains: int, t_len: int, accepted: int,
+                exhausted: int, retries: int, k: int) -> tuple:
+    """(bound ms, 'bytes' or 'operations', bytes, operations) of one
+    chunk: each input read once, each output written once, and the
+    operations above for this run's attempts."""
+    from flipcomplexityempirical_tpu_torch import rng
+    n, e, d = dg.n_nodes, dg.n_edges, dg.max_deg
+    per_chain = (2 * n                        # assignment in, out
+                 + 2 * 3 * 4 * n              # part_sum, last_flipped,
+                 + 2 * 4 * e                  # num_flips, cut_times in, out
+                 + e + n + 4 * k              # cut, cut_deg, dist_pop out
+                 + 2 * (8 + 8 + 32)           # key, scal, ints in, out
+                 + 4 * 4 * t_len)             # four (T, C) rows
+    nbytes = chains * per_chain + 8 * e + 4 * n + 9 * n * d
+    attempts = accepted + retries * exhausted
+    per_attempt = (rng.permutation_rounds(e) * e * (K_BLOCK + 8 * K_RADIX)
+                   + 2 * K_REDGE * e + K_RSLOT * n * d)
+    per_commit = K_REDGE * e + K_RSLOT * n * d + K_WAIT
+    ops = attempts * per_attempt + accepted * per_commit
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes
+            else "bytes", nbytes, ops)
+
+
+def recom_tree_levels(dg, st, n_chains: int) -> list:
+    """The BFS levels of the spanning tree that each of the first
+    ``n_chains`` chains draws in its next move's first attempt: that
+    move's cut edge, merged pair and tree keys, through the plain bodies
+    (``sampling/recom.py``), which draw the kernel's trees."""
+    import torch
+    from flipcomplexityempirical_tpu_torch import rng
+    from flipcomplexityempirical_tpu_torch.sampling import recom
+    st = st.replace(**{f: getattr(st, f)[:n_chains] for f in (
+        "key", "assignment", "cut")})
+    ks = rng.split(st.key, 4)
+    u = rng.uniform_n(ks[:, 1], dg.n_edges)
+    e_star = torch.argmax(torch.where(st.cut > 0, u, -1.0), dim=1)
+    a = st.assignment.long()
+    cr_ = torch.arange(n_chains, device=a.device)
+    root = dg.edges[e_star, 0]
+    d1, d2 = a[cr_, root], a[cr_, dg.edges[e_star, 1]]
+    member = (a == d1[:, None]) | (a == d2[:, None])
+    k_tree = rng.split(rng.split(ks[:, 2], 2)[:, 1], 2)[:, 0]
+    in_tree = recom.spanning_forest(dg, member, k_tree)
+    _, depth = recom.tree_structure(dg, in_tree, member, root)
+    return (depth.max(dim=1).values + 1).tolist()
+
+
+def recom_phase(port, ex, drv, sampling, out_dir: str, card: str) -> dict:
+    """Phase 24: (a) recom_chunk against its plain version at
+    RECOM_CASES, from states the kernel advanced first, one launch counted
+    a call; (b) the kernel at C=1024, T=32 on 64x64 timed beside its bound,
+    its launch shape, and the plain version at C=1024, T=2; (c) run_recom
+    at that shape, 65 steps, the count zeroed just before and read just
+    after: moves/s, peak memory, the idle share, the invariants; (d)
+    run_config of RECOM_RUN: one launch a chunk, seconds split, every
+    artifact; (e) the card's runs of the JAX-made fixtures."""
+    import os
+
+    import numpy as np
+    import torch
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_recom as cr
+    from flipcomplexityempirical_tpu_torch.sampling import recom
+    from flipcomplexityempirical_tpu_torch.state.chain_state import derive
+    t_phase = time.perf_counter()
+    out = {"cases": []}
+    err = 0.0
+    # (a) the kernel against its plain version
+    for label, which, k, tol, chains, t_len, retries, eps in RECOM_CASES:
+        g = recom_graph(port, which)
+        dg, spec, params, st, kw = recom_inputs(
+            port, cr, sampling, g, k, tol, chains, 3, t_len, eps, retries)
+        smem = cr.launch_shape(dg, chains)["smem_bytes"]
+        if cr.smem_bytes(dg.n_nodes, dg.n_edges) != smem:
+            fail(f"recom_chunk {label}: the wrapper's smem_bytes "
+                 f"{cr.smem_bytes(dg.n_nodes, dg.n_edges)} vs the kernel's "
+                 f"layout {smem}")
+        n0 = cr.run_recom_chunk_cuda.launches
+        got, rows = cr.run_recom_chunk_cuda(dg, None, spec, params, st,
+                                            t_len, **kw)
+        torch.cuda.synchronize()
+        if cr.run_recom_chunk_cuda.launches != n0 + 1:
+            fail(f"recom_chunk {label}: the wrapper did not count its launch")
+        t0 = time.perf_counter()
+        want, wrows = recom.recom_chunk_reference(dg, spec, params, st,
+                                                  t_len, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        case_err = recom_equal(got, rows, want, wrows, label)
+        err = max(err, case_err)
+        acc = int((got.accept_count - st.accept_count).sum())
+        exh = int((got.exhausted_count - st.exhausted_count).sum())
+        if acc == 0:
+            fail(f"recom_chunk {label}: no move committed")
+        if retries == 1 and exh == 0:
+            fail(f"recom_chunk {label}: no move exhausted its one attempt")
+        print(f"[{card}] recom_chunk {label} (C={chains}, T={t_len}, "
+              f"tree_retries {retries}, from a state the kernel advanced "
+              f"{t_len} moves): bit-equal to the plain version, every state "
+              f"field and row, waits included (largest |difference| "
+              f"{case_err}); {smem} B shared memory a block, equal to "
+              f"smem_bytes; {acc} moves "
+              f"committed, {exh} exhausted; plain {plain_s:.3f} s (host "
+              "clock)")
+        out["cases"].append({"case": label, "chains": chains, "t": t_len,
+                             "committed": acc, "exhausted": exh,
+                             "max_abs_err": case_err,
+                             "smem_bytes": smem})
+    # (b) the kernel timed at the throughput shape
+    g = port.graphs.square_grid(RECOM_GRID)
+    dg, spec, params, st, kw = recom_inputs(port, cr, sampling, g, RECOM_K,
+                                            RECOM_TOL, RECOM_C, 0,
+                                            RECOM_PLAIN_T)
+    shape = cr.launch_shape(dg, RECOM_C)
+    got, _ = cr.run_recom_chunk_cuda(dg, None, spec, params, st, RECOM_T,
+                                     **kw)
+    ms = event_ms(lambda: cr.run_recom_chunk_cuda(dg, None, spec, params,
+                                                  st, RECOM_T, **kw), 3)
+    accepted = int((got.accept_count - st.accept_count).sum())
+    exhausted = int((got.exhausted_count - st.exhausted_count).sum())
+    bound_ms, bound_by, nbytes, ops = recom_bound(
+        dg, RECOM_C, RECOM_T, accepted, exhausted, kw["tree_retries"],
+        RECOM_K)
+    ms_short = event_ms(lambda: cr.run_recom_chunk_cuda(
+        dg, None, spec, params, st, RECOM_PLAIN_T, **kw), 3)
+    short, srows = cr.run_recom_chunk_cuda(dg, None, spec, params, st,
+                                           RECOM_PLAIN_T, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, wrows = recom.recom_chunk_reference(dg, spec, params, st,
+                                              RECOM_PLAIN_T, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(err, recom_equal(short, srows, want, wrows,
+                               f"C={RECOM_C} T={RECOM_PLAIN_T}"))
+    per_move_us = 1e3 * ms / (RECOM_T * shape["waves"])
+    levels = recom_tree_levels(dg, st, 16)
+    print(f"[{card}] recom_chunk 64x64 k=4 C={RECOM_C} T={RECOM_T}: "
+          f"{ms:.4f} ms a chunk (CUDA events, mean of 3), {per_move_us:.2f} "
+          f"us a move a wave; {accepted} moves committed, {exhausted} "
+          f"exhausted; bound {bound_ms:.4e} ms ({bound_by}: {nbytes:.4e} "
+          f"bytes, {ops:.4e} operations); launch shape: "
+          f"{shape['smem_bytes']} B shared memory a block, "
+          f"{shape['threads']} threads, {shape['registers']} registers, "
+          f"{shape['blocks_per_sm']} block(s) an SM, {shape['waves']} "
+          f"waves on {shape['sms']} SMs; at T={RECOM_PLAIN_T} the kernel "
+          f"{ms_short:.4f} ms, the plain version {plain_ms:.3f} ms (host "
+          "clock), bit-equal; the BFS levels of 16 chains' next trees "
+          f"{min(levels)}-{max(levels)} (mean "
+          f"{sum(levels) / len(levels):.1f})")
+    out.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+               plain_ms=plain_ms, plain_shape=f"C={RECOM_C}, "
+               f"T={RECOM_PLAIN_T}", ms_at_plain_shape=ms_short,
+               launch_shape=shape, tree_levels=levels)
+    # (c) the main path: run_recom
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cr.run_recom_chunk_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = recom.run_recom(dg, spec, params, st, n_steps=RECOM_STEPS,
+                          chunk=RECOM_T, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cr.run_recom_chunk_cuda.launches
+    chunks = -(-(RECOM_STEPS - 1) // RECOM_T)
+    peak = torch.cuda.max_memory_allocated()
+    moves_s = RECOM_C * (RECOM_STEPS - 1) / wall
+    if launches != chunks:
+        fail(f"run_recom: recom_chunk launched {launches} times for "
+             f"{chunks} chunks")
+    fs = res.state
+    cut, cut_deg, dist_pop, cut_count, b_count = derive(
+        dg, fs.assignment, RECOM_K, "pair")
+    for name, want_ in (("cut", cut), ("cut_deg", cut_deg),
+                        ("dist_pop", dist_pop), ("cut_count", cut_count),
+                        ("b_count", b_count)):
+        if not torch.equal(getattr(fs, name).to(want_.dtype), want_):
+            fail(f"run_recom: {name} disagrees with a recount")
+    target = kw["pop_target"]
+    lo, hi = target * (1 - RECOM_TOL), target * (1 + RECOM_TOL)
+    dp16 = fs.dist_pop[:16].double()
+    if not bool(((dp16 >= lo) & (dp16 <= hi)).all()):
+        fail("run_recom: a district's population is outside epsilon")
+    rows16 = fs.assignment[:16].cpu().numpy()
+    if not all(graph_connected(g, r, RECOM_K) for r in rows16):
+        fail("run_recom: a sampled chain has a disconnected district")
+    rate = float((fs.accept_count - st.accept_count).double().mean()) / (
+        RECOM_STEPS - 1)
+    print(f"[{card}] ReCom main path: run_recom 64x64 k=4, {RECOM_C} "
+          f"chains x {RECOM_STEPS} steps in {wall:.3f} s, {moves_s:.6e} "
+          f"moves/s; peak memory {peak / 2 ** 20:.1f} MiB; recom_chunk "
+          f"launches {launches} for {chunks} chunks; committed share "
+          f"{rate:.4f}; cut, cut_deg, dist_pop, cut_count and b_count equal "
+          "a recount on every chain; 16 chains' districts connected and "
+          f"within epsilon of {target:.0f}")
+    idle = idle_share(lambda: recom.run_recom(
+        dg, spec, params, st, n_steps=RECOM_STEPS, chunk=RECOM_T,
+        record_history=False, **kw), ("recom_chunk", cr.run_recom_chunk_cuda))
+    print(f"[{card}] profile of the ReCom main path ({RECOM_STEPS} steps): "
+          + idle)
+    out["main_path"] = {"wall_s": wall, "moves_per_s": moves_s,
+                        "peak_mib": peak / 2 ** 20, "launches": launches,
+                        "chunks": chunks, "committed_share": rate,
+                        "profile": idle}
+    out["launches"] = launches
+    # (d) the main config through the driver
+    cfg = ex.ExperimentConfig(**RECOM_RUN)
+    n_chunks = -(-(cfg.total_steps - 1)
+                 // sampling.runner.pick_chunk(cfg.total_steps, 256))
+    data, rec = config_run(ex, drv, cfg, os.path.join(out_dir, "recom"),
+                           cr.run_recom_chunk_cuda, n_chunks, card)
+    a = np.asarray(data["assignments"]).astype(np.int64)
+    if not all(graph_connected(g, r, cfg.n_districts) for r in a):
+        fail(f"{cfg.tag}: a chain has a disconnected district")
+    out["run_config"] = rec
+    # (e) the JAX-made fixtures
+    out["fixture_ties"] = {
+        which: fixture_matches(ex, drv, which, kw_, out_dir,
+                               waits="relative")
+        for which, kw_ in RECOM_FIXTURES.items()}
+    out["max_abs_err"] = err
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card}] ReCom phase: {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -4820,6 +5167,9 @@ def main() -> None:
                                    tmp, card)
         temper = temper_phase(port.experiments, drv, cl, gsampling, tmp,
                               card)
+        # ---- 24: ReCom --------------------------------------------------
+        recom_out = recom_phase(port, port.experiments, drv, gsampling, tmp,
+                                card)
     # the plain versions held in phases 10, 14, 15, 16, 17, 21, 22 and 23
     held = plain_jobs(card)
     bpair["max_abs_err"] = max(bpair["max_abs_err"],
@@ -4868,6 +5218,17 @@ def main() -> None:
         "plain_ms": bmain["plain_ms"], "bound_ms": bmain["bound_ms"],
         "bound_by": bmain["bound_by"], "library_ms": None,
         "main_shape": bmain, **bpair,
+    })
+    kernels.insert(0, {
+        "name": "recom_chunk", "route": "cuda",
+        "source": "flipcomplexityempirical_tpu_torch/csrc/recom_chunk.cu",
+        "replaces": "flipcomplexityempirical_tpu/sampling/recom.py:317",
+        "launches": recom_out.pop("launches"),
+        "max_abs_err": recom_out.pop("max_abs_err"),
+        "ms": recom_out.pop("ms"), "plain_ms": recom_out.pop("plain_ms"),
+        "bound_ms": recom_out.pop("bound_ms"),
+        "bound_by": recom_out.pop("bound_by"), "library_ms": None,
+        **recom_out,
     })
     kernels.insert(0, {
         "name": "summary_fold", "route": "cuda",

@@ -2,8 +2,9 @@
 kpair, triangular, hexagonal, temper and dual sweeps, segmented runs with
 checkpoint resume, each family's artifacts, and the CLI (``python -m
 flipcomplexityempirical_tpu_torch.experiments``). The port of
-``flipcomplexityempirical_tpu/experiments``; the supervisor, telemetry,
-the python oracle backend and the ReCom chain are not ported."""
+``flipcomplexityempirical_tpu/experiments``, the ReCom chain
+(``chain='recom'``) included; the supervisor, telemetry and the python
+oracle backend are not ported."""
 
 from .config import (
     ExperimentConfig, sec11_sweep, frank_sweep, kpair_sweep, tri_sweep,

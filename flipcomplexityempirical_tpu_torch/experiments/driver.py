@@ -24,7 +24,11 @@ checkpoint segments when ``cfg.checkpoint_every > 0``:
   walk, a proposal variant of sec11 or the Frankengraph, contiguity
   'exact') through the general runner ``run_chains``: the dense body on
   the general-dense kernel (the pair kernel for the pair walk) where the
-  JAX package would take it, else the legacy body.
+  JAX package would take it, else the legacy body;
+- ``cfg.chain == 'recom'`` (any family but temper) through
+  ``sampling.recom.run_recom`` on the general path's state, the ReCom
+  kernel on the card, with the JAX driver's ``epsilon = pop_tol`` and
+  ``pop_target = sum(pop) / k``.
 
 ``cfg.analytics == 'summary'`` runs either path in summary mode, as the
 JAX package's driver does: no history is kept, each chunk's rows are
@@ -71,6 +75,7 @@ from ..kernel import board as kboard
 from ..kernel.step import Spec, finalize_host
 from ..sampling.board_runner import (chunk_module, finalize_board_run,
                                      init_board, run_board_segment)
+from ..sampling.recom import run_recom
 from ..sampling.runner import init_batch, run_chains
 from ..sampling.tempered import (TemperResult, init_tempered,
                                  per_rung_history, run_tempered)
@@ -126,9 +131,8 @@ def _check_ported(cfg: ExperimentConfig) -> None:
                          "package)")
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r}")
-    if cfg.chain != "flip":
-        raise ValueError(f"chain {cfg.chain!r} is not ported: it waits for "
-                         "ROADMAP.md A9 (ReCom)")
+    if cfg.chain not in ("flip", "recom"):
+        raise ValueError(f"chain {cfg.chain!r}")
     if cfg.analytics not in ("history", "summary"):
         raise ValueError(f"analytics {cfg.analytics!r}")
 
@@ -252,9 +256,11 @@ def count_artifacts(cfg: ExperimentConfig, outdir: str) -> int:
 
 def _init_run(cfg: ExperimentConfig, g, plan, spec: Spec, device):
     """(use_board, (graph handle, state, StepParams)) on ``device``: the
-    board path where ``kernel.board.supports`` holds, on the lowered-chunk
-    kernel or, under 'pair', the board pair kernel (ValueError where that
-    kernel does not serve the spec), else the general runner's triple.
+    board path where ``kernel.board.supports`` holds and the chain is the
+    flip walk, on the lowered-chunk kernel or, under 'pair', the board
+    pair kernel (ValueError where that kernel does not serve the spec),
+    else the general runner's triple (ReCom's on any graph, as in the JAX
+    driver).
     The temper family's triple is ``init_tempered``'s (its ladders'
     chains)."""
     if cfg.family == "temper":
@@ -263,7 +269,7 @@ def _init_run(cfg: ExperimentConfig, g, plan, spec: Spec, device):
             g, plan, betas=cfg.betas, n_ladders=cfg.n_chains, seed=cfg.seed,
             spec=spec, base=cfg.base, pop_tol=cfg.pop_tol, device=device)
         use_board = isinstance(states, kboard.BoardState)
-    elif not kboard.supports(g, spec):
+    elif cfg.chain != "flip" or not kboard.supports(g, spec):
         return False, init_batch(g, plan, n_chains=cfg.n_chains,
                                  seed=cfg.seed, spec=spec, base=cfg.base,
                                  pop_tol=cfg.pop_tol, device=device)
@@ -419,6 +425,15 @@ def _run_torch(cfg: ExperimentConfig, g, plan, checkpoint_dir=None,
                                     record_every=cfg.record_every,
                                     history_device=True, device=dev,
                                     analytics=analytics)
+        elif cfg.chain == "recom":
+            # the JAX driver's knobs: epsilon is the config's population
+            # tolerance, the target the ideal district population
+            res = run_recom(handle, spec, params, states, n_steps=n,
+                            record_initial=(done == 0),
+                            record_every=cfg.record_every,
+                            history_device=True, epsilon=cfg.pop_tol,
+                            pop_target=float(np.asarray(g.pop).sum())
+                            / cfg.n_districts)
         else:
             res = run_chains(handle, spec, params, states, n_steps=n,
                              record_history=not summary_mode,

@@ -8,6 +8,10 @@ Two generators live here:
   ``split`` and the scalar f32 ``uniform``. The board path draws the
   final record's geometric wait through them (``board.record_final``),
   and ``init_board_state`` seeds the per-chain keys with them.
+  ``random_bits``, ``uniform_n``, ``permutation`` and ``gumbel`` are
+  the array draws of ReCom (``sampling/recom.py``): ``jax.random.bits``,
+  ``uniform`` (with ``minval`` / ``maxval``), ``permutation`` of a range
+  and ``gumbel`` (low mode) over a shape, bit for bit.
 - **Philox4x32-10**, the generator written into the CUDA kernels
   (``csrc/board_chunk.cu``, ``csrc/probes.cu``). ``philox4x32`` is its
   torch twin, so the kernels' plain versions reproduce the device-RNG
@@ -20,6 +24,8 @@ leaves the int64 range.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -117,6 +123,57 @@ def uniform(keys: torch.Tensor) -> torch.Tensor:
     """``jax.random.uniform(key)`` (f32 scalar in [0, 1)) per key: the top
     23 bits as the mantissa of a float in [1, 2), minus 1 — exact."""
     return uniform_of(random_bits32(keys))
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` per key: (..., 2) keys ->
+    (..., n) int64 words, word i the XOR of the two words of the block at
+    counter (0, i) (partitionable threefry)."""
+    ctr = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b0, b1 = blocks(keys[..., None, :], ctr)
+    return b0 ^ b1
+
+
+F32_TINY = 1.1754943508222875e-38      # numpy.finfo(float32).tiny
+
+
+def uniform_n(keys: torch.Tensor, n: int, minval: float = 0.0,
+              maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), minval=, maxval=)`` per key: (...,
+    n) f32, the steps of JAX's ``_uniform`` in f32 (``floats * (maxval -
+    minval) + minval``, then the max with ``minval``)."""
+    f32 = torch.float32
+    lo = torch.tensor(minval, dtype=f32, device=keys.device)
+    hi = torch.tensor(maxval, dtype=f32, device=keys.device)
+    floats = uniform_of(random_bits(keys, n))
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def permutation_rounds(n: int) -> int:
+    """The sort rounds of ``jax.random.permutation`` over ``n`` items:
+    ceil(3 ln n / ln(2**32 - 1)), one up to 1625 items, two from 1626."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` per (C, 2) key: (C, n) int64.
+    Each round splits the key, draws 32 bits a position from the second
+    half and stably sorts the items by them (JAX's ``_shuffle``)."""
+    x = torch.arange(n, dtype=torch.int64, device=keys.device).expand(
+        keys.shape[0], n)
+    for _ in range(permutation_rounds(n)):
+        ks = split(keys, 2)
+        keys = ks[:, 0]
+        order = torch.sort(random_bits(ks[:, 1], n), dim=1,
+                           stable=True).indices
+        x = torch.gather(x, 1, order)
+    return x.contiguous()
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,))`` per key in its low mode: -log(-log
+    u), u the f32 uniform in [tiny, 1)."""
+    return -torch.log(-torch.log(uniform_n(keys, n, minval=F32_TINY)))
 
 
 def _mulhilo(a: torch.Tensor, m: int):

@@ -228,12 +228,13 @@ class SweepService:
 
     def _solo_only(self, job: q.Job) -> bool:
         """Jobs the coalescer must not touch: the temper family (its swap
-        state is global to the run's ladders) and those with an existing
-        checkpoint (resume points differ; coalescing assumes a common
-        step 0). The JAX package's other solo jobs (isolation retries,
-        non-flip chains) are refused here: retries wait for ROADMAP.md
-        A11, ReCom at submission."""
+        state is global to the run's ladders), non-flip chains (ReCom
+        runs solo through the driver, as in the JAX service) and those
+        with an existing checkpoint (resume points differ; coalescing
+        assumes a common step 0). The JAX package's other solo jobs,
+        isolation retries, wait for ROADMAP.md A11."""
         return (job.config.family == "temper"
+                or job.config.chain != "flip"
                 or self._has_checkpoint(job.config))
 
     def _form_groups(self, jobs: list) -> list:

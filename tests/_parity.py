@@ -26,6 +26,13 @@ import numpy as np
 WAIT_MISMATCH_SHARE = 1e-3
 WAIT_SCALED_FROM = 2 ** 21 * WAIT_MISMATCH_SHARE
 FLOAT_STATE = ("state_cur_wait", "state_waits_sum")
+# the ReCom runs' waits (the "relative" rule): up to n**k / 2 at k = 4 (~1e9 on
+# the 32 x 32 grid), where a log tie moves floor(log u / log1p(-p)) by a few
+# units in the last place of the f32 wait: each differing wait within
+# WAIT_REL * |wait| + 1 (8 units of 2**-23), each float state field within
+# that much per differing wait of its chain, the wait totals as
+# ``assert_relative_wait_totals`` says
+WAIT_REL = 2.0 ** -20
 
 
 def assert_waits_close(got, want, name="wait", scaled=False):
@@ -108,30 +115,88 @@ def experiment_arrays(data: dict, wait_txt: str) -> dict:
     return out
 
 
+def assert_relative_waits(got, want, n_bad, name="wait") -> None:
+    """The "relative" rule's bound: each entry within ``n_bad`` (per chain, or 1
+    an entry) times WAIT_REL * |want| + 1."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    n_bad = np.broadcast_to(np.asarray(n_bad), got.shape[:1])
+    n_bad = n_bad.reshape(n_bad.shape + (1,) * (got.ndim - 1))
+    assert (np.abs(got - want)
+            <= n_bad * (WAIT_REL * np.abs(want) + 1.0)).all(), name
+
+
+def assert_relative_wait_totals(got, want, got_hist, want_hist,
+                                name="waits_all") -> None:
+    """The "relative" rule's bound on each chain's wait total (f32 sums a chunk,
+    drained to f64): equal where no recorded wait differed, else within
+    the waits' summed differences plus a unit in the last place of the
+    f32 total for every yield from the first differing wait on (each later
+    f32 addition may round the other way)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    gh = np.asarray(got_hist, np.float64)
+    wh = np.asarray(want_hist, np.float64)
+    bad = gh != wh
+    n_bad = bad.sum(axis=1)
+    np.testing.assert_array_equal(got[n_bad == 0], want[n_bad == 0],
+                                  err_msg=name)
+    first = np.where(bad.any(axis=1), np.argmax(bad, axis=1), gh.shape[1])
+    unit = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    slack = np.abs(gh - wh).sum(axis=1) + (gh.shape[1] - first) * unit
+    assert (np.abs(got - want) <= slack).all(), name
+
+
+# assert_experiment_matches' wait rules, each a complete rule:
+# "unit": the module's rule (each differing wait off by exactly 1.0, at
+#     most 1e-3 of entries; totals within a unit per differing wait);
+# "scaled": the k-district walks' per-entry rule, totals as "unit";
+# "scaled_ulps": "scaled" with the wait totals within that many units in
+#     the last place of their f32 sum (``sum_ulps``);
+# "relative": the ReCom runs' rule, "scaled" per entry and each differing
+#     wait within WAIT_REL (``assert_relative_waits``), the totals as
+#     ``assert_relative_wait_totals`` says, the float state fields equal
+#     where no wait differed and within WAIT_REL per differing wait.
+WAIT_RULES = ("unit", "scaled", "scaled_ulps", "relative")
+
+
 def assert_experiment_matches(got: dict, want: dict,
-                              scaled_waits: bool = False,
-                              sum_ulps: bool = False) -> int:
+                              waits: str = "unit") -> int:
     """Hold a run's arrays (``experiment_arrays``) against a fixture's:
-    the rules above (``scaled_waits``: the k-district walks' wait rule;
-    ``sum_ulps``: their wait totals' rule),
-    the wait totals and float state fields within the number of
-    differing waits of their chain, ``wait.txt`` equal unless a tie was
-    counted in chain 0. Returns the differing waits."""
+    the waits, their totals and the float state fields under the rule
+    ``waits`` (``WAIT_RULES``), the interface metrics within 4 ulp,
+    ``wait.txt`` equal unless a tie was counted in chain 0, everything
+    else bit-equal. Returns the differing waits."""
+    if waits not in WAIT_RULES:
+        raise ValueError(f"waits={waits!r}: one of {WAIT_RULES}")
+    scaled = waits != "unit"
+    relative = waits == "relative"
     assert sorted(got) == sorted(want)
     bad = assert_waits_close(got["hist_wait"], want["hist_wait"],
-                             scaled=scaled_waits)
+                             scaled=scaled)
     n_bad = bad.sum(axis=1)
+    if relative:
+        assert_relative_waits(got["hist_wait"], want["hist_wait"], 1)
     if "hist_weight" in want:                  # 1 + wait, lazy_uniform
         np.testing.assert_array_equal(assert_waits_close(
             got["hist_weight"], want["hist_weight"], "weight",
-            scaled=scaled_waits), bad)
-    assert_wait_sums_close(got["waits_all"], want["waits_all"], n_bad,
-                           sum_ulps=sum_ulps)
+            scaled=scaled), bad)
+    if relative:
+        assert_relative_wait_totals(got["waits_all"], want["waits_all"],
+                                    got["hist_wait"], want["hist_wait"])
+    else:
+        assert_wait_sums_close(got["waits_all"], want["waits_all"], n_bad,
+                               sum_ulps=waits == "scaled_ulps")
     for k in ("slopes", "angles", "hist_slope", "hist_angle"):
         if k in want:
             assert_ulps_close(got[k], want[k], name=k)
     for k in FLOAT_STATE:
-        assert_wait_sums_close(got[k], want[k], n_bad, name=k)
+        if relative:
+            np.testing.assert_array_equal(got[k][n_bad == 0],
+                                          want[k][n_bad == 0], err_msg=k)
+            assert_relative_waits(got[k], want[k], n_bad, name=k)
+        else:
+            assert_wait_sums_close(got[k], want[k], n_bad, name=k)
     if n_bad[0] == 0:
         assert str(got["wait_txt"]) == str(want["wait_txt"])
     skip = {"hist_wait", "hist_weight", "waits_all", "slopes", "angles",

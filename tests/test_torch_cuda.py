@@ -29,6 +29,8 @@ from flipcomplexityempirical_tpu_torch.sampling import (init_batch,
                                                         run_board,
                                                         run_board_cuda,
                                                         run_chains)
+from flipcomplexityempirical_tpu_torch.sampling.recom import (
+    recom_chunk_reference)
 
 
 @pytest.fixture
@@ -792,3 +794,156 @@ def test_board_pair_runs_go_through_the_kernel(card):
     run_board(bg, spec, params, st, n_steps=101, chunk=25,
               record_history=False, analytics=an, device=card)
     assert cs.summary_fold.launches == f0 + 5     # the final record too
+
+
+def _recom_inputs(graph, plan, k, chains, tol, seed, card, warm_moves=0,
+                  eps=None, retries=4):
+    """A ReCom batch on the card: (dg, spec, params, state, kw), the state
+    advanced by ``warm_moves`` kernel moves first."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_recom as cr
+    spec = Spec(n_districts=k, proposal="pair" if k > 2 else "bi")
+    dg, st, params = init_batch(graph, plan, n_chains=chains, seed=seed,
+                                spec=spec, base=1.0, pop_tol=tol,
+                                device=card)
+    kw = dict(epsilon=tol if eps is None else eps,
+              pop_target=float(graph.pop.sum()) / k, tree_retries=retries)
+    if warm_moves:
+        st, _ = cr.run_recom_chunk_cuda(dg, None, spec, params, st,
+                                        warm_moves, **kw)
+    return dg, spec, params, st, kw
+
+
+def _recom_case(card, case):
+    if case == "dual-k4":
+        from flipcomplexityempirical_tpu_torch.workloads.data import (
+            load_fixture)
+        g, _ = graphs.from_geojson(load_fixture(), pop_property="POP")
+        return g, graphs.stripes_plan(g, 4), 4, 0.4
+    n, k = {"8x8-k2": (8, 2), "8x8-k4": (8, 4), "16x16-k4": (16, 4),
+            "32x32-k4": (32, 4), "6x6-k2": (6, 2)}[case]
+    g = graphs.square_grid(n, n)
+    return g, graphs.stripes_plan(g, k), k, 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["8x8-k2", "32x32-k4", "dual-k4",
+                                  "6x6-k2", "64x64-k4"])
+def test_recom_smem_bytes_matches_the_kernel(card, case):
+    """The wrapper's shared-memory formula, which its refusals use, equals
+    the byte count the kernel's own layout gives for the graphs the card
+    runs."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_recom as cr
+    g = (graphs.square_grid(64, 64) if case == "64x64-k4"
+         else _recom_case(card, case)[0])
+    dg, _, _ = init_batch(g, graphs.stripes_plan(g, 2), n_chains=1, seed=0,
+                          spec=Spec(n_districts=2, proposal="bi"),
+                          base=1.0, pop_tol=0.5, device=card)
+    assert cr.smem_bytes(dg.n_nodes, dg.n_edges) == \
+        cr.launch_shape(dg, 1)["smem_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,chains,t_len,warm,eps,retries", [
+    ("8x8-k2", 8, 8, 4, None, 4),
+    ("8x8-k4", 8, 8, 4, None, 4),
+    ("16x16-k4", 5, 6, 3, None, 4),
+    ("32x32-k4", 3, 4, 2, None, 4),
+    ("dual-k4", 4, 6, 3, None, 4),
+    ("6x6-k2", 16, 6, 2, 0.06, 1),
+])
+def test_recom_kernel_matches_plain_version(card, case, chains, t_len, warm,
+                                            eps, retries):
+    """recom_chunk against its plain version from a state the kernel
+    advanced: every state field and row bit-equal, one launch counted a
+    call, the inputs left as they were; at 6x6, eps 0.06 and one attempt
+    some moves find no balanced edge."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_recom as cr
+    g, plan, k, tol = _recom_case(card, case)
+    dg, spec, params, st, kw = _recom_inputs(g, plan, k, chains, tol, 1,
+                                             card, warm, eps, retries)
+    kept = {f: v.clone() for f, v in dataclasses.asdict(st).items()
+            if isinstance(v, torch.Tensor)}
+    n0 = cr.run_recom_chunk_cuda.launches
+    got, rows = cr.run_recom_chunk_cuda(dg, None, spec, params, st, t_len,
+                                        **kw)
+    assert cr.run_recom_chunk_cuda.launches == n0 + 1
+    want, wrows = recom_chunk_reference(dg, spec, params, st, t_len, **kw)
+    assert sorted(rows) == sorted(wrows)
+    for name in rows:
+        assert torch.equal(rows[name], wrows[name]), name
+    for f, v in dataclasses.asdict(want).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(getattr(got, f).to(v.dtype), v), f
+    for f, v in kept.items():
+        assert torch.equal(getattr(st, f), v), f
+    if case == "6x6-k2":
+        assert int((got.exhausted_count - st.exhausted_count).sum()) > 0
+    assert int((got.accept_count - st.accept_count).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_run_recom_goes_through_the_kernel(card):
+    """run_recom launches recom_chunk once a chunk, and its run equals
+    the plain chunks' run (the initial record first, then 5 chunks of 4
+    moves thinned to every second yield)."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_recom as cr
+    from flipcomplexityempirical_tpu_torch.sampling import recom
+    g = graphs.square_grid(12, 12)
+    dg, spec, params, st, kw = _recom_inputs(g, graphs.stripes_plan(g, 4),
+                                             4, 6, 0.25, 3, card)
+    n0 = cr.run_recom_chunk_cuda.launches
+    res = recom.run_recom(dg, spec, params, st, n_steps=21, chunk=4,
+                          record_every=2, **kw)
+    assert cr.run_recom_chunk_cuda.launches == n0 + 5
+    state, hist = st, []
+    for _ in range(5):
+        state, rows = recom_chunk_reference(dg, spec, params, state, 4,
+                                            **kw)
+        hist.append(rows["cut_count"][1::2].T.cpu().numpy())
+    np.testing.assert_array_equal(res.history["cut_count"][:, 1:],
+                                  np.concatenate(hist, axis=1))
+    assert torch.equal(res.state.assignment, state.assignment)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lazy_uniform", "no parity",
+                                     "no waits", "half the pair's target",
+                                     "flip cursor"])
+def test_recom_kernel_variants_match_plain_version(card, variant):
+    """The kernel's other settings against the plain version, bit-equal:
+    the weight row, parity_metrics and geom_waits off, pop_target None
+    (half the merged pair's population), and a state whose last flip
+    cursor is set (a flip chain's state), where the record's parity
+    bookkeeping runs on the moves that find no balanced edge (one tree
+    attempt at eps 0.06)."""
+    from flipcomplexityempirical_tpu_torch.kernel import cuda_recom as cr
+    g = graphs.square_grid(10, 10)
+    k, eps, retries = (2, 0.06, 1) if variant == "flip cursor" else (
+        4, 0.25, 4)
+    dg, spec, params, st, kw = _recom_inputs(
+        g, graphs.stripes_plan(g, k), k, 12, eps, 5, card, 3,
+        retries=retries)
+    spec = dataclasses.replace(spec, **{
+        "lazy_uniform": dict(lazy_uniform=True),
+        "no parity": dict(parity_metrics=False),
+        "no waits": dict(geom_waits=False)}.get(variant, {}))
+    if variant == "half the pair's target":
+        kw["pop_target"] = None
+    if variant == "flip cursor":
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        st = st.replace(
+            cur_flip_node=torch.randint(0, 100, (12,), generator=gen).to(
+                card, torch.int32),
+            last_flipped=torch.randint(0, 3, st.last_flipped.shape,
+                                       generator=gen).to(card, torch.int32))
+    got, rows = cr.run_recom_chunk_cuda(dg, None, spec, params, st, 8, **kw)
+    want, wrows = recom_chunk_reference(dg, spec, params, st, 8, **kw)
+    assert sorted(rows) == sorted(wrows) == sorted(cr.row_names(spec))
+    for name in rows:
+        assert torch.equal(rows[name], wrows[name]), name
+    for f, v in dataclasses.asdict(want).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(getattr(got, f).to(v.dtype), v), f
+    if variant == "flip cursor":
+        assert int((got.exhausted_count - st.exhausted_count).sum()) > 0
+        assert not torch.equal(got.num_flips, st.num_flips)

@@ -85,13 +85,15 @@ def test_kpair_and_temper_configs_run(kw, tmp_path):
 
 
 @pytest.mark.parametrize("kw, missing", [
-    (dict(family="tri", chain="recom"), "A9"),
+    (dict(family="tri", chain="recom", analytics="summary"),
+     "the recom chain stays on the history"),
     (dict(family="dual", n_districts=4, variant="nobacktrack"),
      "2-district 'bi' walk"),
     (dict(family="frank", accept="corrected"), "B4"),
-    (dict(family="sec11", chain="recom"), "A9"),
+    (dict(family="sec11", chain="gibbs"), "chain 'gibbs'"),
     (dict(family="sec11", accept="corrected"), "B4"),
-    (dict(family="dual", n_districts=8, chain="recom"), "A9"),
+    (dict(family="dual", n_districts=8, chain="recom", backend="python"),
+     "runs 'torch' only"),
 ], ids=lambda x: x if isinstance(x, str) else "-".join(
     f"{k}={v}" for k, v in x.items()))
 def test_unported_configs_are_refused(kw, missing, tmp_path):

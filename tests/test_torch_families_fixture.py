@@ -26,7 +26,8 @@ and swap counts included; waits under the log-tie rule, its ``scaled``
 form for kpair's k = 4 (each differing wait off by exactly 1.0), the
 wait totals and float state fields within the number of differing waits
 of their chain (kpair's totals, f32 chunk sums of waits ~1e7, within
-that many units in the last place of the f32 sum: ``sum_ulps``);
+that many units in the last place of the f32 sum: the ``scaled_ulps``
+rule);
 ``wait.txt`` equal unless a tie was counted in chain 0.
 A checkpointed run of the port resumes bit for bit to its uninterrupted
 run.
@@ -55,7 +56,7 @@ RUNS = {
 }
 SHAPE = dict(n_chains=2, seed=0)
 CKPT_EVERY = {"kpair": 200, "temper": 100}
-SCALED = {"kpair": True, "temper": False}
+WAITS = {"kpair": "scaled_ulps", "temper": "unit"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -124,8 +125,7 @@ def test_run_config_matches_jax(which, tmp_path):
     cfg = port_config(which)
     got = port_arrays(cfg, tmp_path)
     assert_experiment_matches(got, dict(np.load(fixture_path(which))),
-                              scaled_waits=SCALED[which],
-                              sum_ulps=SCALED[which])
+                              waits=WAITS[which])
     assert driver.is_done(cfg, str(tmp_path))
 
 
@@ -138,8 +138,7 @@ def test_jax_checkpoint_resumes_to_jax_end(which, tmp_path):
     got = port_arrays(port_config(which, checkpoint_every=CKPT_EVERY[which]),
                       tmp_path / "out", checkpoint_dir=str(ck))
     assert_experiment_matches(got, dict(np.load(fixture_path(which))),
-                              scaled_waits=SCALED[which],
-                              sum_ulps=SCALED[which])
+                              waits=WAITS[which])
 
 
 @pytest.mark.parametrize("which", sorted(RUNS))

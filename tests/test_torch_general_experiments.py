@@ -80,7 +80,7 @@ def port_arrays(which: str, out, **kw) -> dict:
 def test_run_config_matches_jax(which, tmp_path):
     assert_experiment_matches(port_arrays(which, tmp_path),
                               dict(np.load(fixture_path(which))),
-                              scaled_waits=which == "dual")
+                              waits="scaled" if which == "dual" else "unit")
 
 
 def test_summary_mode_writes_the_history_artifacts(tmp_path):

@@ -153,7 +153,8 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
 
 def test_refusals_name_their_item():
     """What is still refused names its item; the kpair and temper families
-    (ROADMAP.md A7b, A8) now have their Specs, the JAX driver's."""
+    (ROADMAP.md A7b, A8) and the ReCom chain (A9) now have their Specs,
+    the JAX driver's."""
     from flipcomplexityempirical_tpu.experiments import driver as jdriver
     from flipcomplexityempirical_tpu.experiments.config import (
         ExperimentConfig as JConfig)
@@ -163,7 +164,7 @@ def test_refusals_name_their_item():
     for kw, item in ((dict(family="dual", n_districts=4,
                            variant="nobacktrack"), "2-district 'bi' walk"),
                      (dict(family="temper"), None),
-                     (dict(family="tri", chain="recom"), "A9"),
+                     (dict(family="tri", chain="recom"), None),
                      (dict(family="kpair"), None)):
         cfg = ExperimentConfig(alignment=0, base=1.0, pop_tol=0.1, **kw)
         if item is None:

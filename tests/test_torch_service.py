@@ -132,16 +132,32 @@ def test_submit_runs_kpair_and_temper(tmp_path, kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(family="dual", n_districts=4, chain="recom"), "A9"),
-    (dict(family="frank", chain="recom"), "A9"),
-    (dict(family="frank", variant="nobacktrack", chain="recom"), "A9"),
-], ids=["dual", "recom", "frank variant"])
+    (dict(family="dual", n_districts=4, chain="gibbs"), "chain 'gibbs'"),
+    (dict(family="frank", chain="recom", backend="python"),
+     "runs 'torch' only"),
+    (dict(family="frank", variant="nobacktrack", analytics="fold"),
+     "analytics 'fold'"),
+], ids=["dual unknown chain", "recom backend", "frank variant analytics"])
 def test_submit_refuses_unported(tmp_path, kw, item):
     svc = SweepService(str(tmp_path), device="cpu")
     cfg = config.ExperimentConfig(alignment=0, base=0.3, pop_tol=0.1, **kw)
     with pytest.raises(ValueError, match=item):
         svc.submit(cfg)
     assert len(svc.queue) == 0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(family="dual", n_districts=4, chain="recom"),
+    dict(family="frank", chain="recom"),
+    dict(family="frank", variant="nobacktrack", chain="recom"),
+], ids=["dual", "recom", "frank variant"])
+def test_submit_queues_recom_solo(tmp_path, kw):
+    """ReCom configs, refused while A9 was open, are queued and run solo
+    (never coalesced), as the JAX service runs them."""
+    svc = SweepService(str(tmp_path), device="cpu")
+    cfg = config.ExperimentConfig(alignment=0, base=0.3, pop_tol=0.1, **kw)
+    job = svc.submit(cfg)
+    assert len(svc.queue) == 1 and svc._solo_only(job)
 
 
 def test_submit_accepts_summary(tmp_path):

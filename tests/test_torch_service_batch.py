@@ -17,7 +17,7 @@ runs, on the CPU (the kernels' plain versions).
   on 16 x 16, 401 steps in two segments, 2 chains, seed 0) and equals it
   under ``_parity``'s rule (integers bit-equal, waits under the log-tie
   rule, the k = 4 runs' under its ``scaled`` form, kpair's wait totals
-  under ``sum_ulps``).
+  under the ``scaled_ulps`` rule).
 - A batch writes each tenant its own checkpoint, in the JAX package's
   format, from its sliced rows; a resubmission runs solo from it and ends
   where the batch ended.
@@ -142,7 +142,7 @@ def test_coalesced_batch_bit_identical_to_solo(which, tmp_path):
         want.pop(k, None)
     assert_experiment_matches(
         _fixture_arrays(cfgs[0], jobs[0].result, tmp_path), want,
-        scaled_waits=which in ("dual", "kpair"), sum_ulps=which == "kpair")
+        waits={"dual": "scaled", "kpair": "scaled_ulps"}.get(which, "unit"))
 
 
 @pytest.mark.parametrize("family", ["frank", "hex"])
